@@ -1,0 +1,191 @@
+"""VQVAE decoder side (counterpart of ``var_tpu/models/vae.py``).
+
+NCHW inside, with the reference module names (``models/basic_vae.py``,
+``models/vqvae.py``) so a reference state dict loads with
+``load_state_dict``: ``decoder.*``, ``post_quant_conv.*``, ``quantize.*``.
+Convolutions cast their float32 weights to the input dtype at use, as the
+JAX package does, so the decoder runs in the compute dtype. Public tensors
+are NHWC: ``fhat_to_img`` takes f_hat (B, h, w, Cvae) and returns the image
+(B, H, W, 3) in [-1, 1]. The encoder and ``quant_conv`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from var_tpu_torch.config import VAEConfig
+from var_tpu_torch.models.quantizer import VectorQuantizer2
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weights are cast to the input dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.GroupNorm`` semantics (``basic_vae.py:18-19``; statistics
+    accumulate in float32 for every input dtype)."""
+    return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
+                        norm.eps)
+
+
+def _norm(c: int) -> nn.GroupNorm:
+    return nn.GroupNorm(32, c, eps=1e-6)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.norm1 = _norm(cin)
+        self.conv1 = Conv2d(cin, cout, 3, padding=1)
+        self.norm2 = _norm(cout)
+        self.conv2 = Conv2d(cout, cout, 3, padding=1)
+        self.nin_shortcut = Conv2d(cin, cout, 1) if cin != cout else None
+
+
+class AttnBlock(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.norm = _norm(c)
+        self.qkv = Conv2d(c, 3 * c, 1)
+        self.proj_out = Conv2d(c, c, 1)
+
+
+class Upsample2x(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv2d(c, c, 3, padding=1)
+
+
+class _Level(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.block = nn.ModuleList()
+        self.attn = nn.ModuleList()
+        self.upsample: Optional[Upsample2x] = None
+
+
+class _Mid(nn.Module):
+    def __init__(self, c: int, using_mid_sa: bool):
+        super().__init__()
+        self.block_1 = ResnetBlock(c, c)
+        self.attn_1 = AttnBlock(c) if using_mid_sa else None
+        self.block_2 = ResnetBlock(c, c)
+
+
+class Decoder(nn.Module):
+    """Mirrors ``basic_vae.py:163-226``: up[i] is resolution level i."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch, mult, nblk = cfg.ch, cfg.ch_mult, cfg.num_res_blocks
+        nres = len(mult)
+        block_in = ch * mult[-1]
+        self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = _Mid(block_in, cfg.using_mid_sa)
+        levels = [None] * nres
+        for i in reversed(range(nres)):
+            level = _Level()
+            cout = ch * mult[i]
+            for _ in range(nblk + 1):
+                level.block.append(ResnetBlock(block_in, cout))
+                block_in = cout
+                if i == nres - 1 and cfg.using_sa:
+                    level.attn.append(AttnBlock(cout))
+            if i != 0:
+                level.upsample = Upsample2x(cout)
+            levels[i] = level
+        self.up = nn.ModuleList(levels)
+        self.norm_out = _norm(block_in)
+        self.conv_out = Conv2d(block_in, 3, 3, padding=1)
+
+
+class VQVAE(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.quantize = VectorQuantizer2(cfg)
+        ks = cfg.quant_conv_ks
+        self.post_quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, ks, padding=ks // 2)
+        self.decoder = Decoder(cfg)
+
+
+@torch.no_grad()
+def init_vae_params(vae: VQVAE, generator: torch.Generator) -> VQVAE:
+    """Seeded random init in place, in the ``nn.Conv2d``/``nn.GroupNorm``
+    default families (uniform +-1/sqrt(fan_in), unit norms), codebook
+    uniform +-1/V. Does not reproduce JAX's random stream."""
+    for m in vae.modules():
+        if isinstance(m, nn.Conv2d):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            v = m.weight.shape[0]
+            m.weight.uniform_(-1.0 / v, 1.0 / v, generator=generator)
+    return vae
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def resnet_block(blk: ResnetBlock, x: torch.Tensor) -> torch.Tensor:
+    """norm-swish-conv x2 with a (1x1-projected) residual (``basic_vae.py:40-60``)."""
+    h = blk.conv1(swish(group_norm(blk.norm1, x)))
+    h = blk.conv2(swish(group_norm(blk.norm2, h)))
+    if blk.nin_shortcut is not None:
+        x = blk.nin_shortcut(x)
+    return x + h
+
+
+def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
+    """Single-head self-attention over the spatial grid, in float32
+    (``basic_vae.py:63-92``); qkv channel blocks are q | k | v."""
+    b, c, h, w = x.shape
+    qkv = blk.qkv(group_norm(blk.norm, x)).reshape(b, 3, c, h * w).float()
+    q, k, v = qkv.unbind(1)  # (B, C, HW) each
+    attn = torch.softmax(torch.bmm(q.transpose(1, 2), k) * (c ** -0.5), dim=-1)
+    out = torch.bmm(v, attn.transpose(1, 2)).reshape(b, c, h, w).to(x.dtype)
+    return x + blk.proj_out(out)
+
+
+def upsample2x(up: Upsample2x, x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x then a 3x3 conv (``basic_vae.py:22-28``)."""
+    return up.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def decoder_apply(dec: Decoder, z: torch.Tensor) -> torch.Tensor:
+    """(B, Cvae, h, w) -> (B, 3, 16h, 16w), NCHW (``basic_vae.py:210-226``)."""
+    h = dec.conv_in(z)
+    h = resnet_block(dec.mid.block_1, h)
+    if dec.mid.attn_1 is not None:
+        h = attn_block(dec.mid.attn_1, h)
+    h = resnet_block(dec.mid.block_2, h)
+    for i in reversed(range(len(dec.up))):
+        level = dec.up[i]
+        for j, blk in enumerate(level.block):
+            h = resnet_block(blk, h)
+            if len(level.attn):
+                h = attn_block(level.attn[j], h)
+        if level.upsample is not None:
+            h = upsample2x(level.upsample, h)
+    return dec.conv_out(swish(group_norm(dec.norm_out, h)))
+
+
+def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor) -> torch.Tensor:
+    """post_quant_conv + decoder, clamped to [-1, 1] (``vqvae.py:62-63``).
+    f_hat: (B, h, w, Cvae) -> image (B, 16h, 16w, 3), in f_hat's dtype."""
+    z = vae.post_quant_conv(f_hat.permute(0, 3, 1, 2))
+    img = decoder_apply(vae.decoder, z).clamp(-1.0, 1.0)
+    return img.permute(0, 2, 3, 1)
