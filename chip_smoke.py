@@ -3,15 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
-each against its plain PyTorch version at the d16 main-path shapes, checks
-a greedy fp32 decode through the kernels against the reference fixture
-``tests/fixtures/var_prod.npz``, then drives the main path -- 256px
-class-conditional CFG sampling at d16 (depth 16, C = 1024, V = 4096, the
-10-scale pyramid, the ch160 VQVAE decoder) with seeded random weights, bf16,
-cfg 1.5, top_k 900, top_p 0.96, 8 requests -- and shows through the launch
-counters that it ran on the kernels. Each phase prints one JSON line; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero. Imports nothing of JAX or of the JAX package.
+each against its plain PyTorch version at the d16 main-path shapes, then
+drives the port's two paths, each with the launch counters set to 0 just
+before it and read just after:
+
+* sampling: a greedy fp32 decode through the kernels against the reference
+  fixture ``tests/fixtures/var_prod.npz``, then 256px class-conditional CFG
+  sampling at d16 (depth 16, C = 1024, V = 4096, the 10-scale pyramid, the
+  ch160 VQVAE decoder) with seeded random weights, bf16, cfg 1.5, top_k 900,
+  top_p 0.96, 8 requests;
+* training: one fp32 step at the var_prod.npz geometry whose tokens must
+  equal ``tests/fixtures/vae_prod.npz`` and whose loss and gradients must
+  equal the same step on the CPU, then d16 teacher-forced training (batch
+  32, bf16 compute with fp32 parameters, remat 2, tclip 2, seeded random
+  images and labels), one warm-up step and ten timed steps.
+
+Each phase prints one JSON line; the last line is ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +51,14 @@ TOL = {  # kernel vs plain, |got - want| <= atol + rtol * |want|
 # inputs: |got - want| <= this many bf16 ulps of max|want|, stage by stage (the
 # kernel rounds q, the softmax weights and the output to bf16: about half an ulp)
 FLASH_BF16_ULPS = 3
+# paired-train attention (kernels 4-5), held against autograd through the
+# plain block-causal attention: fp32 within atol + rtol |want|; bf16 against
+# the plain version in fp32 on the same bf16 inputs, within this many bf16
+# ulps of each tensor's max|want| (out rounds once; the gradients also round
+# p and ds to bf16 before their products, as the TPU kernels do)
+PTRAIN_F32_TOL = (1e-4, 1e-4)
+PTRAIN_BF16_ULPS = {"out": 3, "dq": 4, "dk": 4, "dv": 4}
+TRAIN_BATCH = 32
 # select: top-k bounds must be equal; with top-p a bound may differ only where
 # the fp32 mass sums (taken in another order) straddle p * M, i.e. where the
 # float64 mass above the disputed threshold is within this share of M of p * M
@@ -279,6 +296,120 @@ def phase_kernel_attention(dev):
             "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
 
 
+def _scale_ends():
+    lens, cums = _stage_lens()
+    return tuple(c + n for c, n in zip(cums, lens))
+
+
+def ptrain_inputs(dev, dtype, batch: int, seed: int):
+    """q, k, v, do at the d16 training shapes, as the model feeds them:
+    per-head L2-normalised q times scale_mul 4 (exp(log 4), the init), L2-normalised k."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    l = sum(_stage_lens()[0])
+    q, k, v, do = (torch.randn(batch, l, C, generator=g, device=dev) for _ in range(4))
+    q = l2_heads(q, HEADS) * 4.0
+    return tuple(t.to(dtype) for t in (q, l2_heads(k, HEADS), v, do))
+
+
+def check_ptrain(dev, batch: int = TRAIN_BATCH) -> dict:
+    """flash_attention_paired_train's forward and backward kernels against
+    autograd through ops/attention.py::attention, in fp32 and bf16; raises
+    on any violation. Returns {dtype: {tensor: error}} (bf16 errors also in ulps)."""
+    from var_tpu_torch.ops.attention import attention
+    from var_tpu_torch.ops.cuda.flash_attention import flash_attention_paired_train
+
+    ends = _scale_ends()
+    d = C // HEADS
+    errs, failures = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = ptrain_inputs(dev, dtype, batch, 4)
+        got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_paired_train(*got_in, HEADS, 1.0, ends)
+        out.backward(do)
+        want_in = [t.float().requires_grad_() for t in (q, k, v)]
+        b, l, _ = q.shape
+        ref = attention(*(t.reshape(b, l, HEADS, d) for t in want_in), 1.0, ends).reshape(b, l, C)
+        ref.backward(do.float())
+        got = {"out": out.detach(), "dq": got_in[0].grad, "dk": got_in[1].grad,
+               "dv": got_in[2].grad}
+        want = {"out": ref.detach(), "dq": want_in[0].grad, "dk": want_in[1].grad,
+                "dv": want_in[2].grad}
+        row = {}
+        for name in got:
+            g_, w_ = got[name].float(), want[name]
+            err = float((g_ - w_).abs().max())
+            if dtype == torch.float32:
+                atol, rtol = PTRAIN_F32_TOL
+                ok = bool(((g_ - w_).abs() <= atol + rtol * w_.abs()).all())
+                row[name] = err
+            else:
+                ulp = bf16_ulp(float(w_.abs().max()))
+                ok = err <= PTRAIN_BF16_ULPS[name] * ulp
+                row[name] = err
+                row[name + "_ulps"] = err / ulp
+            if not ok:  # NaN fails too
+                failures.append(f"{dtype} {name}: err {err}")
+        errs[str(dtype).replace("torch.", "")] = row
+        del got_in, want_in, out, ref, got, want
+    if failures:
+        raise AssertionError("flash_attention_paired_train differs from its plain version: "
+                             + "; ".join(failures) + f" (errors {errs})")
+    return errs
+
+
+def phase_kernel_ptrain(dev):
+    """Rows for the forward and backward kernels at the d16 bs32 shapes."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.ops.attention import levels_mask
+    from var_tpu_torch.ops.cuda.flash_attention import (paired_train_bwd, paired_train_bwd_plain,
+                                                        paired_train_delta, paired_train_fwd,
+                                                        paired_train_fwd_plain)
+
+    errs = check_ptrain(dev)
+    ends = _scale_ends()
+    lens, _ = _stage_lens()
+    useful = sum(n * e for n, e in zip(lens, ends))  # visible (query, key) pairs per head
+    b, d = TRAIN_BATCH, C // HEADS
+    q, k, v, do = ptrain_inputs(dev, torch.bfloat16, b, 5)
+    l = q.shape[1]
+    out, lse = paired_train_fwd(q, k, v, HEADS, ends)
+    fwd = lambda: paired_train_fwd(q, k, v, HEADS, ends)  # noqa: E731
+    bwd = lambda: paired_train_bwd(q, k, v, out, lse, do, HEADS, ends)  # noqa: E731
+    bwd_plain = lambda: paired_train_bwd_plain(  # noqa: E731
+        q, k, v, do, lse, paired_train_delta(out, do, HEADS), HEADS, ends)
+    ms_f, ms_b = device_ms(fwd, 20), device_ms(bwd, 20)
+    call_f, call_b = call_ms(fwd, 20), call_ms(bwd, 20)
+    plain_f = device_ms(lambda: paired_train_fwd_plain(q, k, v, HEADS, ends), 3, warmup=1)
+    plain_b = device_ms(bwd_plain, 3, warmup=1)
+    # the library yardstick: SDPA with the boolean block-causal mask (never used by the port)
+    mask = levels_mask(l, l, ends, dev)
+    qh, kh, vh = (t.reshape(b, l, HEADS, d).transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.reshape(b, l, HEADS, d).transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
+    lib_f = device_ms(sdpa, 20)
+    lib_fb = device_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 20)
+    esize, rows = 2, b * l * C
+    flops = b * HEADS * d * useful
+    bound_f, by_f = bound(4 * rows * esize + b * HEADS * l * 4, 4.0 * flops, BF16_TENSOR_FLOPS)
+    bound_b, by_b = bound(8 * rows * esize + 2 * b * HEADS * l * 4, 10.0 * flops,
+                          BF16_TENSOR_FLOPS)
+    common = {"tol": {"float32": f"{PTRAIN_F32_TOL[0]} + {PTRAIN_F32_TOL[1]} |want|",
+                      "bfloat16": f"bf16 ulps of max|want| {PTRAIN_BF16_ULPS}, want in fp32 "
+                                  "from the same bf16 inputs"},
+              "errors": errs, "shape": [b, l, C, HEADS], "dtype": "bfloat16",
+              "useful_pairs_per_head": useful}
+    fwd_row = {"name": "paired_train_fwd", "max_abs_err": errs["bfloat16"]["out"],
+               "ms": ms_f, "call_ms": call_f, "plain_ms": plain_f, "bound_ms": bound_f,
+               "bound_by": by_f, "library_ms": lib_f, **common}
+    bwd_row = {"name": "paired_train_bwd",
+               "max_abs_err": max(errs["bfloat16"][n] for n in ("dq", "dk", "dv")),
+               "ms": ms_b, "call_ms": call_b, "plain_ms": plain_b, "bound_ms": bound_b,
+               "bound_by": by_b, "library_ms": lib_fb - lib_f, **common}
+    return [fwd_row, bwd_row]
+
+
 def phase_parity(dev, root):
     """Greedy fp32 decode through the kernels at the var_prod.npz geometry
     (d16 width, depth 2, full pyramid, synthesized weights), TF32 off."""
@@ -384,6 +515,148 @@ def phase_main_path(dev):
     return launches
 
 
+def _train_kernels():
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode, paired_train_bwd,
+                                                        paired_train_fwd)
+    from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
+    from var_tpu_torch.ops.cuda.select import topk_topp_bound
+
+    return (paired_train_fwd, paired_train_bwd, modulated_layernorm, flash_decode,
+            topk_topp_bound)
+
+
+TRAIN_GRAD_RTOL = 1e-4  # per parameter: max|card - cpu| <= this * max|cpu grad|
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def phase_train_parity(dev, root):
+    """One fp32 training step at the var_prod.npz geometry (d16 width, depth
+    2, full pyramid, batch 2, synthesized weights, no cond-drop or
+    drop-path, remat 2): the card's tokens of the vae_prod.npz images must
+    equal its idx_*, and the loss and every parameter gradient must equal
+    the same step on the CPU (the same module weights moved with .to, the
+    card's tokens, the plain path). TF32 off around the tokenizer (in
+    img_to_idxBl) and the fp32 head (fp32 matmuls)."""
+    sys.path.insert(0, root)
+    from tests.synth_weights import synth_state_dict
+    from var_tpu_torch.config import TrainArgs, VAEConfig, VARConfig
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+
+    fx = os.path.join(root, "tests", "fixtures")
+    vdata = np.load(os.path.join(fx, "vae_prod.npz"))
+    data = np.load(os.path.join(fx, "var_prod.npz"))
+    manifest = lambda d, key: json.loads(bytes(d[key]).decode())  # noqa: E731
+    pns = tuple(vdata["patch_nums"].tolist())
+    depth, width, heads, ncls = data["depth_width_heads_ncls"].tolist()
+    var_cfg = VARConfig(num_classes=ncls, depth=depth, embed_dim=width, num_heads=heads,
+                        attn_l2_norm=True, cond_drop_rate=0.0, drop_path_rate=0.0,
+                        patch_nums=pns, vocab_size=V, z_channels=32)
+    var = var_mod.VAR(var_cfg)
+    var.load_state_dict({k[4:]: torch.from_numpy(a) for k, a in
+                         synth_state_dict(manifest(data, "var_keys_shapes_json")).items()})
+    vae = vae_mod.VQVAE(VAEConfig(v_patch_nums=pns))
+    vae.load_state_dict({k: torch.from_numpy(a) for k, a in synth_state_dict(
+        manifest(vdata, "keys_shapes_json")).items() if "ema_vocab_hit" not in k})
+    var, vae = var.to(dev).train(), vae.to(dev).eval().requires_grad_(False)
+    args = TrainArgs(remat=2)
+    img = torch.from_numpy(np.transpose(vdata["img"], (0, 2, 3, 1))).to(dev)
+    labels = torch.as_tensor(data["dec_label"], device=dev)
+    kernels = _train_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    idx_bl = tr.tokenize(vae, img, args)
+    equal = sum(int((i.cpu().numpy() == vdata[f"idx_{si}"]).sum()) for si, i in enumerate(idx_bl))
+    total = sum(int(vdata[f"idx_{si}"].size) for si in range(len(pns)))
+    loss, _ = tr.teacher_loss(var, vae, args, idx_bl, labels, None, dtype=torch.float32)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want_launches = {"paired_train_fwd": 2 * depth, "paired_train_bwd": depth,
+                     "modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0}
+    card = {n: p.grad.detach().cpu() for n, p in var.named_parameters()}
+    var.zero_grad(set_to_none=True)
+    var_cpu, vae_cpu = var.to("cpu"), vae.to("cpu")
+    loss_cpu, _ = tr.teacher_loss(var_cpu, vae_cpu, args, [i.cpu() for i in idx_bl],
+                                  labels.cpu(), None, dtype=torch.float32)
+    loss_cpu.backward()
+    worst, worst_name = 0.0, ""
+    for n, p in var_cpu.named_parameters():
+        rel = float((card[n] - p.grad).abs().max()) / max(float(p.grad.abs().max()), 1e-30)
+        if not rel <= worst:  # NaN counts as worst
+            worst, worst_name = rel, n
+    loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    emit({"phase": "train_parity", "tokens_equal": equal, "tokens": total,
+          "loss_card": float(loss), "loss_cpu": float(loss_cpu), "loss_rel_err": loss_rel,
+          "grad_rel_err_max": worst, "grad_rel_err_param": worst_name,
+          "tol": {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel_of_max": TRAIN_GRAD_RTOL},
+          "params": len(card), "launches": launches})
+    if equal != total:
+        raise AssertionError(f"card tokens differ from vae_prod.npz: {equal}/{total} equal")
+    if launches != want_launches:
+        raise AssertionError(f"train parity launches {launches}, want {want_launches}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"fp32 step differs from the CPU: loss rel {loss_rel}, "
+                             f"grad rel {worst} ({worst_name})")
+
+
+def phase_train_main_path(dev):
+    """d16 teacher-forced training, batch 32, bf16 compute, fp32 params and
+    AdamW state, remat 2, tclip 2, fp16=1 skip guard; 1 warm-up step (the
+    counted run) and 10 timed steps."""
+    from var_tpu_torch.config import TrainArgs
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import build_vae_var_train
+
+    t0 = time.perf_counter()
+    args = TrainArgs(depth=DEPTH, bs=TRAIN_BATCH, ac=1, ep=200, fp16=1, tclip=2.0, remat=2,
+                     seed=0).finalize(world_size=1)
+    vae_cfg, var_cfg, vae, var = build_vae_var_train(device=dev, seed=0, depth=DEPTH,
+                                                     patch_nums=PATCH_NUMS)
+    init_state, step = tr.make_train_step(var_cfg, vae_cfg, args, iters_per_ep=1000,
+                                          dtype=torch.bfloat16)
+    state = init_state(var)
+    g = torch.Generator(device=dev).manual_seed(1)
+    reso = PATCH_NUMS[-1] * vae_cfg.downsample
+    imgs = torch.rand(1, TRAIN_BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    labels = torch.randint(0, var_cfg.num_classes, (1, TRAIN_BATCH), generator=g, device=dev)
+    step_gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _train_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, m = step(state, vae, imgs, labels, step_gen(0), 0, 1.0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {"paired_train_fwd": 2 * DEPTH, "paired_train_bwd": DEPTH,
+            "modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0}
+    if launches != want:
+        raise AssertionError(f"training main path launches {launches}, want {want}")
+    losses, gnorms, times = [float(m.loss)], [float(m.grad_norm)], []
+    for i in range(10):
+        t0 = time.perf_counter()
+        state, m = step(state, vae, imgs, labels, step_gen(1 + i), 1 + i, 1.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m.loss))
+        gnorms.append(float(m.grad_norm))
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite training step: loss {losses} grad norm {gnorms}")
+    median_s = float(np.median(times))
+    emit({"phase": "train_main_path", "depth": DEPTH, "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "remat": args.remat, "tclip": args.tclip, "fp16": args.fp16,
+          "launches": launches, "steps_taken": state.step, "setup_s": setup_s,
+          "first_step_s": first_s, "step_s": times, "step_s_median": median_s,
+          "img_per_s": TRAIN_BATCH / median_s, "loss": losses, "grad_norm": gnorms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -396,13 +669,16 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_device()
     phase_build()
-    rows = []
-    for phase in (phase_kernel_ln, phase_kernel_select, phase_kernel_attention):
-        row = phase(dev)
+    rows = [phase(dev) for phase in (phase_kernel_ln, phase_kernel_select,
+                                     phase_kernel_attention)]
+    rows += phase_kernel_ptrain(dev)
+    for row in rows:
         emit({"phase": "kernel", **row})
-        rows.append(row)
     phase_parity(dev, root)
     launches = phase_main_path(dev)
+    phase_train_parity(dev, root)
+    launches.update({k: v for k, v in phase_train_main_path(dev).items()
+                     if k.startswith("paired_train")})
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),
@@ -410,6 +686,10 @@ def main() -> None:
                             "var_tpu/ops/pallas/select.py:86"),
         "flash_decode": ("var_tpu_torch/ops/cuda/csrc/flash_attention.cu",
                          "var_tpu/ops/pallas/flash_attention.py:556"),
+        "paired_train_fwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
+                             "var_tpu/ops/pallas/flash_attention.py:912"),
+        "paired_train_bwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
+                             "var_tpu/ops/pallas/flash_attention.py:1071"),
     }
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": meta[r["name"]][0],
                        "replaces": meta[r["name"]][1], "launches": launches[r["name"]],

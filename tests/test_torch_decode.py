@@ -21,7 +21,7 @@ from var_tpu.engine.sampler import decode_cfg as jax_decode_cfg
 from var_tpu.ops.sampling import top_k_top_p_mask as jax_top_k_top_p_mask
 from var_tpu_torch import config as tcfg
 from var_tpu_torch.engine import sampler as tsampler
-from var_tpu_torch.engine.convert import decode_side, vae_state_dict, var_state_dict
+from var_tpu_torch.engine.convert import vae_state_dict, var_state_dict
 from var_tpu_torch.models import vae as tvae
 from var_tpu_torch.models import var as tvar
 from var_tpu_torch.ops.sampling import top_k_top_p_mask
@@ -38,7 +38,7 @@ def _torch_cfg(cfg):
 
 def _port_models(vae_params, vae_cfg, var_params, var_cfg):
     vae = tvae.VQVAE(_torch_cfg(vae_cfg))
-    vae.load_state_dict(decode_side(vae_state_dict(vae_params, vae_cfg)))
+    vae.load_state_dict(vae_state_dict(vae_params, vae_cfg))
     var = tvar.VAR(_torch_cfg(var_cfg))
     var.load_state_dict(var_state_dict(var_params, var_cfg))
     return vae.eval().requires_grad_(False), var.eval().requires_grad_(False)

@@ -95,3 +95,44 @@ def test_build_vae_var_stores_block_matmuls_in_compute_dtype(dtype):
     # consumed in float32 whatever the compute dtype
     for t in (blk.ada_lin[1].weight, var.head.weight, var.word_embed.weight):
         assert t.dtype == torch.float32
+
+
+def test_train_app_default_device_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.apps.train import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--local_debug=1"])
+
+
+def test_build_vae_var_train_default_device_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.models import build_vae_var_train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_vae_var_train(depth=2, patch_nums=(1, 2))
+
+
+def test_profile_train_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.apps.profile_train import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--depth", "2"])
+
+
+def test_train_app_without_local_debug_names_the_data_slice():
+    from var_tpu_torch.apps.train import main
+
+    with pytest.raises(NotImplementedError, match="data"):
+        main(["--device", "cpu"])
+
+
+def test_build_vae_var_train_keeps_fp32_trainable_params():
+    from var_tpu_torch.models import build_vae_var_train
+
+    _, _, vae, var = build_vae_var_train(device="cpu", depth=2, patch_nums=(1, 2), ch=32, V=64)
+    assert var.training and not vae.training
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in var.parameters())
+    assert not any(p.requires_grad for p in vae.parameters())
+    assert hasattr(vae, "encoder") and hasattr(vae, "quant_conv")

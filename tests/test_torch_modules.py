@@ -19,8 +19,7 @@ from var_tpu.models import vae as jvae
 from var_tpu.models import var as jvar
 from var_tpu.ops.resize import resize as jax_resize
 from var_tpu_torch import config as tcfg
-from var_tpu_torch.engine.convert import (DERIVED_BUFFERS, decode_side, vae_state_dict,
-                                          var_state_dict)
+from var_tpu_torch.engine.convert import DERIVED_BUFFERS, vae_state_dict, var_state_dict
 from var_tpu_torch.models import quantizer as tq
 from var_tpu_torch.models import vae as tvae
 from var_tpu_torch.models import var as tvar
@@ -44,8 +43,8 @@ def _vae_tiny():
                     v_patch_nums=tuple(data["patch_nums"].tolist()))
     sd = {k[3:]: data[k].astype(np.float32) for k in data.files if k.startswith("sd/")}
     vae = tvae.VQVAE(_torch_cfg(cfg))
-    vae.load_state_dict(decode_side({k: torch.from_numpy(v) for k, v in sd.items()
-                                     if not any(b in k for b in DERIVED_BUFFERS)}))
+    vae.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()
+                         if not any(b in k for b in DERIVED_BUFFERS)})
     return data, cfg, sd, convert_vae(sd, cfg), vae.eval().requires_grad_(False)
 
 
@@ -187,7 +186,7 @@ def test_vae_weights_carry_across_bit_exact():
     assert set(got) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-    tvae.VQVAE(_torch_cfg(cfg)).load_state_dict(decode_side(got))
+    tvae.VQVAE(_torch_cfg(cfg)).load_state_dict(got)  # strict: encoder side included
 
 
 @pytest.mark.parametrize("tag", ["l2", "saln"])

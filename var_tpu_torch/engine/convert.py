@@ -28,8 +28,6 @@ from var_tpu_torch.models.quantizer import num_phi
 # stats (quant.py:35), the level-id table and causal mask (var.py:110-112),
 # the constant zero k-bias (basic_var.py:76)
 DERIVED_BUFFERS = ("ema_vocab_hit_SV", "lvl_1L", "attn_bias_for_masking", "zero_k_bias")
-# parts of a full VQVAE checkpoint that the decode-only port does not hold
-ENCODE_SIDE_PREFIXES = ("encoder.", "quant_conv.")
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -42,11 +40,6 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
         obj = obj["state_dict"]
     return {k: v for k, v in obj.items()
             if torch.is_tensor(v) and not any(b in k for b in DERIVED_BUFFERS)}
-
-
-def decode_side(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A VQVAE state dict without the encoder side, for the port's VQVAE."""
-    return {k: v for k, v in sd.items() if not k.startswith(ENCODE_SIDE_PREFIXES)}
 
 
 def _t(a) -> torch.Tensor:
@@ -149,7 +142,7 @@ def _enc_dec(out: dict, side: str, p: dict) -> None:
 
 def vae_state_dict(params: dict, cfg: VAEConfig) -> Dict[str, torch.Tensor]:
     """JAX VQVAE parameter tree -> reference-named state dict, encoder side
-    included (:func:`decode_side` strips it for the port's VQVAE)."""
+    included (the port's ``VQVAE.load_state_dict`` input)."""
     out: Dict[str, torch.Tensor] = {}
     for side in ("encoder", "decoder"):
         if side in params:

@@ -1,24 +1,28 @@
-"""VQVAE decoder side (counterpart of ``var_tpu/models/vae.py``).
+"""VQVAE tokenizer: encoder, quantizer and decoder (counterpart of
+``var_tpu/models/vae.py``).
 
 NCHW inside, with the reference module names (``models/basic_vae.py``,
-``models/vqvae.py``) so a reference state dict loads with
-``load_state_dict``: ``decoder.*``, ``post_quant_conv.*``, ``quantize.*``.
-Convolutions cast their float32 weights to the input dtype at use, as the
-JAX package does, so the decoder runs in the compute dtype. Public tensors
-are NHWC: ``fhat_to_img`` takes f_hat (B, h, w, Cvae) and returns the image
-(B, H, W, 3) in [-1, 1]. The encoder and ``quant_conv`` are not ported yet.
+``models/vqvae.py``) so a whole reference state dict loads with
+``load_state_dict``: ``encoder.*``, ``quant_conv.*``, ``quantize.*``,
+``post_quant_conv.*``, ``decoder.*``. Convolutions cast their float32
+weights to the input dtype at use, as the JAX package does, so the networks
+run in the compute dtype. Public tensors are NHWC: ``img_to_idxBl`` takes an
+image (B, H, W, 3) in [-1, 1] and returns the token pyramid; ``fhat_to_img``
+takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from var_tpu_torch.config import VAEConfig
+from var_tpu_torch.device import fp32_exact
+from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
 
 
@@ -64,6 +68,20 @@ class Upsample2x(nn.Module):
         self.conv = Conv2d(c, c, 3, padding=1)
 
 
+class Downsample2x(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv2d(c, c, 3, stride=2, padding=0)
+
+
+class _DownLevel(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.block = nn.ModuleList()
+        self.attn = nn.ModuleList()
+        self.downsample: Optional[Downsample2x] = None
+
+
 class _Level(nn.Module):
     def __init__(self):
         super().__init__()
@@ -78,6 +96,34 @@ class _Mid(nn.Module):
         self.block_1 = ResnetBlock(c, c)
         self.attn_1 = AttnBlock(c) if using_mid_sa else None
         self.block_2 = ResnetBlock(c, c)
+
+
+class Encoder(nn.Module):
+    """Mirrors ``basic_vae.py:95-160``: down[i] is resolution level i."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch, mult, nblk = cfg.ch, cfg.ch_mult, cfg.num_res_blocks
+        nres = len(mult)
+        in_mult = (1,) + tuple(mult)
+        self.conv_in = Conv2d(3, ch, 3, padding=1)
+        levels = []
+        for i in range(nres):
+            level = _DownLevel()
+            block_in, cout = ch * in_mult[i], ch * mult[i]
+            for _ in range(nblk):
+                level.block.append(ResnetBlock(block_in, cout))
+                block_in = cout
+                if i == nres - 1 and cfg.using_sa:
+                    level.attn.append(AttnBlock(cout))
+            if i != nres - 1:
+                level.downsample = Downsample2x(cout)
+            levels.append(level)
+        self.down = nn.ModuleList(levels)
+        cmid = ch * mult[-1]
+        self.mid = _Mid(cmid, cfg.using_mid_sa)
+        self.norm_out = _norm(cmid)
+        self.conv_out = Conv2d(cmid, cfg.z_channels, 3, padding=1)
 
 
 class Decoder(nn.Module):
@@ -111,8 +157,10 @@ class VQVAE(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.quantize = VectorQuantizer2(cfg)
         ks = cfg.quant_conv_ks
+        self.quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, ks, padding=ks // 2)
         self.post_quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, ks, padding=ks // 2)
         self.decoder = Decoder(cfg)
 
@@ -160,9 +208,31 @@ def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
     return x + blk.proj_out(out)
 
 
+def downsample2x(ds: Downsample2x, x: torch.Tensor) -> torch.Tensor:
+    """Asymmetric pad (0, 1, 0, 1) then a stride-2 3x3 conv (``basic_vae.py:31-37``)."""
+    return ds.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 def upsample2x(up: Upsample2x, x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x then a 3x3 conv (``basic_vae.py:22-28``)."""
     return up.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def encoder_apply(enc: Encoder, x: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) in [-1, 1] -> (B, Cvae, H/16, W/16), NCHW (``basic_vae.py:144-160``)."""
+    h = enc.conv_in(x)
+    for level in enc.down:
+        for j, blk in enumerate(level.block):
+            h = resnet_block(blk, h)
+            if len(level.attn):
+                h = attn_block(level.attn[j], h)
+        if level.downsample is not None:
+            h = downsample2x(level.downsample, h)
+    h = resnet_block(enc.mid.block_1, h)
+    if enc.mid.attn_1 is not None:
+        h = attn_block(enc.mid.attn_1, h)
+    h = resnet_block(enc.mid.block_2, h)
+    return enc.conv_out(swish(group_norm(enc.norm_out, h)))
 
 
 def decoder_apply(dec: Decoder, z: torch.Tensor) -> torch.Tensor:
@@ -189,3 +259,21 @@ def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor) -> torch.Tensor:
     z = vae.post_quant_conv(f_hat.permute(0, 3, 1, 2))
     img = decoder_apply(vae.decoder, z).clamp(-1.0, 1.0)
     return img.permute(0, 2, 3, 1)
+
+
+def img_to_f(vae: VQVAE, img: torch.Tensor) -> torch.Tensor:
+    """Encoder + quant_conv (``vqvae.py:66``): image (B, H, W, 3) -> features
+    (B, H/16, W/16, Cvae), in the image's dtype."""
+    f = vae.quant_conv(encoder_apply(vae.encoder, img.permute(0, 3, 1, 2)))
+    return f.permute(0, 2, 3, 1)
+
+
+def img_to_idxBl(vae: VQVAE, img: torch.Tensor,
+                 v_patch_nums: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """Tokenize (``vqvae.py:65-67``): image (B, H, W, 3) in [-1, 1] -> one
+    (B, pn * pn) int64 id tensor per scale. TF32 is off throughout: cuDNN's
+    TF32 convolutions would move the features enough to flip nearest-code
+    choices against the JAX package's."""
+    with fp32_exact():
+        idx_bl, _ = q.f_to_idxBl(vae.quantize, vae.cfg, img_to_f(vae, img), v_patch_nums)
+    return idx_bl

@@ -1,25 +1,33 @@
-"""VAR transformer, inference side (counterpart of ``var_tpu/models/var.py``).
+"""VAR transformer (counterpart of ``var_tpu/models/var.py``).
 
 ``VAR`` holds the parameters under the reference state-dict names
 (``models/var.py:55-116``, ``models/basic_var.py``), so a reference ``.pth``
 loads with ``load_state_dict`` once the derived buffers are dropped. The
-functions mirror the JAX package's: the AdaLN block (``block_apply``) with
-the fused modulated LayerNorm kernel, fused QKV with a zero k bias and the
-optional per-head QK L2 norm, decode attention over the KV cache through
-the attention kernel, the GELU-tanh FFN, and the CFG-mixed fp32 head.
+functions mirror the JAX package's: the AdaLN block with fused QKV, a zero k
+bias and the optional per-head QK L2 norm, the GELU-tanh FFN and the fp32
+head.
 
-KV cache: one preallocated (depth, 2B, L, C) K buffer and one V buffer,
-written in place each stage (:class:`KVCache`); layer ``i`` attends over
-rows ``[0, cum + l)`` by pointer and stride. The JAX package keeps
-per-stage chunks only because its arrays are immutable. Teacher-forced
-``var_forward`` waits for the training slice.
+Decode (``block_apply``, ``transformer_stage``): the fused modulated
+LayerNorm kernel, attention over a KV cache through the decode-attention
+kernel. KV cache: one preallocated (depth, 2B, L, C) K buffer and one V
+buffer, written in place each stage (:class:`KVCache`); layer ``i`` attends
+over rows ``[0, cum + l)`` by pointer and stride. The JAX package keeps
+per-stage chunks only because its arrays are immutable.
+
+Teacher-forced training (``var_forward``): one pass over all L tokens with
+the block-causal mask through the training-attention kernel, the plain
+LayerNorm (the LN kernel has no backward), cond-drop and drop-path from an
+explicit ``torch.Generator``, ``prog_si`` truncation and remat 0/1/2.
+Parameters stay float32 and are cast to the compute dtype at each use, as
+in the JAX package; no autocast.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +36,8 @@ import torch.nn.functional as F
 
 from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
-from var_tpu_torch.ops.cuda.flash_attention import flash_decode
+from var_tpu_torch.ops.attention import recompute_grad
+from var_tpu_torch.ops.cuda.flash_attention import flash_attention_paired_train, flash_decode
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
 
 
@@ -330,3 +339,146 @@ def transformer_stage(var: VAR, x: torch.Tensor, ctx: List[BlockContext], cache:
         x = block_apply(blk, var.cfg, x, ctx[i], cache, i)
     cache.cum += x.shape[1]
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward (training / likelihood scoring)
+
+
+def _mod_ln(eps: float, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
+    return _ln(x, eps) * (scale + 1.0) + shift
+
+
+def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], qkv: torch.Tensor,
+               scale_mul: Optional[torch.Tensor]) -> torch.Tensor:
+    """Merged qkv -> per-head QK L2 norm (or the 0.25/sqrt(d) scale) ->
+    block-causal attention, (B, L, C) (``var.py:293-347``)."""
+    b, l, _ = qkv.shape
+    c, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    dtype = qkv.dtype
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    if cfg.attn_l2_norm:
+        scale = 1.0
+        sm = torch.exp(scale_mul.float().clamp(max=math.log(100.0))).reshape(h, 1)
+        kf = k.float().reshape(b, l, h, d)
+        k = (kf * torch.rsqrt((kf * kf).sum(-1, keepdim=True) + 1e-24)).to(dtype)
+        qf = q.float().reshape(b, l, h, d)
+        q = (qf * (torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24) * sm)).to(dtype)
+        q, k = q.reshape(b, l, c), k.reshape(b, l, c)
+    else:
+        scale = 0.25 / math.sqrt(d)
+    return flash_attention_paired_train(q, k, v, h, scale, scale_ends)
+
+
+def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
+                     scale_ends: Sequence[int], remat_core: bool) -> torch.Tensor:
+    """Fused QKV with a zero k bias, then the attention core, then the
+    projection (``var.py:402-410``). With ``remat_core`` (remat mode 2)
+    the core is recomputed in backward: only the qkv tensor is kept
+    (``var.py:322-359``)."""
+    dtype = x.dtype
+    bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias]).to(dtype)
+    qkv = F.linear(x, attn.mat_qkv.weight.to(dtype), bias)
+    core = functools.partial(_attn_core, cfg, scale_ends)
+    if remat_core:
+        core = recompute_grad(core)
+    return _linear(attn.proj, core(qkv, attn.scale_mul_1H11 if cfg.attn_l2_norm else None))
+
+
+def train_block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor,
+                      cond_h: torch.Tensor, shared: Optional[torch.Tensor],
+                      scale_ends: Sequence[int], remat: int = 0,
+                      drop_path: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Pre-norm AdaLN block (``var.py:475-548``) for teacher forcing:
+    x += dp(attn(ln(x)*(s1+1)+sh1) * g1); x += dp(ffn(ln(x)*(s2+1)+sh2) * g2),
+    with the plain LayerNorm. ``cond_h`` = silu(class embedding) (B, C) fp32;
+    ``shared``: the (B, 6, C) ``shared_ada_lin`` output with shared AdaLN.
+    ``remat`` 2 recomputes the LN, the attention core and the FFN hidden
+    states in backward. ``drop_path``: two (B, 1, 1) fp32 keep/keep-rate masks."""
+    dtype = x.dtype
+    p6 = _adaln6(blk, cfg, cond_h, shared)[:, None]  # (B, 1, 6, C) fp32
+    g1, g2, s1, s2, sh1, sh2 = (p6[:, :, i].to(dtype) for i in range(6))
+    mod_ln = functools.partial(_mod_ln, cfg.norm_eps)
+    ffn = ffn_apply
+    if remat == 2:
+        mod_ln, ffn = recompute_grad(mod_ln), recompute_grad(ffn_apply)
+    a_out = train_attn_apply(blk.attn, cfg, mod_ln(x, s1, sh1), scale_ends, remat == 2) * g1
+    if drop_path is not None:
+        a_out = a_out * drop_path[0].to(dtype)
+    x = x + a_out
+    f_out = ffn(blk.ffn, mod_ln(x, s2, sh2)) * g2
+    if drop_path is not None:
+        f_out = f_out * drop_path[1].to(dtype)
+    return x + f_out
+
+
+def get_logits(var: VAR, h: torch.Tensor, cond_bd: torch.Tensor) -> torch.Tensor:
+    """AdaLN-before-head and the classifier head, all fp32 (``var.py:551``)."""
+    return _linear(var.head, _head_nm(var, h, cond_bd))
+
+
+def cond_drop(cfg: VARConfig, label_b: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Labels with each replaced by the unconditional class (``num_classes``)
+    with probability ``cond_drop_rate`` (``var.py:643-647``)."""
+    drop = torch.rand(label_b.shape[0], generator=generator, device=label_b.device)
+    return torch.where(drop < cfg.cond_drop_rate, torch.full_like(label_b, cfg.num_classes),
+                       label_b)
+
+
+def drop_path_masks(cfg: VARConfig, batch: int, generator: torch.Generator,
+                    device) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Per block, None (rate 0) or the two (B, 1, 1) float32 masks of its
+    residual branches: 1 / keep with probability keep = 1 - rate_i, else 0,
+    rates linear in depth from 0 to ``drop_path_rate`` (``var.py:686-696``)."""
+    out = []
+    for rate in np.linspace(0.0, cfg.drop_path_rate, cfg.depth):
+        keep = 1.0 - float(rate)
+        out.append(None if rate <= 0 else tuple(
+            (torch.rand(batch, 1, 1, generator=generator, device=device) < keep).float() / keep
+            for _ in range(2)))
+    return out
+
+
+def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[torch.Tensor],
+                *, generator: Optional[torch.Generator] = None, train: bool = False,
+                prog_si: int = -1, dtype: torch.dtype = torch.bfloat16,
+                remat: int = 0) -> torch.Tensor:
+    """Teacher-forced forward (``var.py:614-723``) -> fp32 logits (B, ed, V).
+
+    ``x_blcv_wo_first_l``: (B, L - first_l, Cvae) quantizer-space inputs from
+    ``quantizer.idxBl_to_var_input``; ``prog_si`` >= 0 truncates the
+    sequence at the end of scale ``prog_si`` (progressive training). With
+    ``train``, cond-drop replaces labels by the unconditional class at
+    ``cond_drop_rate`` and drop-path keeps each residual branch of block i
+    with probability 1 - rate_i (rates linear in depth up to
+    ``drop_path_rate``), both drawn from ``generator``. ``remat``: 0 off;
+    1 recomputes each whole block in backward; 2 only the LN, attention core
+    and FFN hidden states (``attn_remat``)."""
+    cfg = var.cfg
+    b, c = label_b.shape[0], cfg.embed_dim
+    ed = cfg.seq_len if prog_si < 0 else cfg.begin_ends[prog_si][1]
+    if train and (cfg.cond_drop_rate > 0 or cfg.drop_path_rate > 0) and generator is None:
+        raise ValueError("a training forward needs a generator for cond-drop and drop-path")
+    if train and cfg.cond_drop_rate > 0:
+        label_b = cond_drop(cfg, label_b, generator)
+    cond_bd = F.embedding(label_b, var.class_emb.weight)  # (B, C) fp32
+    x = (cond_bd[:, None] + var.pos_start).expand(b, cfg.first_l, c)
+    if prog_si != 0:
+        tok = x_blcv_wo_first_l[:, :ed - cfg.first_l].float()
+        x = torch.cat([x, _linear(var.word_embed, tok)], dim=1)
+    x = (x + lvl_pos_embed(var)[:, :ed]).to(dtype)
+    scale_ends = tuple(e for _, e in cfg.begin_ends)
+    cond_h = F.silu(cond_bd.float())
+    shared = None
+    if cfg.shared_aln:
+        shared = _linear(var.shared_ada_lin[1], cond_h).reshape(-1, 6, c)
+    dps = [None] * cfg.depth
+    if train and cfg.drop_path_rate > 0:
+        dps = drop_path_masks(cfg, b, generator, x.device)
+    for blk, dp in zip(var.blocks, dps):
+        if remat == 1:
+            x = recompute_grad(functools.partial(train_block_apply, blk, cfg))(
+                x, cond_h, shared, scale_ends, 0, dp)
+        else:
+            x = train_block_apply(blk, cfg, x, cond_h, shared, scale_ends, remat, dp)
+    return get_logits(var, x, cond_bd)

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_ln.cu", "select.cu", "flash_attention.cu")
+SOURCES = ("fused_ln.cu", "select.cu", "flash_attention.cu", "flash_attention_train.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,8 +104,12 @@ def lib() -> ctypes.CDLL:
         cdll.var_topk_topp_bound.argtypes = [P, P, LL, I, I, F, I, P]
         cdll.var_decode_attention.argtypes = [P, LL, LL, P, P, LL, LL, P, LL, LL, P,
                                               I, I, I, I, I, F, I, I, P]
+        ENDS = ctypes.POINTER(ctypes.c_int)
+        cdll.var_ptrain_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
+        cdll.var_ptrain_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I,
+                                        I, P]
         for fn in (cdll.var_modulated_layernorm, cdll.var_topk_topp_bound,
-                   cdll.var_decode_attention):
+                   cdll.var_decode_attention, cdll.var_ptrain_fwd, cdll.var_ptrain_bwd):
             fn.restype = I
         cdll.var_cuda_error_string.argtypes = [I]
         cdll.var_cuda_error_string.restype = ctypes.c_char_p

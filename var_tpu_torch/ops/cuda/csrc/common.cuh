@@ -77,6 +77,32 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return red[32];
 }
 
+// Tensor-core building blocks (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+// Fragment layout, with g = lane / 4 and t = lane % 4: the A operand (16 x 16,
+// row-major) holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9;
+// the B operand (16 x 8) holds, for column n = g, rows 2t, 2t + 1 and
+// 2t + 8, 2t + 9, so B is read from shared memory stored [n][k]; the
+// accumulator (16 x 8) holds rows g and g + 8, columns 2t, 2t + 1 -- which is
+// the A layout of two neighbouring accumulator tiles, so a product's fp32
+// result feeds the next product as A after rounding to bf16.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 }  // namespace vtt
 
 // Error string for a code returned by one of the launch functions.

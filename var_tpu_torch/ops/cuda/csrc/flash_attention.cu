@@ -177,24 +177,6 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
 #define MMA_BK 64
 #define MMA_PAD 72  // bf16 row stride in shared memory: 144 bytes, 16-byte aligned
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_rs,
                             const __nv_bfloat16* __restrict__ k,
