@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
-each against its plain PyTorch version at the d16 main-path shapes, then
-drives the port's two paths, each with the launch counters set to 0 just
-before it and read just after:
+each against its plain PyTorch version at the d16 main-path shapes (rows
+1-4 and 6 of the kernel table in PERF.md), then drives the port's three
+paths, each with the launch counters set to 0 just before it and read just
+after:
 
 * sampling: a greedy fp32 decode through the kernels against the reference
   fixture ``tests/fixtures/var_prod.npz``, then 256px class-conditional CFG
@@ -16,7 +17,16 @@ before it and read just after:
   equal ``tests/fixtures/vae_prod.npz`` and whose loss and gradients must
   equal the same step on the CPU, then d16 teacher-forced training (batch
   32, bf16 compute with fp32 parameters, remat 2, tclip 2, seeded random
-  images and labels), one warm-up step and ten timed steps.
+  images and labels), one warm-up step and ten timed steps;
+* zero-shot sampling: at the var_prod.npz geometry in fp32, the
+  ``cache_impl="prealloc"`` greedy decode through ``flash_decode_paired``
+  must reproduce ``dec_tokens``, and greedy inpainting, box editing,
+  ``kv_window=2``, both smooth-sampling modes and the bayesian classifier
+  must give on the card the tokens (and, within rtol 1e-4, the
+  log-likelihoods and scores) of the same calls on the CPU; then each mode
+  at d16, bf16, with seeded random weights and images tokenised on the card,
+  8 requests (the classifier: one image over 10 classes), one warm-up and
+  five timed batches, with its launch counts.
 
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
@@ -46,12 +56,14 @@ TOL = {  # kernel vs plain, |got - want| <= atol + rtol * |want|
     ("modulated_layernorm", torch.float32): (1e-4, 1e-4),
     ("modulated_layernorm", torch.bfloat16): (3e-2, 2e-2),  # one bf16 ulp of rounding order
     ("flash_decode", torch.float32): (1e-4, 1e-4),
+    ("flash_decode_paired", torch.float32): (1e-4, 1e-4),
 }
-# bf16 flash_decode is held against the plain version in fp32 on the same bf16
-# inputs: |got - want| <= this many bf16 ulps of max|want|, stage by stage (the
-# kernel rounds q, the softmax weights and the output to bf16: about half an ulp)
+# bf16 flash_decode and flash_decode_paired are held against the plain version
+# in fp32 on the same bf16 inputs: |got - want| <= this many bf16 ulps of
+# max|want|, stage by stage (the kernel rounds q, the softmax weights and the
+# output to bf16: about half an ulp)
 FLASH_BF16_ULPS = 3
-# paired-train attention (kernels 4-5), held against autograd through the
+# paired-train attention (row 6), held against autograd through the
 # plain block-causal attention: fp32 within atol + rtol |want|; bf16 against
 # the plain version in fp32 on the same bf16 inputs, within this many bf16
 # ulps of each tensor's max|want| (out rounds once; the gradients also round
@@ -296,6 +308,95 @@ def phase_kernel_attention(dev):
             "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
 
 
+def decode_paired_shapes():
+    """(Lq, Lk) of every stage of the prealloc decode (Lk = every stage so
+    far) and of the kv_window=2 decode (Lk = stage 0 and the last two)."""
+    lens, cums = _stage_lens()
+    shapes = [(l, c + l) for l, c in zip(lens, cums)]
+    shapes += [(l, lens[0] + sum(lens[max(1, t - 1):t + 1])) for t, l in enumerate(lens)]
+    return sorted(set(shapes))
+
+
+def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """flash_decode_paired against its plain version at every (Lq, Lk) of
+    decode_paired_shapes, 2B = 16, C 1024, 16 heads, over rows [0, Lk) of a
+    longer buffer: as the model feeds it (per-head L2-normalised q times
+    scale_mul 4, L2-normalised K, scale 1) and with raw K and the scale
+    0.125 folded into q. fp32 within TOL; bf16 against the plain version in
+    fp32 on the same bf16 inputs, within FLASH_BF16_ULPS bf16 ulps of
+    max|want|. Raises on any violation; returns {dtype: worst error}."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
+                                                        flash_decode_paired_plain)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    b2, lmax = 2 * BATCH, sum(_stage_lens()[0])
+    errs, failures = {}, []
+    for dtype in dtypes:
+        k_raw = torch.randn(b2, lmax, C, generator=g, device=dev)
+        v = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
+        cases = (("model", l2_heads(k_raw, HEADS).to(dtype), 1.0, True),
+                 ("scale", k_raw.to(dtype), 0.125, False))
+        worst = 0.0
+        for lq, lk in decode_paired_shapes():
+            q_raw = torch.randn(b2, lq, C, generator=g, device=dev)
+            for case, k, scale, l2 in cases:
+                q = (l2_heads(q_raw, HEADS) * 4.0 if l2 else q_raw).to(dtype)
+                got = flash_decode_paired(q, k, v, HEADS, scale, lk=lk).float()
+                want = flash_decode_paired_plain(q.float(), k.float(), v.float(), HEADS, scale,
+                                                 lk)
+                err = float((got - want).abs().max())
+                if dtype == torch.float32:
+                    atol, rtol = TOL[("flash_decode_paired", dtype)]
+                    ok, tol = bool(((got - want).abs() <= atol + rtol * want.abs()).all()), \
+                        f"{atol} + {rtol} |want|"
+                else:
+                    ulp = bf16_ulp(float(want.abs().max()))
+                    ok, tol = err <= FLASH_BF16_ULPS * ulp, FLASH_BF16_ULPS * ulp
+                    errs["bfloat16_ulps"] = max(errs.get("bfloat16_ulps", 0.0), err / ulp)
+                if not ok:  # NaN fails too
+                    failures.append(f"{dtype} {case} lq={lq} lk={lk}: err {err} tol {tol}")
+                worst = max(worst, err)
+        errs[str(dtype).replace("torch.", "")] = worst
+    if failures:
+        raise AssertionError("flash_decode_paired differs from its plain version: "
+                             + "; ".join(failures))
+    return errs
+
+
+def phase_kernel_decode_paired(dev):
+    """Row 4 at the stage shapes; timed at the last prealloc stage (Lq 256,
+    Lk 680), bf16."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
+                                                        flash_decode_paired_plain)
+
+    errs = check_decode_paired(dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    b2, d = 2 * BATCH, C // HEADS
+    lk = sum(_stage_lens()[0])
+    l = PATCH_NUMS[-1] ** 2
+    q = (l2_heads(torch.randn(b2, l, C, generator=g, device=dev), HEADS) * 4.0).to(torch.bfloat16)
+    k = l2_heads(torch.randn(b2, lk, C, generator=g, device=dev), HEADS).to(torch.bfloat16)
+    v = torch.randn(b2, lk, C, generator=g, device=dev).to(torch.bfloat16)
+    ms = device_ms(lambda: flash_decode_paired(q, k, v, HEADS, 1.0), 20)
+    wall = call_ms(lambda: flash_decode_paired(q, k, v, HEADS, 1.0), 20)
+    plain_ms = device_ms(lambda: flash_decode_paired_plain(q, k, v, HEADS, 1.0), 5)
+    # the library yardstick: SDPA on the same q, k, v (never used by the port)
+    qh, kh, vh = (t.reshape(b2, -1, HEADS, d).transpose(1, 2) for t in (q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), 20)
+    nbytes = 2 * (2 * b2 * l * C + 2 * b2 * lk * C)  # q, out, K, V in bf16
+    bound_ms, bound_by = bound(nbytes, 4.0 * b2 * HEADS * l * lk * d, BF16_TENSOR_FLOPS)
+    return {"name": "flash_decode_paired", "max_abs_err": errs["bfloat16"],
+            "max_err_bf16_ulps": errs["bfloat16_ulps"], "max_abs_err_fp32": errs["float32"],
+            "tol": {**tolerances("flash_decode_paired"),
+                    "bfloat16": f"{FLASH_BF16_ULPS} bf16 ulps of max|want| per stage, "
+                                "want in fp32 from the same bf16 inputs"},
+            "stage_shapes": decode_paired_shapes(), "ms": ms, "call_ms": wall,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
+
+
 def _scale_ends():
     lens, cums = _stage_lens()
     return tuple(c + n for c, n in zip(cums, lens))
@@ -410,49 +511,52 @@ def phase_kernel_ptrain(dev):
     return [fwd_row, bwd_row]
 
 
-def phase_parity(dev, root):
-    """Greedy fp32 decode through the kernels at the var_prod.npz geometry
-    (d16 width, depth 2, full pyramid, synthesized weights), TF32 off."""
+def _prod_models(root):
+    """fp32 VAR and full VQVAE at the var_prod.npz geometry (d16 width,
+    depth 2, 16 heads, 1000 classes, the 256px pyramid) with the weights
+    tests/synth_weights.py synthesizes, on the CPU, in eval mode."""
     sys.path.insert(0, root)
     from tests.synth_weights import synth_state_dict
     from var_tpu_torch.config import VAEConfig, VARConfig
-    from var_tpu_torch.device import fp32_exact
-    from var_tpu_torch.engine.sampler import decode_tokens_cfg
     from var_tpu_torch.models import vae as vae_mod
     from var_tpu_torch.models import var as var_mod
-    from var_tpu_torch.ops.cuda.flash_attention import flash_decode
-    from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
-    from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
     data = np.load(os.path.join(root, "tests", "fixtures", "var_prod.npz"))
     pns = tuple(data["patch_nums"].tolist())
     depth, width, heads, ncls = data["depth_width_heads_ncls"].tolist()
-    var_cfg = VARConfig(num_classes=ncls, depth=depth, embed_dim=width, num_heads=heads,
-                        attn_l2_norm=True, cond_drop_rate=0.0, patch_nums=pns,
-                        vocab_size=V, z_channels=32)
-    vae_cfg = VAEConfig(v_patch_nums=pns)
     manifest = lambda key: json.loads(bytes(data[key]).decode())  # noqa: E731
-    var = var_mod.VAR(var_cfg)
+    var = var_mod.VAR(VARConfig(num_classes=ncls, depth=depth, embed_dim=width, num_heads=heads,
+                                attn_l2_norm=True, cond_drop_rate=0.0, patch_nums=pns,
+                                vocab_size=V, z_channels=32))
     var.load_state_dict({k[4:]: torch.from_numpy(a) for k, a in
                          synth_state_dict(manifest("var_keys_shapes_json")).items()})
-    vae = vae_mod.VQVAE(vae_cfg)
-    quant = [ks for ks in manifest("vae_keys_shapes_json")
-             if ks[0].startswith("quantize.") and "ema_vocab_hit" not in ks[0]]
-    vae.quantize.load_state_dict({k[9:]: torch.from_numpy(a)
-                                  for k, a in synth_state_dict(quant).items()})
-    var, vae = var.to(dev).eval(), vae.to(dev).eval()
-    counts = (modulated_layernorm.launches, flash_decode.launches, topk_topp_bound.launches)
+    vae = vae_mod.VQVAE(VAEConfig(v_patch_nums=pns))
+    vae.load_state_dict({k: torch.from_numpy(a) for k, a in synth_state_dict(
+        manifest("vae_keys_shapes_json")).items() if "ema_vocab_hit" not in k})
+    return data, var.eval().requires_grad_(False), vae.eval().requires_grad_(False)
+
+
+def phase_parity(dev, root):
+    """Greedy fp32 decode through the kernels at the var_prod.npz geometry
+    (d16 width, depth 2, full pyramid, synthesized weights), TF32 off."""
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.engine.sampler import decode_tokens_cfg
+
+    data, var, vae = _prod_models(root)
+    var, vae = var.to(dev), vae.to(dev)
+    depth, sn = var.cfg.depth, len(var.cfg.patch_nums)
+    kernels = _all_kernels()
+    _zero_counts(kernels)
     with torch.inference_mode(), fp32_exact():
         tokens, f_hat = decode_tokens_cfg(
             var, vae, torch.as_tensor(data["dec_label"], device=dev),
             torch.Generator(device=dev).manual_seed(0), cfg_scale=CFG, top_k=1, top_p=0.0,
             dtype=torch.float32)
     torch.cuda.synchronize()
-    through = [c1 - c0 for c0, c1 in zip(counts, (modulated_layernorm.launches,
-                                                  flash_decode.launches,
-                                                  topk_topp_bound.launches))]
-    if through != [2 * depth * len(pns), depth * len(pns), len(pns)]:
-        raise AssertionError(f"parity decode did not run on the kernels: {through}")
+    through = _counts(kernels)
+    want = {**_decode_want(depth, sn), "flash_decode": depth * sn}
+    if through != want:
+        raise AssertionError(f"parity decode launches {through}, want {want}")
     got = tokens.cpu().numpy()
     equal = int((got == data["dec_tokens"]).sum())
     fhat_err = float(np.abs(f_hat.cpu().numpy()
@@ -467,9 +571,6 @@ def phase_parity(dev, root):
 def phase_main_path(dev):
     from var_tpu_torch.engine.sampler import make_sampler
     from var_tpu_torch.models import build_vae_var
-    from var_tpu_torch.ops.cuda.flash_attention import flash_decode
-    from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
-    from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
     t0 = time.perf_counter()
     vae_cfg, var_cfg, vae, var = build_vae_var(seed=0, depth=DEPTH, patch_nums=PATCH_NUMS)
@@ -477,21 +578,20 @@ def phase_main_path(dev):
                            dtype=torch.bfloat16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    kernels = (modulated_layernorm, flash_decode, topk_topp_bound)
-    for fn in kernels:
-        fn.launches = 0
+    kernels = _all_kernels()
+    _zero_counts(kernels)
     t0 = time.perf_counter()
     res = sampler(var, vae, torch.Generator(device=dev).manual_seed(0), DEMO_CLASSES)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = _counts(kernels)
     sn = len(PATCH_NUMS)
-    want = {"modulated_layernorm": 2 * DEPTH * sn, "flash_decode": DEPTH * sn,
-            "topk_topp_bound": sn}
+    want = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
     if launches != want:
         raise AssertionError(f"main path launches {launches}, want {want}")
     img, tokens = res.image, res.tokens
-    if tuple(img.shape) != (BATCH, 256, 256, 3) or not bool(torch.isfinite(img).all()):
+    reso = 16 * var_cfg.patch_nums[-1]
+    if tuple(img.shape) != (BATCH, reso, reso, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"bad image {tuple(img.shape)}")
     if float(img.min()) < 0.0 or float(img.max()) > 1.0:
         raise AssertionError("image outside [0, 1]")
@@ -515,14 +615,36 @@ def phase_main_path(dev):
     return launches
 
 
-def _train_kernels():
-    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode, paired_train_bwd,
-                                                        paired_train_fwd)
+def _all_kernels():
+    """Every kernel wrapper with a launch counter, in kernel-table order."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode, flash_decode_paired,
+                                                        paired_train_bwd, paired_train_fwd)
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
     from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
-    return (paired_train_fwd, paired_train_bwd, modulated_layernorm, flash_decode,
-            topk_topp_bound)
+    return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
+            paired_train_fwd, paired_train_bwd)
+
+
+def _zero_counts(kernels) -> None:
+    for fn in kernels:
+        fn.launches = 0
+
+
+def _counts(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def _decode_want(depth: int, sn: int) -> dict:
+    """Launches of one CFG decode of ``sn`` scales over ``depth`` blocks with
+    the attention kernels at 0: the caller sets the one its cache uses."""
+    return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
+            "flash_decode_paired": 0, "paired_train_fwd": 0, "paired_train_bwd": 0}
+
+
+def _train_want(depth: int) -> dict:
+    return {"modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0,
+            "flash_decode_paired": 0, "paired_train_fwd": 2 * depth, "paired_train_bwd": depth}
 
 
 TRAIN_GRAD_RTOL = 1e-4  # per parameter: max|card - cpu| <= this * max|cpu grad|
@@ -537,44 +659,26 @@ def phase_train_parity(dev, root):
     the same step on the CPU (the same module weights moved with .to, the
     card's tokens, the plain path). TF32 off around the tokenizer (in
     img_to_idxBl) and the fp32 head (fp32 matmuls)."""
-    sys.path.insert(0, root)
-    from tests.synth_weights import synth_state_dict
-    from var_tpu_torch.config import TrainArgs, VAEConfig, VARConfig
+    from var_tpu_torch.config import TrainArgs
     from var_tpu_torch.engine import trainer as tr
-    from var_tpu_torch.models import vae as vae_mod
-    from var_tpu_torch.models import var as var_mod
 
-    fx = os.path.join(root, "tests", "fixtures")
-    vdata = np.load(os.path.join(fx, "vae_prod.npz"))
-    data = np.load(os.path.join(fx, "var_prod.npz"))
-    manifest = lambda d, key: json.loads(bytes(d[key]).decode())  # noqa: E731
-    pns = tuple(vdata["patch_nums"].tolist())
-    depth, width, heads, ncls = data["depth_width_heads_ncls"].tolist()
-    var_cfg = VARConfig(num_classes=ncls, depth=depth, embed_dim=width, num_heads=heads,
-                        attn_l2_norm=True, cond_drop_rate=0.0, drop_path_rate=0.0,
-                        patch_nums=pns, vocab_size=V, z_channels=32)
-    var = var_mod.VAR(var_cfg)
-    var.load_state_dict({k[4:]: torch.from_numpy(a) for k, a in
-                         synth_state_dict(manifest(data, "var_keys_shapes_json")).items()})
-    vae = vae_mod.VQVAE(VAEConfig(v_patch_nums=pns))
-    vae.load_state_dict({k: torch.from_numpy(a) for k, a in synth_state_dict(
-        manifest(vdata, "keys_shapes_json")).items() if "ema_vocab_hit" not in k})
-    var, vae = var.to(dev).train(), vae.to(dev).eval().requires_grad_(False)
+    data, var, vae = _prod_models(root)
+    vdata = np.load(os.path.join(root, "tests", "fixtures", "vae_prod.npz"))
+    pns, depth = var.cfg.patch_nums, var.cfg.depth
+    var, vae = var.to(dev).train().requires_grad_(True), vae.to(dev)
     args = TrainArgs(remat=2)
     img = torch.from_numpy(np.transpose(vdata["img"], (0, 2, 3, 1))).to(dev)
     labels = torch.as_tensor(data["dec_label"], device=dev)
-    kernels = _train_kernels()
-    for fn in kernels:
-        fn.launches = 0
+    kernels = _all_kernels()
+    _zero_counts(kernels)
     idx_bl = tr.tokenize(vae, img, args)
     equal = sum(int((i.cpu().numpy() == vdata[f"idx_{si}"]).sum()) for si, i in enumerate(idx_bl))
     total = sum(int(vdata[f"idx_{si}"].size) for si in range(len(pns)))
     loss, _ = tr.teacher_loss(var, vae, args, idx_bl, labels, None, dtype=torch.float32)
     loss.backward()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    want_launches = {"paired_train_fwd": 2 * depth, "paired_train_bwd": depth,
-                     "modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0}
+    launches = _counts(kernels)
+    want_launches = _train_want(depth)
     card = {n: p.grad.detach().cpu() for n, p in var.named_parameters()}
     var.zero_grad(set_to_none=True)
     var_cpu, vae_cpu = var.to("cpu"), vae.to("cpu")
@@ -625,16 +729,14 @@ def phase_train_main_path(dev):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    kernels = _train_kernels()
-    for fn in kernels:
-        fn.launches = 0
+    kernels = _all_kernels()
+    _zero_counts(kernels)
     t0 = time.perf_counter()
     state, m = step(state, vae, imgs, labels, step_gen(0), 0, 1.0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    want = {"paired_train_fwd": 2 * DEPTH, "paired_train_bwd": DEPTH,
-            "modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0}
+    launches = _counts(kernels)
+    want = _train_want(DEPTH)
     if launches != want:
         raise AssertionError(f"training main path launches {launches}, want {want}")
     losses, gnorms, times = [float(m.loss)], [float(m.grad_norm)], []
@@ -657,6 +759,223 @@ def phase_train_main_path(dev):
     return launches
 
 
+ZEROSHOT_RTOL = 1e-4  # card vs CPU log-likelihoods and classifier scores
+KEEP_THROUGH = 6  # the inpaint app's default recipe
+EDIT_BOX = (0.25, 0.25, 0.75, 0.75)
+SMOOTH_N = 4096
+SMOOTH_THRESHOLD = 1.5  # L2, the threshold mode's parity case
+CLF_CLASSES = 10
+
+
+def _zeroshot_runs(var, vae, img, gt, labels):
+    """The zero-shot modes of the parity phase, greedy, fp32, on the modules'
+    device: {mode: (tokens, [log-likelihoods or scores])}."""
+    from var_tpu_torch.apps.classify import VARClassifier
+    from var_tpu_torch.apps.masks import get_edit_mask, keep_scales_mask
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.engine.sampler import decode_tokens_cfg, smooth_sampling
+
+    dev, pns = gt.device, var.cfg.patch_nums
+    b = labels.shape[0]
+    keep = torch.from_numpy(keep_scales_mask(pns, KEEP_THROUGH))[None].expand(b, -1).to(dev)
+    edit = torch.from_numpy(get_edit_mask(pns, *EDIT_BOX)).to(dev)
+    common = dict(top_k=1, top_p=0.0, dtype=torch.float32)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    out = {}
+    with torch.inference_mode(), fp32_exact():
+        out["inpaint"] = (decode_tokens_cfg(var, vae, labels, gen(), cfg_scale=4.0, gt_tokens=gt,
+                                            keep_mask=keep, **common)[0], [])
+        out["edit"] = (decode_tokens_cfg(var, vae, labels, gen(), cfg_scale=4.0, gt_tokens=gt,
+                                         edit_mask=edit, **common)[0], [])
+        out["kv_window"] = (decode_tokens_cfg(var, vae, labels, gen(), cfg_scale=CFG,
+                                              kv_window=2, **common)[0], [])
+        for name, thr in (("smooth_count", None), ("smooth_threshold", SMOOTH_THRESHOLD)):
+            r = smooth_sampling(var, vae, gt[:1], SMOOTH_N, labels[:1], cfg_scale=CFG,
+                                neighbor_threshold=thr, dtype=torch.float32)
+            out[name] = (r.tokens, [float(r.log_likelihood), float(r.distance_log_likelihood)])
+    scores = VARClassifier(var, vae, mode="bayesian").class_likelihoods(
+        img[:1], list(range(CLF_CLASSES)), batch_size=CLF_CLASSES)
+    out["classify_bayesian"] = (torch.as_tensor(int(np.argmax(scores))), list(map(float, scores)))
+    return {k: (t.cpu(), v) for k, (t, v) in out.items()}
+
+
+def phase_zeroshot_parity(dev, root):
+    """fp32, TF32 off, at the var_prod.npz geometry: the prealloc greedy
+    decode through flash_decode_paired must reproduce dec_tokens; then every
+    zero-shot mode on the card must give the CPU's tokens (the same module
+    weights, the card's ground-truth tokens of the vae_prod.npz images)
+    and, within ZEROSHOT_RTOL, its log-likelihoods and classifier scores,
+    with the same argmax."""
+    import copy
+
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.engine.sampler import decode_tokens_cfg
+    from var_tpu_torch.models.vae import img_to_idxBl
+
+    data, var, vae = _prod_models(root)
+    var_c, vae_c = copy.deepcopy(var).to(dev), copy.deepcopy(vae).to(dev)
+    depth, sn = var.cfg.depth, len(var.cfg.patch_nums)
+    kernels = _all_kernels()
+    _zero_counts(kernels)
+    with torch.inference_mode(), fp32_exact():
+        tokens, _ = decode_tokens_cfg(
+            var_c, vae_c, torch.as_tensor(data["dec_label"], device=dev),
+            torch.Generator(device=dev).manual_seed(0), cfg_scale=CFG, top_k=1, top_p=0.0,
+            dtype=torch.float32, cache_impl="prealloc")
+    torch.cuda.synchronize()
+    launches = _counts(kernels)
+    want = {**_decode_want(depth, sn), "flash_decode_paired": depth * sn}
+    equal = int((tokens.cpu().numpy() == data["dec_tokens"]).sum())
+    if launches != want:
+        raise AssertionError(f"prealloc parity launches {launches}, want {want}")
+    if equal != tokens.numel():
+        raise AssertionError(f"prealloc greedy decode differs from dec_tokens: "
+                             f"{equal}/{tokens.numel()} equal")
+
+    vdata = np.load(os.path.join(root, "tests", "fixtures", "vae_prod.npz"))
+    img = torch.from_numpy(np.transpose(vdata["img"], (0, 2, 3, 1))).contiguous()
+    labels = torch.as_tensor(data["dec_label"])
+    with torch.inference_mode():
+        gt = torch.cat(img_to_idxBl(vae_c, img.to(dev)), dim=1)
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    card = _zeroshot_runs(var_c, vae_c, img.to(dev), gt, labels.to(dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    mode_launches = _counts(kernels)
+    t0 = time.perf_counter()
+    cpu = _zeroshot_runs(var, vae, img, gt.cpu(), labels)
+    cpu_s = time.perf_counter() - t0
+    rows, failures = {}, []
+    for mode, (tok, vals) in card.items():
+        tok_cpu, vals_cpu = cpu[mode]
+        eq = int((tok == tok_cpu).sum())
+        rel = max([abs(a - b) / max(abs(b), 1e-30) for a, b in zip(vals, vals_cpu)], default=0.0)
+        rows[mode] = {"tokens_equal": eq, "tokens": int(tok.numel()), "values_card": vals,
+                      "values_cpu": vals_cpu, "max_rel_err": rel}
+        if eq != tok.numel() or not rel <= ZEROSHOT_RTOL:  # NaN fails too
+            failures.append(f"{mode}: {eq}/{tok.numel()} tokens equal, rel err {rel}")
+    emit({"phase": "zeroshot_parity", "prealloc_tokens_equal": equal,
+          "prealloc_tokens": int(tokens.numel()), "prealloc_launches": launches,
+          "modes": rows, "modes_launches": mode_launches, "card_s": card_s, "cpu_s": cpu_s,
+          "tol": {"tokens": "equal", "log_likelihoods_and_scores_rel": ZEROSHOT_RTOL}})
+    if failures:
+        raise AssertionError("zero-shot modes differ between the card and the CPU: "
+                             + "; ".join(failures))
+    if mode_launches["flash_decode_paired"] == 0 or mode_launches["paired_train_fwd"] == 0:
+        raise AssertionError(f"zero-shot parity did not run on the kernels: {mode_launches}")
+
+
+def phase_zeroshot_main_path(dev):
+    """Each zero-shot mode at d16, 256px, bf16, seeded random weights and
+    images tokenised on the card, 8 requests (the classifier: one image over
+    10 classes in one batch): counters set to 0 just before the mode's
+    warm-up run and read just after it, then 5 timed runs."""
+    from var_tpu_torch.apps.classify import VARClassifier
+    from var_tpu_torch.apps.masks import get_edit_mask, keep_scales_mask
+    from var_tpu_torch.engine.sampler import decode_cfg, make_sampler, smooth_sampling
+    from var_tpu_torch.models import build_vae_var
+    from var_tpu_torch.models.vae import img_to_idxBl
+
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16
+    vae_cfg, var_cfg, vae, var = build_vae_var(device=dev, seed=0, depth=DEPTH,
+                                               patch_nums=PATCH_NUMS, dtype=dtype)
+    g = torch.Generator(device=dev).manual_seed(8)
+    reso = PATCH_NUMS[-1] * vae_cfg.downsample
+    img = torch.rand(BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    labels = torch.as_tensor(DEMO_CLASSES, device=dev)
+    with torch.inference_mode():
+        gt = torch.cat(img_to_idxBl(vae, img), dim=1)
+    keep = torch.from_numpy(keep_scales_mask(PATCH_NUMS, KEEP_THROUGH))[None].expand(BATCH, -1)
+    keep = keep.to(dev)
+    edit = torch.from_numpy(get_edit_mask(PATCH_NUMS, *EDIT_BOX)).to(dev)
+    sample_kw = dict(cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P, dtype=dtype, device=dev)
+    inpaint = make_sampler(var_cfg, vae_cfg, cfg_scale=4.0, top_k=1, dtype=dtype, device=dev,
+                           inpainting=True)
+    kv_window = make_sampler(var_cfg, vae_cfg, kv_window=2, **sample_kw)
+    prealloc = make_sampler(var_cfg, vae_cfg, cache_impl="prealloc", **sample_kw)
+    clf = VARClassifier(var, vae, mode="bayesian", dtype=dtype)
+    gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
+
+    def edit_run(i):
+        with torch.inference_mode():
+            return decode_cfg(var, vae, labels, gen(i), cfg_scale=4.0, top_k=1, dtype=dtype,
+                              gt_tokens=gt, edit_mask=edit)
+
+    modes = {  # name: (run(i), images per run)
+        "inpaint": (lambda i: inpaint(var, vae, gen(i), labels, gt, keep), BATCH),
+        "edit": (edit_run, BATCH),
+        "kv_window": (lambda i: kv_window(var, vae, gen(i), labels), BATCH),
+        "prealloc": (lambda i: prealloc(var, vae, gen(i), labels), BATCH),
+        "smooth": (lambda i: smooth_sampling(var, vae, gt, SMOOTH_N, labels, cfg_scale=CFG,
+                                             dtype=dtype), BATCH),
+        "classify": (lambda i: clf.class_likelihoods(img[:1], list(range(CLF_CLASSES)),
+                                                     batch_size=CLF_CLASSES), 1),
+    }
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels = _all_kernels()
+    sn = len(PATCH_NUMS)
+    chunked = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
+    paired = {**_decode_want(DEPTH, sn), "flash_decode_paired": DEPTH * sn}
+    wants = {"inpaint": chunked, "edit": chunked, "kv_window": paired, "prealloc": paired,
+             "smooth": {**chunked, "topk_topp_bound": 0},  # no top-k/top-p filter
+             "classify": {**_train_want(DEPTH), "paired_train_fwd": DEPTH,
+                          "paired_train_bwd": 0}}
+    total = dict.fromkeys(_counts(kernels), 0)
+    for name, (run, n_img) in modes.items():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = run(0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _counts(kernels)
+        if launches != wants[name]:
+            raise AssertionError(f"zero-shot {name} launches {launches}, want {wants[name]}")
+        total = {k: total[k] + launches[k] for k in total}
+        check = _check_zeroshot_output(name, res, gt, keep, var_cfg)
+        times = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            run(1 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        median_s = float(np.median(times))
+        emit({"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
+              "dtype": "bfloat16", "launches": launches, **check, "setup_s": setup_s,
+              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
+              "img_per_s": n_img / median_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return total
+
+
+def _check_zeroshot_output(name, res, gt, keep, var_cfg) -> dict:
+    """Finite outputs of the expected shapes; kept positions hold the
+    ground truth; token ids in range."""
+    if name == "classify":
+        scores = np.asarray(res)
+        if scores.shape != (CLF_CLASSES,) or not np.isfinite(scores).all():
+            raise AssertionError(f"classify: bad scores {scores}")
+        return {"scores": scores.tolist(), "pred": int(np.argmax(scores))}
+    img, tokens = res.image, res.tokens
+    reso = 16 * var_cfg.patch_nums[-1]
+    if tuple(img.shape) != (BATCH, reso, reso, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: bad image {tuple(img.shape)}")
+    if tuple(tokens.shape) != (BATCH, var_cfg.seq_len) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= V:
+        raise AssertionError(f"{name}: tokens out of range")
+    if name == "inpaint" and not bool((tokens[keep] == gt[keep]).all()):
+        raise AssertionError("inpaint: kept positions do not hold the ground truth")
+    out = {"image_min": float(img.min()), "image_max": float(img.max()),
+           "distinct_tokens": int(tokens.unique().numel()),
+           "tokens_equal_gt": float((tokens == gt).float().mean())}
+    if name == "smooth":
+        out["log_likelihood"] = float(res.log_likelihood)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -670,7 +989,7 @@ def main() -> None:
     phase_device()
     phase_build()
     rows = [phase(dev) for phase in (phase_kernel_ln, phase_kernel_select,
-                                     phase_kernel_attention)]
+                                     phase_kernel_attention, phase_kernel_decode_paired)]
     rows += phase_kernel_ptrain(dev)
     for row in rows:
         emit({"phase": "kernel", **row})
@@ -679,6 +998,9 @@ def main() -> None:
     phase_train_parity(dev, root)
     launches.update({k: v for k, v in phase_train_main_path(dev).items()
                      if k.startswith("paired_train")})
+    phase_zeroshot_parity(dev, root)
+    zeroshot = phase_zeroshot_main_path(dev)
+    launches["flash_decode_paired"] = zeroshot["flash_decode_paired"]
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),
@@ -686,6 +1008,8 @@ def main() -> None:
                             "var_tpu/ops/pallas/select.py:86"),
         "flash_decode": ("var_tpu_torch/ops/cuda/csrc/flash_attention.cu",
                          "var_tpu/ops/pallas/flash_attention.py:556"),
+        "flash_decode_paired": ("var_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+                                "var_tpu/ops/pallas/flash_attention.py:635"),
         "paired_train_fwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
                              "var_tpu/ops/pallas/flash_attention.py:912"),
         "paired_train_bwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",

@@ -142,6 +142,94 @@ def test_cuda_paired_train_takes_head_dim_64_only(cuda):
         flash_attention_paired_train(q, q, q, 2, 1.0, None)
 
 
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_paired_matches_plain(cuda, dtype):
+    """Row 4 against its plain version at every (Lq, Lk) of the d16 bs8
+    prealloc and kv_window=2 decodes (chip_smoke.check_decode_paired: fp32
+    within 1e-4 + 1e-4 |want|, bf16 within 3 bf16 ulps of max|want|)."""
+    from var_tpu_torch.ops.cuda.flash_attention import flash_decode_paired
+
+    before = flash_decode_paired.launches
+    _chip_smoke().check_decode_paired(cuda, dtypes=(dtype,))
+    torch.cuda.synchronize()
+    assert flash_decode_paired.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_kv_window_decode_equals_cpu(cuda):
+    """A greedy fp32 kv_window=2 decode of a head_dim-64 model on the card
+    (through flash_decode_paired) gives the CPU's tokens."""
+    from var_tpu_torch.config import VAEConfig, VARConfig
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.engine.sampler import decode_tokens_cfg
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+    from var_tpu_torch.ops.cuda.flash_attention import flash_decode_paired
+
+    pns = (1, 2, 3, 4, 5, 6)
+    gen = torch.Generator().manual_seed(3)
+    vae = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(
+        vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
+    var = var_mod.init_var_params(var_mod.VAR(VARConfig(
+        num_classes=10, depth=2, embed_dim=128, num_heads=2, patch_nums=pns, vocab_size=64,
+        z_channels=8, attn_l2_norm=True, cond_drop_rate=0.0)), gen, init_head=2.0)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        v, q = var.to(dev).eval(), vae.to(dev).eval()
+        before = flash_decode_paired.launches
+        with torch.inference_mode(), fp32_exact():
+            tokens, f_hat = decode_tokens_cfg(
+                v, q, torch.tensor([1, 7, 3], device=dev),
+                torch.Generator(device=dev).manual_seed(0), cfg_scale=1.5, top_k=1,
+                dtype=torch.float32, kv_window=2)
+        torch.cuda.synchronize()
+        out[dev.type] = (tokens.cpu(), f_hat.cpu(), flash_decode_paired.launches - before)
+    assert out["cuda"][2] == 2 * len(pns) and out["cpu"][2] == 0
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+
+
+def _planted_copy(tmp_path, source: str, old: str, new: str) -> None:
+    """A copy of the package in tmp_path whose ``source`` carries a planted
+    fault (every occurrence of ``old`` replaced by ``new``)."""
+    shutil.copytree(ROOT / "var_tpu_torch", tmp_path / "var_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = tmp_path / "var_tpu_torch" / "ops" / "cuda" / "csrc" / source
+    text = src.read_text()
+    assert text.count(old) >= 2
+    src.write_text(text.replace(old, new))
+
+
+def _run_check(tmp_path, check: str):
+    """Run ``chip_smoke.<check>(cuda:0)`` against the planted copy; returns
+    (exit code, last line of its errors)."""
+    code = (f"import sys; sys.path[:0] = [{str(tmp_path)!r}, {str(ROOT)!r}]; "
+            "import torch, chip_smoke, var_tpu_torch; "
+            f"assert var_tpu_torch.__file__.startswith({str(tmp_path)!r}); "
+            f"chip_smoke.{check}(torch.device('cuda', 0))")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=900)
+    return run.returncode, (run.stderr.strip().splitlines() or [""])[-1]
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_the_decode_paired_check(cuda, tmp_path):
+    """A copy of the decode-attention kernels that skips the last K tile,
+    built in tmp_path, must fail chip_smoke.check_decode_paired."""
+    _planted_copy(tmp_path, "flash_attention.cu", "k0 < Lk; k0 +=", "k0 + 64 < Lk; k0 +=")
+    rc, last = _run_check(tmp_path, "check_decode_paired")
+    print(json.dumps({"mutant": "decode_skip_last_k_tile", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "flash_decode_paired differs from its plain version" in last
+
+
 # planted faults: textual mutations of the training-attention source
 MUTANTS = {
     "skip_last_k_tile": ("k0 < kend;", "k0 + PT_T < kend;"),  # forward and dQ loops
@@ -155,19 +243,7 @@ def test_planted_fault_fails_the_training_attention_check(cuda, tmp_path, mutant
     """A copy of the package whose training-attention kernels carry a
     planted fault, built in tmp_path, must fail chip_smoke.check_ptrain at
     the d16 batch-32 shapes. Prints the check's error line."""
-    old, new = MUTANTS[mutant]
-    shutil.copytree(ROOT / "var_tpu_torch", tmp_path / "var_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = tmp_path / "var_tpu_torch" / "ops" / "cuda" / "csrc" / "flash_attention_train.cu"
-    text = src.read_text()
-    assert text.count(old) >= 2
-    src.write_text(text.replace(old, new))
-    code = (f"import sys; sys.path[:0] = [{str(tmp_path)!r}, {str(ROOT)!r}]; "
-            "import torch, chip_smoke, var_tpu_torch; "
-            f"assert var_tpu_torch.__file__.startswith({str(tmp_path)!r}); "
-            "chip_smoke.check_ptrain(torch.device('cuda', 0))")
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=900)
-    last = (run.stderr.strip().splitlines() or [""])[-1]
-    print(json.dumps({"mutant": mutant, "rc": run.returncode, "error": last[:3000]}))
-    assert run.returncode != 0 and "differs from its plain version" in last
+    _planted_copy(tmp_path, "flash_attention_train.cu", *MUTANTS[mutant])
+    rc, last = _run_check(tmp_path, "check_ptrain")
+    print(json.dumps({"mutant": mutant, "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "differs from its plain version" in last

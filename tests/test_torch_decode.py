@@ -130,11 +130,16 @@ def test_more_smooth_decode_runs():
     assert res.image.min() >= 0 and res.image.max() <= 1
 
 
-@pytest.mark.parametrize("arg", ["gt_tokens", "keep_mask", "edit_mask", "kv_window"])
-def test_unported_branches_raise(arg):
+@pytest.mark.parametrize("kw", [
+    {"kv_window": 0},
+    {"kv_window": -2},
+    {"keep_mask": torch.ones(1, 14, dtype=torch.bool)},
+    {"edit_mask": torch.ones(3, 3)},
+], ids=["kv_window_0", "kv_window_negative", "keep_mask_without_gt", "edit_mask_without_gt"])
+def test_bad_branch_arguments_raise(kw):
     vae, var = _random_models(64, 5)
-    with pytest.raises(NotImplementedError):
-        tsampler.decode_cfg(var, vae, torch.tensor([1]), **{arg: 2})
+    with pytest.raises(ValueError):
+        tsampler.decode_cfg(var, vae, torch.tensor([1]), **kw)
 
 
 def test_gumbel_softmax_soft_and_hard():

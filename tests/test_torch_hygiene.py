@@ -22,6 +22,7 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'var_tpu' or m.startswith('var_tpu.'))
 assert not bad, bad
 assert 'triton' not in sys.modules
+assert 'PIL' not in sys.modules  # images are read inside the functions that need them
 print(len(names))
 """
 
@@ -136,3 +137,13 @@ def test_build_vae_var_train_keeps_fp32_trainable_params():
     assert all(p.dtype == torch.float32 and p.requires_grad for p in var.parameters())
     assert not any(p.requires_grad for p in vae.parameters())
     assert hasattr(vae, "encoder") and hasattr(vae, "quant_conv")
+
+
+@pytest.mark.parametrize("app", ["inpaint", "smooth", "classify"])
+def test_zeroshot_app_default_device_raises_without_gpu(app, tmp_path):
+    _no_gpu()
+    import importlib
+
+    main = importlib.import_module(f"var_tpu_torch.apps.{app}").main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--depth", "2", "--pn", "1_2", "--data_path", str(tmp_path)])

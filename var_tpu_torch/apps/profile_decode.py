@@ -1,18 +1,22 @@
 """Where a CFG decode's time goes on the GPU (counterpart of the JAX
 package's ``scripts/profile_decode.py``):
 
-    python -m var_tpu_torch.apps.profile_decode --depth 16 --batch 8
+    python -m var_tpu_torch.apps.profile_decode --depth 16 --batch 8 \
+        [--cache chunked|prealloc|concat] [--kv_window W]
 
 Builds d``depth`` with seeded random weights, runs the main-path sampler
-(256px, bf16, cfg 1.5, top_k 900, top_p 0.96) once to warm up, then:
+(256px, bf16, cfg 1.5, top_k 900, top_p 0.96; the chunked cache unless
+``--cache`` or ``--kv_window`` asks for the one ``flash_decode_paired``
+serves) once to warm up, then:
 
 * times the token decode and the VQVAE render separately (host clock
   around work that ends in ``torch.cuda.synchronize()``);
 * traces one whole sample under ``torch.profiler`` and prints one JSON line:
   wall time, device-busy time (sum of the device events' self time) and
   idle share,
-  device time grouped by kind (the port's three kernels, GEMMs,
-  convolutions, the rest) and the top kernels by device time.
+  device time grouped by kind (the port's decode kernels, rows 1-4 of the
+  kernel table in PERF.md; GEMMs, convolutions, the rest) and the top
+  kernels by device time.
 
 Needs an NVIDIA GPU.
 """
@@ -26,7 +30,9 @@ import time
 
 def _kind(name: str) -> str:
     n = name.lower()
-    for kernel in ("modulated_ln", "topk_topp_bound", "decode_attention"):
+    if "decode_attention" in n:  # row 4 is the kPaired instantiation of row 2's kernels
+        return "decode_attention_paired" if "<true>" in n else "decode_attention"
+    for kernel in ("modulated_ln", "topk_topp_bound"):
         if kernel in n:
             return kernel
     if "fprop" in n or "conv" in n or "cudnn" in n:
@@ -41,6 +47,8 @@ def main(argv=None):
     p.add_argument("--depth", type=int, default=16)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--top", type=int, default=25)
+    p.add_argument("--cache", default="chunked", choices=("chunked", "prealloc", "concat"))
+    p.add_argument("--kv_window", type=int, default=None)
     args = p.parse_args(argv)
 
     import torch
@@ -55,7 +63,8 @@ def main(argv=None):
     dtype = torch.bfloat16
     vae_cfg, var_cfg, vae, var = build_vae_var(device=dev, seed=0, depth=args.depth,
                                                dtype=dtype)
-    kw = dict(cfg_scale=1.5, top_k=900, top_p=0.96, dtype=dtype)
+    kw = dict(cfg_scale=1.5, top_k=900, top_p=0.96, dtype=dtype, kv_window=args.kv_window,
+              cache_impl=args.cache)
     sampler = make_sampler(var_cfg, vae_cfg, device=dev, **kw)
     labels = [i * 97 % var_cfg.num_classes for i in range(args.batch)]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -91,6 +100,7 @@ def main(argv=None):
         k["launches"] += count
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "depth": args.depth, "batch": args.batch,
+        "cache": args.cache, "kv_window": args.kv_window,
         "decode_tokens_ms": (t1 - t0) * 1e3, "render_ms": (t2 - t1) * 1e3,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "by_kind": by_kind,

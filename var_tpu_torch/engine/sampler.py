@@ -1,7 +1,7 @@
 """Scale-by-scale CFG decoding (counterpart of ``var_tpu/engine/sampler.py``).
 
 Reproduces ``VAR.autoregressive_infer_cfg`` (reference
-``models/var.py:126-190``), class-conditional branch:
+``models/var.py:126-190``) and ``VAR.inpainting`` (``var.py:236-364``):
 
 * the batch is doubled (cond | uncond, the unconditional class being
   ``num_classes``); the guidance weight ramps with scale,
@@ -13,35 +13,113 @@ Reproduces ``VAR.autoregressive_infer_cfg`` (reference
   float32, tiled x2;
 * finally the VQVAE decoder renders f_hat.
 
+The zero-shot branches: token-mask inpainting (``gt_tokens`` +
+``keep_mask``), embedding-space box editing (``gt_tokens`` +
+``edit_mask``), ``kv_window`` pruning, the ``cache_impl`` representations,
+neighbour-constrained :func:`smooth_sampling` and the dispatch-batched
+:func:`make_scan_sampler`.
+
 Public outputs keep the JAX layouts: image (B, H, W, 3) in [0, 1], tokens
-(B, L), f_hat (B, h, w, Cvae). Inpainting, editing and ``kv_window``
-pruning belong to a later slice of the port and raise here.
+(B, L), f_hat (B, h, w, Cvae).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
-from var_tpu_torch.device import resolve_device
+from var_tpu_torch.device import fp32_exact, resolve_device
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
+from var_tpu_torch.ops.resize import resize_bilinear
 from var_tpu_torch.ops.sampling import gumbel_softmax, sample_with_top_k_top_p
+
+CACHE_IMPLS = ("chunked", "prealloc", "concat")
 
 
 class DecodeResult(NamedTuple):
     image: torch.Tensor  # (B, H, W, 3) in [0, 1], float32
-    tokens: torch.Tensor  # (B, L) int64
+    tokens: torch.Tensor  # (B, L) int64 final ids (inpainting: kept positions hold gt)
     f_hat: torch.Tensor  # (B, h, w, Cvae) float32
 
 
-def _unported(gt_tokens, keep_mask, edit_mask, kv_window) -> None:
-    if any(a is not None for a in (gt_tokens, keep_mask, edit_mask, kv_window)):
-        raise NotImplementedError(
-            "inpainting/editing (gt_tokens, keep_mask, edit_mask) and kv_window "
-            "are not ported yet")
+def _check_branches(gt_tokens, keep_mask, edit_mask, kv_window, cache_impl) -> None:
+    if (keep_mask is not None or edit_mask is not None) and gt_tokens is None:
+        raise ValueError("keep_mask and edit_mask need gt_tokens")
+    if kv_window is not None and kv_window < 1:
+        raise ValueError(f"kv_window must be >= 1, got {kv_window}")
+    if cache_impl not in CACHE_IMPLS:
+        raise ValueError(f"cache_impl must be one of {CACHE_IMPLS}, got {cache_impl!r}")
+
+
+def window_len(patch_nums: Sequence[int], kv_window: int) -> int:
+    """The most cache rows a stage of a ``kv_window`` decode attends to:
+    stage 0 (the ``first_l`` prefix) plus stages max(1, t - w + 1) .. t
+    (the length ``var_tpu``'s ``window_chunks_viable`` computes)."""
+    lens = [pn * pn for pn in patch_nums]
+    return max(lens[0] + sum(lens[max(1, t - kv_window + 1):t + 1]) for t in range(len(lens)))
+
+
+def _slide_window(cache: var_mod.KVCache, lens: Sequence[int], t: int, kv_window: int) -> None:
+    """Before stage ``t``: drop stage t - kv_window (when it is >= 1) by
+    moving the kept stages' rows down behind the prefix, so the window stays
+    contiguous at rows [0, cum). Source and destination overlap, so the move
+    goes front to back in chunks no longer than the shift. One copy per
+    stage, over every layer, as the JAX concat path copies (``sampler.py:
+    142-149``). The JAX package's VMEM-envelope machinery for windows
+    (``paired_chunks_ok``, ``maybe_concat_chunks``, ``window_chunks_viable``,
+    ``chunks_to_concat``, ``var.py:771-837``) has no counterpart: the
+    kernel serves every window length."""
+    drop = t - kv_window
+    if drop < 1:
+        return
+    first_l, shift = lens[0], lens[drop]
+    n = cache.cum - first_l - shift
+    for buf in (cache.k, cache.v):
+        for i in range(0, n, shift):
+            m = min(shift, n - i)
+            buf[:, :, first_l + i:first_l + i + m].copy_(
+                buf[:, :, first_l + shift + i:first_l + shift + i + m])
+    cache.cum -= shift
+
+
+def _edit_blend(quant, gt_seg: torch.Tensor, edit_mask: torch.Tensor, h: torch.Tensor,
+                pn: int) -> torch.Tensor:
+    """Box editing (``sampler.py:165-176``): ground-truth embeddings where
+    the (ph, pw) ``edit_mask``, bilinearly resized to pn x pn and thresholded
+    at > 0.5 in float32, keeps them; all ground truth at scales of <= 3
+    tokens."""
+    gt_h = q.embed(quant, gt_seg).reshape(h.shape)
+    if pn * pn <= 3:
+        return gt_h
+    m = resize_bilinear(edit_mask.float()[None, :, :, None], (pn, pn))
+    force = (m > 0.5).float()
+    return gt_h * force + h * (1.0 - force)
+
+
+def _next_input(var: var_mod.VAR, nxt: torch.Tensor, lvl_pos: torch.Tensor, cur: int,
+                b: int) -> torch.Tensor:
+    """The next scale's token map from the quantizer-space input ``nxt``
+    (B, pn, pn, Cvae): ``word_embed`` in float32 plus its positions, tiled
+    x2 for the CFG batch (``var.py:187``)."""
+    nseg = nxt.shape[1] * nxt.shape[2]
+    ntm = var_mod._linear(var.word_embed, nxt.reshape(b, nseg, -1).float())
+    return (ntm + lvl_pos[:, cur:cur + nseg]).repeat(2, 1, 1)
+
+
+def _start(var: var_mod.VAR, label_b: torch.Tensor, dtype: torch.dtype):
+    """(cond_bd (2B, C), per-block context, lvl_pos (1, L, C), first token
+    map (2B, first_l, C)) of a CFG decode."""
+    cfg = var.cfg
+    labels2 = torch.cat([label_b, torch.full_like(label_b, cfg.num_classes)])
+    cond_bd = var.class_emb.weight[labels2]  # (2B, C) float32
+    ctx = var_mod.cond_context(var, cond_bd, dtype)
+    lvl_pos = var_mod.lvl_pos_embed(var)
+    ntm = cond_bd[:, None, :] + var.pos_start + lvl_pos[:, :cfg.first_l]
+    return cond_bd, ctx, lvl_pos, ntm
 
 
 def decode_tokens_cfg(
@@ -54,36 +132,40 @@ def decode_tokens_cfg(
     top_p: float = 0.0,
     more_smooth: bool = False,
     dtype: torch.dtype = torch.bfloat16,
-    gt_tokens=None,
-    keep_mask=None,
-    edit_mask=None,
-    kv_window=None,
+    gt_tokens: Optional[torch.Tensor] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+    edit_mask: Optional[torch.Tensor] = None,
+    kv_window: Optional[int] = None,
+    cache_impl: str = "chunked",
 ):
-    """Transformer half of :func:`decode_cfg` -> (tokens (B, L), f_hat)."""
-    _unported(gt_tokens, keep_mask, edit_mask, kv_window)
+    """Transformer half of :func:`decode_cfg` -> (tokens (B, L), f_hat).
+    Argument semantics are documented on :func:`decode_cfg`."""
+    _check_branches(gt_tokens, keep_mask, edit_mask, kv_window, cache_impl)
     var_cfg, vae_cfg = var.cfg, vae.cfg
     b = label_b.shape[0]
     pns = var_cfg.patch_nums
+    lens = [pn * pn for pn in pns]
     sn = len(pns)
     quant = vae.quantize
     device = var.pos_1LC.device
-
-    labels2 = torch.cat([label_b, torch.full_like(label_b, var_cfg.num_classes)])
-    cond_bd = var.class_emb.weight[labels2]  # (2B, C) float32
-    ctx = var_mod.cond_context(var, cond_bd, dtype)
-    lvl_pos = var_mod.lvl_pos_embed(var)  # (1, L, C)
-    sos = cond_bd[:, None, :] + var.pos_start
-    ntm = sos + lvl_pos[:, :var_cfg.first_l]  # (2B, first_l, C)
+    cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype)
 
     f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
-    cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device)
+    lmax = None if kv_window is None else window_len(pns, kv_window)
+    paired = cache_impl != "chunked" or kv_window is not None
+    cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired)
     cur = 0
     token_segs = []
     for si, pn in enumerate(pns):
         ratio = si / var_cfg.num_stages_minus_1
+        seg = lens[si]
+        if kv_window is not None:
+            _slide_window(cache, lens, si, kv_window)
         x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype)
         lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio)
         idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator)
+        if keep_mask is not None:  # kept positions take the ground-truth ids
+            idx = torch.where(keep_mask[:, cur:cur + seg], gt_tokens[:, cur:cur + seg], idx)
         token_segs.append(idx)
         if more_smooth:  # gumbel-softmax codebook mixing (var.py:178-180)
             gum_t = max(0.27 * (1 - ratio * 0.95), 0.005)
@@ -92,13 +174,12 @@ def decode_tokens_cfg(
         else:
             h = q.embed(quant, idx)
         h = h.reshape(b, pn, pn, vae_cfg.z_channels)
+        if edit_mask is not None:
+            h = _edit_blend(quant, gt_tokens[:, cur:cur + seg], edit_mask, h, pn)
         f_hat, nxt = q.get_next_autoregressive_input(quant, vae_cfg, si, f_hat, h, pns)
-        cur += pn * pn
+        cur += seg
         if si != sn - 1:
-            nseg = pns[si + 1] ** 2
-            ntm = var_mod._linear(var.word_embed, nxt.reshape(b, nseg, -1).float())
-            ntm = ntm + lvl_pos[:, cur:cur + nseg]
-            ntm = ntm.repeat(2, 1, 1)  # CFG batch doubling (var.py:187)
+            ntm = _next_input(var, nxt, lvl_pos, cur, b)
     return torch.cat(token_segs, dim=1), f_hat
 
 
@@ -120,16 +201,32 @@ def decode_cfg(
     top_p: float = 0.0,
     more_smooth: bool = False,
     dtype: torch.dtype = torch.bfloat16,
-    gt_tokens=None,
-    keep_mask=None,
-    edit_mask=None,
-    kv_window=None,
+    gt_tokens: Optional[torch.Tensor] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+    edit_mask: Optional[torch.Tensor] = None,
+    kv_window: Optional[int] = None,
+    cache_impl: str = "chunked",
 ) -> DecodeResult:
-    """Class-conditional CFG decode of ``label_b`` (B,) int -> DecodeResult."""
+    """Class-conditional CFG decode of ``label_b`` (B,) int -> DecodeResult.
+
+    With ``gt_tokens`` (B, L) int + ``keep_mask`` (B, L) bool (True = keep)
+    it is token-mask inpainting: kept positions take the ground-truth ids
+    before the embed and steer every later scale through the shared f_hat
+    (``var.py:312-328``). With ``gt_tokens`` + ``edit_mask`` (ph, pw) float
+    (1 = keep) it is box editing: per scale the mask is bilinearly resized,
+    thresholded at 0.5, and blends ground-truth and generated codebook
+    embeddings; scales of <= 3 tokens are all ground truth.
+
+    ``kv_window`` (default off, the exact reference semantics): stage t
+    attends to stage 0 plus stages max(1, t - kv_window + 1) .. t.
+    ``cache_impl``: ``"chunked"`` attends through ``flash_decode`` (q norm
+    in the kernel), ``"prealloc"``/``"concat"`` and every ``kv_window``
+    decode through ``flash_decode_paired`` (q normalised outside), all over
+    one in-place buffer (see ``models/var.py``)."""
     tokens, f_hat = decode_tokens_cfg(
         var, vae, label_b, generator, cfg_scale=cfg_scale, top_k=top_k, top_p=top_p,
         more_smooth=more_smooth, dtype=dtype, gt_tokens=gt_tokens, keep_mask=keep_mask,
-        edit_mask=edit_mask, kv_window=kv_window)
+        edit_mask=edit_mask, kv_window=kv_window, cache_impl=cache_impl)
     return DecodeResult(render_fhat(vae, f_hat, dtype), tokens, f_hat)
 
 
@@ -147,21 +244,161 @@ def make_sampler(
     more_smooth: bool = False,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
+    inpainting: bool = False,
+    kv_window: Optional[int] = None,
+    cache_impl: str = "chunked",
 ):
     """Sampler ``(var, vae, generator, label_b) -> DecodeResult`` on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``; raises when
-    CUDA is asked for and absent). Sampling hyper-parameters are fixed here,
-    as the JAX sampler fixes them at compile time."""
+    CUDA is asked for and absent); with ``inpainting`` it is ``(var, vae,
+    generator, label_b, gt, mask)``, ``gt`` (B, L) ids and ``mask`` (B, L)
+    bool. Sampling hyper-parameters are fixed here, as the JAX sampler fixes
+    them at compile time."""
     dev = resolve_device(device)
+    _check_branches(None, None, None, kv_window, cache_impl)
 
-    def sampler(var, vae, generator, label_b) -> DecodeResult:
+    def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
         if var.cfg != var_cfg or vae.cfg != vae_cfg:
             raise ValueError("sampler: the modules' configs differ from the sampler's")
         if not (_on(var, dev) and _on(vae, dev)):
             raise ValueError(f"sampler: the modules must be on {dev}")
+        if inpainting != (gt is not None and mask is not None):
+            raise ValueError("sampler: gt and mask go together, with inpainting=True only")
         labels = torch.as_tensor(label_b, dtype=torch.int64, device=dev)
+        if inpainting:
+            gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
         with torch.inference_mode():
             return decode_cfg(var, vae, labels, generator, cfg_scale=cfg_scale, top_k=top_k,
-                              top_p=top_p, more_smooth=more_smooth, dtype=dtype)
+                              top_p=top_p, more_smooth=more_smooth, dtype=dtype,
+                              gt_tokens=gt, keep_mask=mask, kv_window=kv_window,
+                              cache_impl=cache_impl)
 
     return sampler
+
+
+def fold_in(generator: torch.Generator, r: int) -> torch.Generator:
+    """A new generator on ``generator``'s device, seeded from its initial
+    seed and ``r`` (numpy's ``SeedSequence([seed, r])``): the port's
+    counterpart of ``jax.random.fold_in``. It reads only the initial seed,
+    so it shares no state with ``generator`` and does not advance it."""
+    seed = int(np.random.SeedSequence([generator.initial_seed(), int(r)])
+               .generate_state(1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def make_scan_sampler(var_cfg, vae_cfg, rounds: int, device="cuda", **sampler_kw):
+    """Dispatch-batched sampler ``(var, vae, generator, labels (rounds, B))
+    -> DecodeResult`` with leading (rounds, B, ...) axes: ``rounds``
+    independent decodes, stacked. Round r equals :func:`make_sampler`
+    called with ``fold_in(generator, r)``. PyTorch runs eagerly, so this is
+    a loop; it keeps the JAX package's interface (``sampler.py:300``)."""
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    sampler = make_sampler(var_cfg, vae_cfg, device=device, **sampler_kw)
+
+    def run(var, vae, generator, labels_rb) -> DecodeResult:
+        res = [sampler(var, vae, fold_in(generator, r), labels_rb[r]) for r in range(rounds)]
+        return DecodeResult(*(torch.stack(t) for t in zip(*res)))
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# neighbour-constrained "smooth sampling" (reference var.py:366-575)
+
+
+class SmoothResult(NamedTuple):
+    image: torch.Tensor  # (B, H, W, 3) in [0, 1]
+    tokens: torch.Tensor  # (B, L) selected token ids
+    log_likelihood: torch.Tensor  # scalar: sum of selected model log-probs
+    distance_log_likelihood: torch.Tensor  # scalar: sum of distance log-probs
+
+
+def codebook_neighbor_tables(embedding: torch.Tensor, n: int):
+    """(dists (V, V) L2, the n nearest ids (V, n), their dists (V, n)),
+    computed as |e_i|^2 + |e_j|^2 - 2 e_i e_j in float32 with TF32 off.
+    Ties in distance keep the lower id first, as ``jax.lax.top_k`` does
+    (a stable sort; ``torch.topk`` does not promise an order)."""
+    emb = embedding.float()
+    sq = (emb * emb).sum(1)
+    with fp32_exact():
+        d2 = sq[:, None] + sq[None, :] - 2.0 * (emb @ emb.T)
+    dists = torch.sqrt(d2.clamp(min=0.0))
+    top_d, top_i = torch.sort(dists, dim=1, stable=True)
+    return dists, top_i[:, :n], top_d[:, :n]
+
+
+def smooth_sampling(
+    var: var_mod.VAR,
+    vae: vae_mod.VQVAE,
+    gt_tokens: torch.Tensor,
+    n: int,
+    label_b: torch.Tensor,
+    cfg_scale: float = 1.5,
+    neighbor_threshold: Optional[float] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> SmoothResult:
+    """Regenerate an image constrained to codebook-space neighbours of the
+    ground-truth tokens ``gt_tokens`` (B, L) (reference
+    ``VAR.smooth_sampling``).
+
+    Candidate-count mode (``neighbor_threshold`` None): at scale ratio r the
+    candidates are the 1 + int((n - 1) r) nearest neighbours of each GT
+    token; pick the one the model gives the most log-probability
+    (``var.py:498-502``). Threshold mode: the candidates within
+    d_min + (thr - d_min) r; a position whose candidates are all masked
+    falls back to its nearest neighbour (``var.py:504-527``). The decode
+    attends through the chunked cache; the render runs in float32."""
+    var_cfg, vae_cfg = var.cfg, vae.cfg
+    b = gt_tokens.shape[0]
+    pns = var_cfg.patch_nums
+    sn = len(pns)
+    quant = vae.quantize
+    device = var.pos_1LC.device
+    with torch.inference_mode():
+        _, top_n, top_n_dists = codebook_neighbor_tables(quant.embedding.weight, n)
+        cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype)
+        f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
+        cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device)
+        cur = 0
+        sum_ll = torch.zeros((), device=device)
+        sum_dll = torch.zeros((), device=device)
+        token_segs = []
+        ar = torch.arange(n, device=device)
+        for si, pn in enumerate(pns):
+            ratio = si / var_cfg.num_stages_minus_1
+            seg = pn * pn
+            x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype)
+            lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio)
+            log_probs = torch.log_softmax(lg, dim=-1)  # (B, seg, V)
+
+            gt_seg = gt_tokens[:, cur:cur + seg]
+            cand = top_n[gt_seg]  # (B, seg, n)
+            cand_dists = top_n_dists[gt_seg]
+            dist_logp = torch.log_softmax(-cand_dists, dim=-1)
+            cand_logp = torch.gather(log_probs, -1, cand)
+            if neighbor_threshold is None:
+                keep = ar < 1 + int((n - 1) * ratio)
+            else:
+                d_min = cand_dists[:, :, :1]
+                keep = cand_dists <= d_min + (neighbor_threshold - d_min) * ratio
+            masked = cand_logp.masked_fill(~keep, float("-inf"))
+            max_val, max_idx = masked.max(dim=-1)  # first maximum, as jnp.argmax
+            # nearest neighbour where every candidate is masked (var.py:521-527)
+            all_masked = ~torch.isfinite(max_val)
+            max_idx = max_idx.masked_fill(all_masked, 0)
+            max_val = torch.where(all_masked, cand_logp[..., 0], max_val)
+
+            tokens = torch.gather(cand, -1, max_idx[..., None])[..., 0]
+            token_segs.append(tokens)
+            sum_ll = sum_ll + max_val.sum()
+            sum_dll = sum_dll + torch.gather(dist_logp, -1, max_idx[..., None]).sum()
+
+            h = q.embed(quant, tokens).reshape(b, pn, pn, vae_cfg.z_channels)
+            f_hat, nxt = q.get_next_autoregressive_input(quant, vae_cfg, si, f_hat, h, pns)
+            cur += seg
+            if si != sn - 1:
+                ntm = _next_input(var, nxt, lvl_pos, cur, b)
+        img = vae_mod.fhat_to_img(vae, f_hat) * 0.5 + 0.5
+    return SmoothResult(img, torch.cat(token_segs, dim=1), sum_ll, sum_dll)

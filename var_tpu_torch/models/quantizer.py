@@ -6,10 +6,10 @@ Holds the codebook and the partially shared phi convs under the reference
 ``quantize.quant_resi.qresi_ls.{k}.*``), and the functions of the decode
 loop (the phi tick rule, ``apply_phi``, ``embed``,
 ``get_next_autoregressive_input``) and of tokenization and teacher forcing
-(``nearest_code``, ``f_to_idxBl``, ``idxBl_to_var_input``). Everything runs
-in float32 with TF32 off: token choices are discrete. Public tensors are
-NHWC, as in the JAX package. ``quantizer_forward`` (tokenizer training) is
-not ported yet.
+(``nearest_code``, ``f_to_idxBl``, ``idxBl_to_var_input``,
+``embed_to_fhat``). Everything runs in float32 with TF32 off: token choices
+are discrete. Public tensors are NHWC, as in the JAX package.
+``quantizer_forward`` (tokenizer training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -161,3 +161,31 @@ def idxBl_to_var_input(quant: VectorQuantizer2, cfg: VAEConfig,
         f_hat = f_hat + apply_phi(quant, cfg, si, h, sn)
         segs.append(resize_area(f_hat, (nxt, nxt)).reshape(b, nxt * nxt, c))
     return torch.cat(segs, dim=1)
+
+
+def embed_to_fhat(quant: VectorQuantizer2, cfg: VAEConfig, ms_h_bhwc: List[torch.Tensor],
+                  all_to_max_scale: bool = True, last_one: bool = False):
+    """Sum per-scale (B, pn, pn, C) embeddings into f_hat (``quant.py:107-133``):
+    each upsampled to the last scale and passed through its phi, or with
+    ``all_to_max_scale=False`` the experimental progressive form that grows
+    f_hat scale by scale. Returns the f_hat after every scale, or the last."""
+    pns = cfg.v_patch_nums
+    sn, hw = len(pns), pns[-1]
+    b = ms_h_bhwc[0].shape[0]
+    dev = ms_h_bhwc[0].device
+    outs = []
+    if all_to_max_scale:
+        f_hat = torch.zeros(b, hw, hw, cfg.z_channels, device=dev)
+        for si in range(sn):
+            h = ms_h_bhwc[si]
+            if si < sn - 1:
+                h = resize_bicubic(h, (hw, hw))
+            f_hat = f_hat + apply_phi(quant, cfg, si, h, sn)
+            outs.append(f_hat)
+    else:
+        f_hat = torch.zeros(b, pns[0], pns[0], cfg.z_channels, device=dev)
+        for si, pn in enumerate(pns):
+            f_hat = resize_bicubic(f_hat, (pn, pn))
+            f_hat = f_hat + apply_phi(quant, cfg, si, ms_h_bhwc[si], sn)
+            outs.append(f_hat)
+    return outs[-1] if last_one else outs

@@ -8,7 +8,8 @@ NCHW inside, with the reference module names (``models/basic_vae.py``,
 weights to the input dtype at use, as the JAX package does, so the networks
 run in the compute dtype. Public tensors are NHWC: ``img_to_idxBl`` takes an
 image (B, H, W, 3) in [-1, 1] and returns the token pyramid; ``fhat_to_img``
-takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3).
+takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3);
+``img_to_fhat`` and ``idxBl_to_img`` are the classifier's round trips.
 """
 
 from __future__ import annotations
@@ -277,3 +278,31 @@ def img_to_idxBl(vae: VQVAE, img: torch.Tensor,
     with fp32_exact():
         idx_bl, _ = q.f_to_idxBl(vae.quantize, vae.cfg, img_to_f(vae, img), v_patch_nums)
     return idx_bl
+
+
+def img_to_fhat(vae: VQVAE, img: torch.Tensor,
+                v_patch_nums: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """The accumulated f_hat (B, h, w, Cvae) after each scale of the
+    tokenization of ``img`` (``vqvae.py:69-71``), TF32 off as in
+    :func:`img_to_idxBl`."""
+    with fp32_exact():
+        fhats, _ = q.f_to_idxBl(vae.quantize, vae.cfg, img_to_f(vae, img), v_patch_nums,
+                                to_fhat=True)
+    return fhats
+
+
+def idxBl_to_img(vae: VQVAE, ms_idx_bl: List[torch.Tensor], same_shape: bool = True,
+                 last_one: bool = True):
+    """Token pyramid -> image(s) in [-1, 1] (``vqvae.py:77-90``): the last
+    f_hat's image, or one per scale."""
+    b, c = ms_idx_bl[0].shape[0], vae.cfg.z_channels
+    ms_h = []
+    for idx in ms_idx_bl:
+        pn = int(round(idx.shape[1] ** 0.5))
+        ms_h.append(q.embed(vae.quantize, idx).reshape(b, pn, pn, c))
+    with fp32_exact():
+        fh = q.embed_to_fhat(vae.quantize, vae.cfg, ms_h, all_to_max_scale=same_shape,
+                             last_one=last_one)
+    if last_one:
+        return fhat_to_img(vae, fh)
+    return [fhat_to_img(vae, f) for f in fh]

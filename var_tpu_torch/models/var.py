@@ -8,11 +8,17 @@ bias and the optional per-head QK L2 norm, the GELU-tanh FFN and the fp32
 head.
 
 Decode (``block_apply``, ``transformer_stage``): the fused modulated
-LayerNorm kernel, attention over a KV cache through the decode-attention
+LayerNorm kernel, attention over a KV cache through a decode-attention
 kernel. KV cache: one preallocated (depth, 2B, L, C) K buffer and one V
 buffer, written in place each stage (:class:`KVCache`); layer ``i`` attends
-over rows ``[0, cum + l)`` by pointer and stride. The JAX package keeps
-per-stage chunks only because its arrays are immutable.
+over rows ``[0, cum + l)`` by pointer and stride. The JAX package's three
+cache representations (``"chunked"`` per-stage stacks, ``"prealloc"``
+in-place buffers, ``"concat"`` grow-by-concat arrays) differ only in how
+immutable arrays grow, so this one buffer serves all three; the
+representation picks the kernel, as it does in the JAX package: chunked
+attends through ``flash_decode`` (row 2, q L2 norm in the kernel),
+prealloc and concat through ``flash_decode_paired`` (row 4, q normalised
+outside and rounded to the compute dtype, ``var.py:402``).
 
 Teacher-forced training (``var_forward``): one pass over all L tokens with
 the block-causal mask through the training-attention kernel, the plain
@@ -37,7 +43,8 @@ import torch.nn.functional as F
 from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.ops.attention import recompute_grad
-from var_tpu_torch.ops.cuda.flash_attention import flash_attention_paired_train, flash_decode
+from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
+                                                    flash_decode_paired)
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
 
 
@@ -185,17 +192,24 @@ def cast_block_matmul_params(var: VAR, dtype: torch.dtype) -> VAR:
 @dataclass
 class KVCache:
     """Preallocated decode cache: K, V of shape (depth, B, Lmax, C); rows
-    ``[0, cum)`` hold every finished stage."""
+    ``[0, cum)`` hold the finished stages the next stage attends to (every
+    one, or a ``kv_window``'s). ``paired``: attend through
+    ``flash_decode_paired`` (the prealloc/concat representations) instead
+    of ``flash_decode`` (chunked)."""
 
     k: torch.Tensor
     v: torch.Tensor
     cum: int = 0
+    paired: bool = False
 
 
-def init_prealloc_caches(cfg: VARConfig, batch: int, dtype: torch.dtype, device) -> KVCache:
-    shape = (cfg.depth, batch, cfg.seq_len, cfg.embed_dim)
+def init_prealloc_caches(cfg: VARConfig, batch: int, dtype: torch.dtype, device,
+                         lmax: Optional[int] = None, paired: bool = False) -> KVCache:
+    """Empty (depth, batch, lmax, C) K and V buffers; ``lmax`` defaults to
+    the whole pyramid, ``cfg.seq_len``."""
+    shape = (cfg.depth, batch, cfg.seq_len if lmax is None else lmax, cfg.embed_dim)
     return KVCache(torch.empty(shape, dtype=dtype, device=device),
-                   torch.empty(shape, dtype=dtype, device=device))
+                   torch.empty(shape, dtype=dtype, device=device), paired=paired)
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +281,26 @@ def lvl_pos_embed(var: VAR) -> torch.Tensor:
     return var.lvl_embed.weight[lvl][None] + var.pos_1LC
 
 
+def _l2_heads(t: torch.Tensor, num_heads: int,
+              scale_mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-head L2 norm of merged (B, L, C) ``t`` in float32, times the
+    per-head ``scale_mul`` (H,) when given: (B, L, H, D) float32."""
+    b, l, c = t.shape
+    tf = t.float().reshape(b, l, num_heads, c // num_heads)
+    inv = torch.rsqrt((tf * tf).sum(-1, keepdim=True) + 1e-24)
+    if scale_mul is not None:
+        inv = inv * scale_mul.reshape(num_heads, 1)
+    return tf * inv
+
+
 def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockContext,
                cache: KVCache, layer: int) -> torch.Tensor:
     """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time,
     then attention of this stage's queries over cache rows [0, cum + l)
-    (``basic_var.py:90-119``)."""
+    (``basic_var.py:90-119``): chunked through ``flash_decode`` with the q
+    norm in the kernel, paired through ``flash_decode_paired`` with q
+    normalised here, rounded to the compute dtype, and the scale folded
+    into q (``var.py:402-454``)."""
     b, l, c = x.shape
     h, d = cfg.num_heads, cfg.head_dim
     dtype = x.dtype
@@ -288,8 +317,14 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
         scale = 0.25 / math.sqrt(d)
         k_dst.copy_(k)
     cache.v[layer, :, cum:cum + l] = v
-    out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
-                       q_l2_scale_mul=ctx.scale_mul)
+    if cache.paired:
+        q = qkv[..., :c]
+        if cfg.attn_l2_norm:
+            q = _l2_heads(q, h, ctx.scale_mul).to(dtype).reshape(b, l, c)
+        out = flash_decode_paired(q, cache.k[layer], cache.v[layer], h, scale, lk=cum + l)
+    else:
+        out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
+                           q_l2_scale_mul=ctx.scale_mul)
     return _linear(attn.proj, out)
 
 
@@ -359,12 +394,9 @@ def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], qkv: torch.Tensor,
     q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
     if cfg.attn_l2_norm:
         scale = 1.0
-        sm = torch.exp(scale_mul.float().clamp(max=math.log(100.0))).reshape(h, 1)
-        kf = k.float().reshape(b, l, h, d)
-        k = (kf * torch.rsqrt((kf * kf).sum(-1, keepdim=True) + 1e-24)).to(dtype)
-        qf = q.float().reshape(b, l, h, d)
-        q = (qf * (torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24) * sm)).to(dtype)
-        q, k = q.reshape(b, l, c), k.reshape(b, l, c)
+        sm = torch.exp(scale_mul.float().clamp(max=math.log(100.0)))
+        k = _l2_heads(k, h).to(dtype).reshape(b, l, c)
+        q = _l2_heads(q, h, sm).to(dtype).reshape(b, l, c)
     else:
         scale = 0.25 / math.sqrt(d)
     return flash_attention_paired_train(q, k, v, h, scale, scale_ends)

@@ -1,19 +1,33 @@
-// Kernel 3: decode attention of one scale's queries over the KV cache.
+// Rows 2 and 4 of the kernel table (PERF.md): decode attention of one
+// scale's queries over the KV cache.
 //
-// Replaces var_tpu/ops/pallas/flash_attention.py::flash_decode_paired_chunks
+// Row 2 (var_decode_attention) replaces
+// var_tpu/ops/pallas/flash_attention.py::flash_decode_paired_chunks
 // (_fwd_kernel_paired_chunks :476). Per (sample, head): the queries of the
 // current scale attend, unmasked, to cache rows [0, Lk) -- every earlier
 // stage plus the current one, which the caller has already written. q is
 // read from the first C lanes of the fused (B, Lq, 3C) qkv projection (row
 // stride 3C, never copied out). With ``scale_mul`` the per-head q L2 norm
 // times the learned scale runs here (k is normalised when the cache is
-// written); ``scale`` multiplies the logits after the dot. Logits, softmax
-// and the running sums are fp32; with bf16 inputs the normalised q and the
-// softmax weights are rounded to bf16 before their products, as the TPU
-// kernel feeds bf16 operands to the MXU; fp32 inputs stay fp32 throughout.
-// The paired-head 128-lane packing, scalar-prefetched layer index and VMEM
-// budget of the TPU kernel are Mosaic workarounds and have no counterpart:
-// the caller passes the layer's cache base pointer and strides.
+// written); ``scale`` multiplies the logits after the dot.
+//
+// Row 4 (var_decode_attention_paired) replaces
+// var_tpu/ops/pallas/flash_attention.py::flash_decode_paired
+// (_fwd_kernel_paired :426): the same softmax(q k^T) v over a merged
+// (B, Lk, C) cache, but q arrives normalised and pre-scaled by the wrapper
+// (rounded to q's dtype, as flash_attention.py:658 does), so the kernel has
+// no norm and no post-dot scale. It is the kPaired instantiation of the
+// same device code: the rows of the cache it reads are [0, Lk) of one
+// layer's in-place buffer, which holds the prealloc/concat caches and the
+// kv_window-pruned window alike.
+//
+// Logits, softmax and the running sums are fp32; with bf16 inputs the
+// normalised q and the softmax weights are rounded to bf16 before their
+// products, as the TPU kernels feed bf16 operands to the MXU; fp32 inputs
+// stay fp32 throughout. The paired-head 128-lane packing, scalar-prefetched
+// layer index and VMEM budget of the TPU kernels are Mosaic workarounds and
+// have no counterpart: the caller passes the layer's cache base pointer and
+// strides, and every stage is served, l < 8 and long caches included.
 //
 // Bound on the H100: memory. At the last 256px stage (Lq = 256, Lk = 680,
 // d16, 2B = 16) the kernel must read K and V once (~45 MB bf16) plus q and
@@ -42,6 +56,7 @@ using namespace vtt;
 
 // fp32: CUDA cores, 16-query tiles, four warps of four queries; K/V tiles
 // in shared memory, keys (k0 + lane) and (k0 + lane + 32) per lane.
+template <bool kPaired>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q_rs,
                         const float* __restrict__ k, const float* __restrict__ v, long long kv_bs,
@@ -62,7 +77,7 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
     qs[r][d] = qi < Lq ? qb[(long long)qi * q_rs + d] : 0.f;
   }
   __syncthreads();
-  if (scale_mul != nullptr) {
+  if (!kPaired && scale_mul != nullptr) {
     // per-head q L2 norm x learned scale; each warp owns its own query rows
     const float sm = scale_mul[h];
 #pragma unroll
@@ -116,8 +131,8 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
     float p0[ATT_QPW], p1[ATT_QPW];
 #pragma unroll
     for (int i = 0; i < ATT_QPW; ++i) {
-      const float a = ok0 ? s0[i] * scale : -INFINITY;
-      const float c = ok1 ? s1[i] * scale : -INFINITY;
+      const float a = ok0 ? (kPaired ? s0[i] : s0[i] * scale) : -INFINITY;
+      const float c = ok1 ? (kPaired ? s1[i] : s1[i] * scale) : -INFINITY;
       const float mn = fmaxf(m[i], warp_max(fmaxf(a, c)));
       const float alpha = expf(m[i] - mn);  // 0 on the first tile (m = -inf)
       const float e0 = expf(a - mn), e1 = expf(c - mn);
@@ -177,6 +192,7 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
 #define MMA_BK 64
 #define MMA_PAD 72  // bf16 row stride in shared memory: 144 bytes, 16-byte aligned
 
+template <bool kPaired>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_rs,
                             const __nv_bfloat16* __restrict__ k,
@@ -203,11 +219,11 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs,
   __syncthreads();
   // per-head q L2 norm x learned scale (fp32), rounded to bf16; each warp
   // owns rows [16 warp, 16 warp + 16)
-  const float sm = scale_mul != nullptr ? scale_mul[h] : 1.f;
+  const float sm = (!kPaired && scale_mul != nullptr) ? scale_mul[h] : 1.f;
   for (int i = 0; i < 16; ++i) {
     const int r = warp * 16 + i;
     float a = qf[r][lane], c = qf[r][lane + 32];
-    if (scale_mul != nullptr) {
+    if (!kPaired && scale_mul != nullptr) {
       const float inv = rsqrtf(warp_sum(a * a + c * c) + 1e-24f) * sm;
       a *= inv;
       c *= inv;
@@ -268,7 +284,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < Lk ? s[j][e] * scale : -INFINITY;
+        const float val = col < Lk ? (kPaired ? s[j][e] : s[j][e] * scale) : -INFINITY;
         s[j][e] = val;
         if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
       }
@@ -335,11 +351,12 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs,
   }
 }
 
-extern "C" int var_decode_attention(const void* q, long long q_bs, long long q_rs, const void* k,
-                                    const void* v, long long kv_bs, long long kv_rs, void* out,
-                                    long long o_bs, long long o_rs, const void* scale_mul, int B,
-                                    int Lq, int Lk, int H, int D, float scale, int dtype,
-                                    int device, void* stream) {
+template <bool kPaired>
+static int launch_decode_attention(const void* q, long long q_bs, long long q_rs, const void* k,
+                                   const void* v, long long kv_bs, long long kv_rs, void* out,
+                                   long long o_bs, long long o_rs, const void* scale_mul, int B,
+                                   int Lq, int Lk, int H, int D, float scale, int dtype,
+                                   int device, void* stream) {
   if (D != ATT_D || Lk < 1 || Lq < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -347,13 +364,13 @@ extern "C" int var_decode_attention(const void* q, long long q_bs, long long q_r
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32) {
     const dim3 grid((unsigned)((Lq + ATT_BQ - 1) / ATT_BQ), (unsigned)H, (unsigned)B);
-    decode_attention_kernel<<<grid, block, 0, st>>>(
+    decode_attention_kernel<kPaired><<<grid, block, 0, st>>>(
         (const float*)q, q_bs, q_rs, (const float*)k, (const float*)v, kv_bs, kv_rs,
         (float*)out, o_bs, o_rs, (const float*)scale_mul, Lq, Lk, scale);
   } else if (dtype == kBF16) {
     // 16-byte K/V row loads: the wrapper checks alignment and strides
     const dim3 grid((unsigned)((Lq + MMA_BQ - 1) / MMA_BQ), (unsigned)H, (unsigned)B);
-    decode_attention_mma_kernel<<<grid, block, 0, st>>>(
+    decode_attention_mma_kernel<kPaired><<<grid, block, 0, st>>>(
         (const __nv_bfloat16*)q, q_bs, q_rs, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, kv_bs, kv_rs, (__nv_bfloat16*)out, o_bs, o_rs,
         (const float*)scale_mul, Lq, Lk, scale);
@@ -361,4 +378,24 @@ extern "C" int var_decode_attention(const void* q, long long q_bs, long long q_r
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Row 2: q read from the fused qkv, optional in-kernel q L2 norm, post-dot scale.
+extern "C" int var_decode_attention(const void* q, long long q_bs, long long q_rs, const void* k,
+                                    const void* v, long long kv_bs, long long kv_rs, void* out,
+                                    long long o_bs, long long o_rs, const void* scale_mul, int B,
+                                    int Lq, int Lk, int H, int D, float scale, int dtype,
+                                    int device, void* stream) {
+  return launch_decode_attention<false>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, out, o_bs, o_rs,
+                                        scale_mul, B, Lq, Lk, H, D, scale, dtype, device, stream);
+}
+
+// Row 4: q normalised and pre-scaled by the caller; no norm, no scale here.
+extern "C" int var_decode_attention_paired(const void* q, long long q_bs, long long q_rs,
+                                           const void* k, const void* v, long long kv_bs,
+                                           long long kv_rs, void* out, long long o_bs,
+                                           long long o_rs, int B, int Lq, int Lk, int H, int D,
+                                           int dtype, int device, void* stream) {
+  return launch_decode_attention<true>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, out, o_bs, o_rs,
+                                       nullptr, B, Lq, Lk, H, D, 1.f, dtype, device, stream);
 }

@@ -1,4 +1,5 @@
-// Kernels 4-5: teacher-forced block-causal attention, forward and backward.
+// Row 6 of the kernel table (PERF.md): teacher-forced block-causal
+// attention, forward and backward.
 //
 // Replaces var_tpu/ops/pallas/flash_attention.py::flash_attention_paired_train
 // (:1144): the forward _fwd_kernel_ptrain (:700, pallas_call :912) and the

@@ -1,4 +1,5 @@
-// Kernel 1: fused modulated LayerNorm of the VAR decode path.
+// Row 1 of the kernel table (PERF.md): fused modulated LayerNorm of the
+// VAR decode path.
 //
 //   out[b, l, :] = LN(x[b, l, :]) * (scale[b, :] + 1) + shift[b, :]
 //

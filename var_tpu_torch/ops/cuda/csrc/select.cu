@@ -1,4 +1,5 @@
-// Kernel 2: sort-free exact top-k / top-p candidate bound, one block per row.
+// Row 3 of the kernel table (PERF.md): sort-free exact top-k / top-p
+// candidate bound, one block per row.
 //
 // Replaces var_tpu/ops/pallas/select.py::topk_topp_bound (_bound_kernel :69,
 // _descend :52, float_key :42). For each row of V fp32 logits it returns

@@ -1,20 +1,28 @@
-"""Kernel 3: decode attention over the KV cache (``csrc/flash_attention.cu``).
+"""Attention kernels of the port, numbered as the kernel table in PERF.md.
 
-Replaces ``var_tpu/ops/pallas/flash_attention.py::flash_decode_paired_chunks``.
-The JAX decode keeps per-stage K/V chunks because its arrays are immutable;
+Row 2: decode attention over the KV cache (``csrc/flash_attention.cu``,
+:func:`flash_decode`), replacing
+``var_tpu/ops/pallas/flash_attention.py::flash_decode_paired_chunks``. The
+JAX decode keeps per-stage K/V chunks because its arrays are immutable;
 the port keeps one preallocated (depth, 2B, L, C) K buffer and one V buffer
 written in place each stage, and the kernel reads layer ``i``, rows
 ``[0, lk)``, by pointer and stride. That is the chunked kernel's function:
 attention over the concatenation of every stage so far
-(``flash_attention.py:576-577``).
+(``flash_attention.py:576-577``). q is read from the first C lanes of the
+fused (B, Lq, 3C) qkv. With ``q_l2_scale_mul`` ((H,) fp32,
+``exp(min(scale_mul, ln 100))``) the per-head q L2 norm runs in the kernel;
+``scale`` multiplies the logits after the dot.
 
-q is read from the first C lanes of the fused (B, Lq, 3C) qkv. With
-``q_l2_scale_mul`` ((H,) fp32, ``exp(min(scale_mul, ln 100))``) the per-head
-q L2 norm runs in the kernel; ``scale`` multiplies the logits after the dot.
+Row 4: decode attention over a contiguous merged (B, Lk, C) cache
+(``csrc/flash_attention.cu``, :func:`flash_decode_paired`), replacing
+``flash_attention.py::flash_decode_paired``: q arrives normalised, the scale
+is folded into q before the dot. It serves the ``prealloc``/``concat``
+caches and ``kv_window`` pruning, over rows ``[0, lk)`` of the same
+in-place buffer.
 
-Kernels 4-5: teacher-forced block-causal attention for training
+Row 6: teacher-forced block-causal attention for training
 (``csrc/flash_attention_train.cu``), replacing
-``var_tpu/ops/pallas/flash_attention.py::flash_attention_paired_train``:
+``flash_attention.py::flash_attention_paired_train``:
 :func:`flash_attention_paired_train` is a ``torch.autograd.Function`` whose
 forward (:func:`paired_train_fwd`) returns ``out`` and saves the (B, H, L)
 fp32 log-sum-exp, and whose backward (:func:`paired_train_bwd`) recomputes
@@ -56,6 +64,31 @@ def flash_decode_plain(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: 
     return out.reshape(b, lq, c)
 
 
+def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
+                  num_heads: int) -> None:
+    """What both decode kernels take: CUDA tensors of one dtype, q (B, Lq,
+    >= C) and k, v (B, Lmax, C) with head_dim 64, 1 <= lk <= Lmax, unit
+    stride along C, k and v strided alike, 16-byte aligned bf16 rows."""
+    build.require_cuda(name, q, k, v)
+    c = k.shape[-1]
+    if c != num_heads * HEAD_DIM:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim {HEAD_DIM}, "
+                         f"got C={c} over {num_heads} heads")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v must share one dtype")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or q.shape[2] < c:
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if not 1 <= lk <= k.shape[1]:
+        raise ValueError(f"{name}: lk={lk} outside [1, {k.shape[1]}]")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError(f"{name}: last dims must be contiguous and k, v strided alike")
+    if q.dtype == torch.bfloat16 and any(  # the bf16 kernel loads 16-byte rows
+            t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 tensors need 16-byte aligned rows")
+
+
 def flash_decode(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
                  num_heads: int, scale: float = 1.0,
                  q_l2_scale_mul: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -64,30 +97,15 @@ def flash_decode(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if qkv.device.type == "cpu":
         return flash_decode_plain(qkv, k, v, lk, num_heads, scale, q_l2_scale_mul)
-    tensors = (qkv, k, v) + ((q_l2_scale_mul,) if q_l2_scale_mul is not None else ())
-    build.require_cuda("flash_decode", *tensors)
-    b, lq, cq = qkv.shape
+    _check_decode("flash_decode", qkv, k, v, lk, num_heads)
+    b, lq, _ = qkv.shape
     c = k.shape[-1]
-    if c != num_heads * HEAD_DIM:
-        raise ValueError(f"flash_decode: the CUDA kernel takes head_dim {HEAD_DIM}, "
-                         f"got C={c} over {num_heads} heads")
-    if k.dtype != qkv.dtype or v.dtype != qkv.dtype:
-        raise ValueError("flash_decode: qkv, k and v must share one dtype")
-    if k.dim() != 3 or k.shape != v.shape or k.shape[0] != b or cq < c:
-        raise ValueError(f"flash_decode: bad shapes qkv {tuple(qkv.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not 1 <= lk <= k.shape[1]:
-        raise ValueError(f"flash_decode: lk={lk} outside [1, {k.shape[1]}]")
-    if qkv.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError("flash_decode: last dims must be contiguous and k, v strided alike")
-    if qkv.dtype == torch.bfloat16 and any(  # the bf16 kernel loads 16-byte rows
-            t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in (qkv, k, v)):
-        raise ValueError("flash_decode: bf16 tensors need 16-byte aligned rows")
     sm_ptr = None
     if q_l2_scale_mul is not None:
-        if (q_l2_scale_mul.dtype != torch.float32 or q_l2_scale_mul.numel() != num_heads
-                or not q_l2_scale_mul.is_contiguous()):
-            raise ValueError("flash_decode: q_l2_scale_mul must be contiguous float32 (H,)")
+        if (q_l2_scale_mul.device != qkv.device or q_l2_scale_mul.dtype != torch.float32
+                or q_l2_scale_mul.numel() != num_heads or not q_l2_scale_mul.is_contiguous()):
+            raise ValueError("flash_decode: q_l2_scale_mul must be contiguous float32 (H,) "
+                             "on qkv's device")
         sm_ptr = q_l2_scale_mul.data_ptr()
     out = torch.empty(b, lq, c, dtype=qkv.dtype, device=qkv.device)
     rc = build.lib().var_decode_attention(
@@ -101,6 +119,55 @@ def flash_decode(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
 
 
 flash_decode.launches = 0
+
+
+def _prescale(q_m: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale rounded to q's dtype (``flash_attention.py:658``)."""
+    return q_m if scale == 1.0 else (q_m.float() * scale).to(q_m.dtype)
+
+
+def flash_decode_paired_plain(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torch.Tensor,
+                              num_heads: int, scale: float = 1.0,
+                              lk: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of row 4; the CPU path and the kernel's oracle.
+    q_m: (B, Lq, C), normalised already; k_m, v_m: (B, >= lk, C). The scale
+    is folded into q and rounded to its dtype before the dot, the softmax
+    runs in fp32 and its weights are rounded to v's dtype before the PV
+    product. Returns (B, Lq, C) in q's dtype."""
+    b, lq, c = q_m.shape
+    lk = k_m.shape[1] if lk is None else lk
+    h, d = num_heads, c // num_heads
+    out = attention(_prescale(q_m, scale).reshape(b, lq, h, d),
+                    k_m[:, :lk].reshape(b, lk, h, d), v_m[:, :lk].reshape(b, lk, h, d), 1.0)
+    return out.reshape(b, lq, c)
+
+
+def flash_decode_paired(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torch.Tensor,
+                        num_heads: int, scale: float = 1.0,
+                        lk: Optional[int] = None) -> torch.Tensor:
+    """Attention of the Lq normalised queries ``q_m`` (B, Lq, C) over rows
+    ``[0, lk)`` of ``k_m``/``v_m`` (B, >= lk, C; by default all of them),
+    with ``scale`` folded into q before the dot. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if q_m.device.type == "cpu":
+        return flash_decode_paired_plain(q_m, k_m, v_m, num_heads, scale, lk)
+    lk = k_m.shape[1] if lk is None else int(lk)
+    qs = _prescale(q_m, scale)
+    _check_decode("flash_decode_paired", qs, k_m, v_m, lk, num_heads)
+    b, lq, c = qs.shape
+    if c != k_m.shape[2]:
+        raise ValueError(f"flash_decode_paired: q has {c} lanes, k and v {k_m.shape[2]}")
+    out = torch.empty(b, lq, c, dtype=qs.dtype, device=qs.device)
+    rc = build.lib().var_decode_attention_paired(
+        qs.data_ptr(), qs.stride(0), qs.stride(1), k_m.data_ptr(), v_m.data_ptr(),
+        k_m.stride(0), k_m.stride(1), out.data_ptr(), out.stride(0), out.stride(1), b, lq, lk,
+        num_heads, HEAD_DIM, build.dtype_code(qs.dtype), qs.device.index, build.stream_of(qs))
+    build.check(rc, "flash_decode_paired")
+    flash_decode_paired.launches += 1
+    return out
+
+
+flash_decode_paired.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Kernel 1: fused modulated LayerNorm (``csrc/fused_ln.cu``).
+"""Row 1 of the kernel table (PERF.md): fused modulated LayerNorm
+(``csrc/fused_ln.cu``).
 
 Replaces ``var_tpu/ops/pallas/fused_ln.py::modulated_layernorm``:
 ``LN(x) * (scale + 1) + shift`` over the last dim of (B, L, C) with

@@ -1,4 +1,5 @@
-"""Kernel 2: sort-free exact top-k / top-p bound (``csrc/select.cu``).
+"""Row 3 of the kernel table (PERF.md): sort-free exact top-k / top-p bound
+(``csrc/select.cu``).
 
 Replaces ``var_tpu/ops/pallas/select.py::topk_topp_bound`` and carries its
 ``float_key``. Per row of fp32 logits the bound is one int32 key; position
