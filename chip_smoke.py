@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
 each against its plain PyTorch version at the d16 main-path shapes (rows
-1-4 and 6 of the kernel table in PERF.md), then drives the port's three
-paths, each with the launch counters set to 0 just before it and read just
-after:
+1-6 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
+an unmasked Lq != Lk shape and a ragged L), then drives the port's four
+paths, each run with the launch counters set to 0 just before it and read
+just after:
 
 * sampling: a greedy fp32 decode through the kernels against the reference
   fixture ``tests/fixtures/var_prod.npz``, then 256px class-conditional CFG
@@ -26,7 +27,14 @@ after:
   log-likelihoods and scores) of the same calls on the CPU; then each mode
   at d16, bf16, with seeded random weights and images tokenised on the card,
   8 requests (the classifier: one image over 10 classes), one warm-up and
-  five timed batches, with its launch counts.
+  five timed batches, with its launch counts;
+* the long presets and the ``--attn`` impls: fp32 training steps at the
+  512px patch numbers through ``pallas`` and ``hybrid`` on the card must
+  equal the same steps on the CPU; then d16 512px training (L 2240, batch
+  8, bf16, remat 2) for ``auto`` (row 6), ``pallas`` (row 5) and ``hybrid``
+  (row 5's forward, the dense backward), one warm-up and five timed steps
+  each, and one 512px (batch 8) and one 1024px (L 9451, batch 2) eval batch
+  through ``pick_eval_attn`` (row 5's forward), with exact launch counts.
 
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
@@ -71,6 +79,13 @@ FLASH_BF16_ULPS = 3
 PTRAIN_F32_TOL = (1e-4, 1e-4)
 PTRAIN_BF16_ULPS = {"out": 3, "dq": 4, "dk": 4, "dv": 4}
 TRAIN_BATCH = 32
+# streaming flash attention (row 5) against its plain version on the same
+# inputs: fp32 within atol + rtol |want| (lse too, in both dtypes); bf16
+# within this many bf16 ulps of each tensor's max|want|, the plain version
+# run in bf16 (it rounds p and ds to bf16 where the kernel does)
+FLASH_F32_TOL = (1e-4, 1e-4)
+FLASH_TRAIN_BF16_ULPS = 3
+LONG_BATCH, EVAL_1024_BATCH = 8, 2
 # select: top-k bounds must be equal; with top-p a bound may differ only where
 # the fp32 mass sums (taken in another order) straddle p * M, i.e. where the
 # float64 mass above the disputed threshold is within this share of M of p * M
@@ -511,6 +526,205 @@ def phase_kernel_ptrain(dev):
     return [fwd_row, bwd_row]
 
 
+def _preset_ends(preset: str):
+    from var_tpu_torch.config import PATCH_NUM_PRESETS
+
+    return tuple(np.cumsum([p * p for p in PATCH_NUM_PRESETS[preset]]).tolist())
+
+
+def useful_pairs(lq: int, lk: int, ends) -> int:
+    """(query, key) pairs per head the mask leaves visible: sum_s n_s e_s."""
+    if ends is None:
+        return lq * lk
+    begins = (0,) + tuple(ends[:-1])
+    return sum((min(e, lq) - b) * min(e, lk) for b, e in zip(begins, ends) if b < lq)
+
+
+def flash_shapes():
+    """(name, B, Lq, Lk, ends, with backward) of the row-5 checks: the d16
+    512px training shape, the 1024px eval shape (forward only), an unmasked
+    Lq != Lk shape and a ragged L (1015: no multiple of the 64- or 16-row
+    tiles) with 14 scales."""
+    return [("512px", LONG_BATCH, 2240, 2240, _preset_ends("512"), True),
+            ("1024px", EVAL_1024_BATCH, 9451, 9451, _preset_ends("1024"), False),
+            ("unmasked", 2 * BATCH, 256, 680, None, True),
+            ("ragged", 2, 1015, 1015, tuple(np.cumsum([p * p for p in range(1, 15)]).tolist()),
+             True)]
+
+
+def flash_inputs(dev, dtype, b: int, lq: int, lk: int, masked: bool, seed: int):
+    """Pre-scaled q, k, v, do as BLHD (B, L, 16, 64): masked, as the model
+    feeds them (per-head L2-normalised q times scale_mul 4, L2-normalised
+    k); unmasked, raw q and k with the scale 0.125 folded into q."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, lq, C, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(b, lk, C, generator=g, device=dev) for _ in range(2))
+    if masked:
+        q, k = l2_heads(q, HEADS) * 4.0, l2_heads(k, HEADS)
+    else:
+        q = q * 0.125
+    return tuple(t.to(dtype).reshape(t.shape[0], t.shape[1], HEADS, C // HEADS)
+                 for t in (q, k, v, do))
+
+
+def _batch_chunks(fn, b: int, lq: int, lk: int, *tensors):
+    """``fn`` over batch chunks whose (H, Lq, Lk) fp32 logits stay under
+    4 GB (the plain version at 1024px would need ~40 GB at once),
+    concatenated along the batch."""
+    step = max(1, int(4e9 // (HEADS * lq * lk * 4)))
+    parts = [fn(*(t[i:i + step] for t in tensors)) for i in range(0, b, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def check_flash(dev, dtypes=(torch.float32, torch.bfloat16), shapes=None) -> dict:
+    """Row 5's forward (out and lse) and backward (dq, dk, dv) kernels
+    against their plain versions on the same inputs at every shape of
+    flash_shapes: fp32 within FLASH_F32_TOL; bf16 within
+    FLASH_TRAIN_BF16_ULPS bf16 ulps of each tensor's max|want| (lse within
+    FLASH_F32_TOL). The backward of both is fed the kernel's out and lse.
+    Raises on any violation; returns {shape: {dtype: {tensor: error}}}."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_bwd_plain,
+                                                        flash_attention_fwd,
+                                                        flash_attention_fwd_plain,
+                                                        paired_train_delta)
+
+    errs, failures = {}, []
+    for si, (name, b, lq, lk, ends, with_bwd) in enumerate(shapes or flash_shapes()):
+        errs[name] = {}
+        for dtype in dtypes:
+            qs, k, v, do = flash_inputs(dev, dtype, b, lq, lk, ends is not None, 20 + si)
+            out, lse = flash_attention_fwd(qs, k, v, ends)
+            want_out, want_lse = _batch_chunks(
+                lambda q_, k_, v_: flash_attention_fwd_plain(q_, k_, v_, ends), b, lq, lk,
+                qs, k, v)
+            pairs = {"out": (out, want_out), "lse": (lse, want_lse)}
+            if with_bwd:
+                delta = paired_train_delta(out.reshape(b, lq, C), do.reshape(b, lq, C), HEADS)
+                got = flash_attention_bwd(qs, k, v, out, lse, do, ends)
+                want = _batch_chunks(
+                    lambda q_, k_, v_, do_, l_, d_: flash_attention_bwd_plain(
+                        q_, k_, v_, do_, l_, d_, ends), b, lq, lk, qs, k, v, do, lse, delta)
+                pairs.update(zip(("dq", "dk", "dv"), zip(got, want)))
+            torch.cuda.synchronize()
+            row = {}
+            for t, (g_, w_) in pairs.items():
+                g_, w_ = g_.float(), w_.float()
+                err = float((g_ - w_).abs().max())
+                if dtype == torch.float32 or t == "lse":
+                    atol, rtol = FLASH_F32_TOL
+                    ok = bool(((g_ - w_).abs() <= atol + rtol * w_.abs()).all())
+                else:
+                    ulp = bf16_ulp(float(w_.abs().max()))
+                    ok = err <= FLASH_TRAIN_BF16_ULPS * ulp
+                    row[t + "_ulps"] = err / ulp
+                row[t] = err
+                if not ok:  # NaN fails too
+                    failures.append(f"{name} {dtype} {t}: err {err}")
+            errs[name][str(dtype).replace("torch.", "")] = row
+            del qs, k, v, do, out, lse, pairs
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("flash_attention differs from its plain version: "
+                             + "; ".join(failures) + f" (errors {errs})")
+    return errs
+
+
+def _sdpa_ms(qs, k, v, do, ends):
+    """The library yardstick (never used by the port): SDPA with the boolean
+    block-causal mask on the same pre-scaled BLHD inputs, forward and, from
+    forward plus backward, backward device ms."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.ops.attention import levels_mask
+
+    mask = levels_mask(qs.shape[1], k.shape[1], ends, qs.device)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (qs, k, v))
+    doh = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,  # noqa: E731
+                                                  scale=1.0)
+    lib_f = device_ms(sdpa, 10)
+    lib_fb = device_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 5)
+    return lib_f, lib_fb - lib_f
+
+
+def _flash_bounds(b: int, lq: int, lk: int, ends):
+    """Row 5's bounds in ms: forward reads q, k, v and writes out and the
+    lse; backward reads q, k, v, out, do and the lse and writes dq, dk, dv
+    (delta, like row 6's, counted as one more (B, H, L) fp32 read);
+    operations 4 B H D pairs forward, 2.5 times that backward (five
+    products of the pairs instead of two)."""
+    flops = b * HEADS * (C // HEADS) * useful_pairs(lq, lk, ends)
+    rows_q, rows_k, stats = b * lq * C * 2, b * lk * C * 2, b * HEADS * lq * 4
+    fwd = bound(2 * rows_q + 2 * rows_k + stats, 4.0 * flops, BF16_TENSOR_FLOPS)
+    bwd = bound(4 * rows_q + 4 * rows_k + 2 * stats, 10.0 * flops, BF16_TENSOR_FLOPS)
+    return fwd, bwd
+
+
+def phase_kernel_flash(dev):
+    """Rows for row 5's forward and backward kernels at the d16 512px
+    training shape (B 8, L 2240, bf16), with their times at the 1024px eval
+    shape (B 2, L 9451) and row 6's at the 512px shape beside them."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_bwd_plain,
+                                                        flash_attention_fwd,
+                                                        flash_attention_fwd_plain,
+                                                        paired_train_bwd, paired_train_delta,
+                                                        paired_train_fwd)
+
+    errs = check_flash(dev)
+    times = {}
+    for name, b, lq, lk, ends, _ in flash_shapes()[:2]:
+        qs, k, v, do = flash_inputs(dev, torch.bfloat16, b, lq, lk, True, 30)
+        out, lse = flash_attention_fwd(qs, k, v, ends)
+        delta = paired_train_delta(out.reshape(b, lq, C), do.reshape(b, lq, C), HEADS)
+        fwd = lambda: flash_attention_fwd(qs, k, v, ends)  # noqa: E731
+        bwd = lambda: flash_attention_bwd(qs, k, v, out, lse, do, ends)  # noqa: E731
+        plain_f = lambda: _batch_chunks(  # noqa: E731
+            lambda q_, k_, v_: flash_attention_fwd_plain(q_, k_, v_, ends), b, lq, lk, qs, k, v)
+        plain_b = lambda: _batch_chunks(  # noqa: E731
+            lambda q_, k_, v_, do_, l_, d_: flash_attention_bwd_plain(q_, k_, v_, do_, l_, d_,
+                                                                      ends),
+            b, lq, lk, qs, k, v, do, lse, delta)
+        (bf, by_f), (bb, by_b) = _flash_bounds(b, lq, lk, ends)
+        lib_f, lib_b = _sdpa_ms(qs, k, v, do, ends)
+        t = {"fwd_ms": device_ms(fwd, 10), "bwd_ms": device_ms(bwd, 5),
+             "fwd_call_ms": call_ms(fwd, 10), "bwd_call_ms": call_ms(bwd, 5),
+             "plain_fwd_ms": device_ms(plain_f, 2, warmup=1),
+             "plain_bwd_ms": device_ms(plain_b, 2, warmup=1),
+             "fwd_bound_ms": bf, "fwd_bound_by": by_f, "bwd_bound_ms": bb, "bwd_bound_by": by_b,
+             "library_fwd_ms": lib_f, "library_bwd_ms": lib_b,
+             "useful_pairs_per_head": useful_pairs(lq, lk, ends), "shape": [b, lq, HEADS, 64]}
+        if name == "512px":  # row 6 over the same bytes as merged (B, L, C)
+            m = [x.reshape(b, lq, C) for x in (qs, k, v, out, do)]
+            o6, lse6 = paired_train_fwd(m[0], m[1], m[2], HEADS, ends)
+            t["row6_fwd_ms"] = device_ms(lambda: paired_train_fwd(m[0], m[1], m[2], HEADS, ends),
+                                         10)
+            t["row6_bwd_ms"] = device_ms(
+                lambda: paired_train_bwd(m[0], m[1], m[2], o6, lse6, m[4], HEADS, ends), 5)
+        times[name] = t
+        del qs, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    t5 = times["512px"]
+    common = {"tol": {"float32": f"{FLASH_F32_TOL[0]} + {FLASH_F32_TOL[1]} |want| (lse too)",
+                      "bfloat16": f"{FLASH_TRAIN_BF16_ULPS} bf16 ulps of max|want|, want from "
+                                  "the plain version on the same bf16 inputs"},
+              "errors": errs, "shape": t5["shape"], "dtype": "bfloat16",
+              "useful_pairs_per_head": t5["useful_pairs_per_head"], "at_1024px": times["1024px"],
+              "row6_at_512px": {"fwd_ms": t5["row6_fwd_ms"], "bwd_ms": t5["row6_bwd_ms"]}}
+    bf16 = errs["512px"]["bfloat16"]
+    fwd_row = {"name": "flash_attention_fwd", "max_abs_err": bf16["out"], "ms": t5["fwd_ms"],
+               "call_ms": t5["fwd_call_ms"], "plain_ms": t5["plain_fwd_ms"],
+               "bound_ms": t5["fwd_bound_ms"], "bound_by": t5["fwd_bound_by"],
+               "library_ms": t5["library_fwd_ms"], **common}
+    bwd_row = {"name": "flash_attention_bwd",
+               "max_abs_err": max(bf16[n] for n in ("dq", "dk", "dv")), "ms": t5["bwd_ms"],
+               "call_ms": t5["bwd_call_ms"], "plain_ms": t5["plain_bwd_ms"],
+               "bound_ms": t5["bwd_bound_ms"], "bound_by": t5["bwd_bound_by"],
+               "library_ms": t5["library_bwd_ms"], **common}
+    return [fwd_row, bwd_row]
+
+
 def _prod_models(root):
     """fp32 VAR and full VQVAE at the var_prod.npz geometry (d16 width,
     depth 2, 16 heads, 1000 classes, the 256px pyramid) with the weights
@@ -617,13 +831,15 @@ def phase_main_path(dev):
 
 def _all_kernels():
     """Every kernel wrapper with a launch counter, in kernel-table order."""
-    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode, flash_decode_paired,
-                                                        paired_train_bwd, paired_train_fwd)
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd, flash_decode,
+                                                        flash_decode_paired, paired_train_bwd,
+                                                        paired_train_fwd)
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
     from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
     return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
-            paired_train_fwd, paired_train_bwd)
+            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd)
 
 
 def _zero_counts(kernels) -> None:
@@ -639,12 +855,22 @@ def _decode_want(depth: int, sn: int) -> dict:
     """Launches of one CFG decode of ``sn`` scales over ``depth`` blocks with
     the attention kernels at 0: the caller sets the one its cache uses."""
     return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
-            "flash_decode_paired": 0, "paired_train_fwd": 0, "paired_train_bwd": 0}
+            "flash_decode_paired": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "paired_train_fwd": 0, "paired_train_bwd": 0}
 
 
-def _train_want(depth: int) -> dict:
-    return {"modulated_layernorm": 0, "flash_decode": 0, "topk_topp_bound": 0,
-            "flash_decode_paired": 0, "paired_train_fwd": 2 * depth, "paired_train_bwd": depth}
+def _train_want(depth: int, impl: str = "paired") -> dict:
+    """Launches of one remat-2 training step over ``depth`` blocks: the
+    core runs once forward and once recomputed in backward; ``hybrid``
+    takes the dense backward."""
+    want = dict.fromkeys(_decode_want(depth, 0), 0)
+    if impl == "paired":
+        want.update(paired_train_fwd=2 * depth, paired_train_bwd=depth)
+    elif impl == "pallas":
+        want.update(flash_attention_fwd=2 * depth, flash_attention_bwd=depth)
+    elif impl == "hybrid":
+        want.update(flash_attention_fwd=depth)
+    return want
 
 
 TRAIN_GRAD_RTOL = 1e-4  # per parameter: max|card - cpu| <= this * max|cpu grad|
@@ -976,6 +1202,179 @@ def _check_zeroshot_output(name, res, gt, keep, var_cfg) -> dict:
     return out
 
 
+
+def phase_long_parity(dev):
+    """One fp32 training step (remat 2) at the 512px patch numbers (L 2240)
+    with ``pallas`` and with ``hybrid`` on the card against the same step on
+    the CPU: depth 2, C 128, 2 heads of 64 (so the kernels run), V 64, a
+    tiny VQVAE, batch 2, seeded weights and images, the CPU's tokens on both
+    sides. Loss within TRAIN_LOSS_RTOL relative, every parameter gradient
+    within TRAIN_GRAD_RTOL of its max|cpu grad|; launches exact."""
+    import copy
+
+    from var_tpu_torch.config import PATCH_NUM_PRESETS, TrainArgs, VAEConfig, VARConfig
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+
+    pns = PATCH_NUM_PRESETS["512"]
+    gen = torch.Generator().manual_seed(11)
+    vae = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(
+        vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
+    vae = vae.eval().requires_grad_(False)
+    var = var_mod.init_var_params(var_mod.VAR(VARConfig(
+        num_classes=10, depth=2, embed_dim=128, num_heads=2, patch_nums=pns, vocab_size=64,
+        z_channels=8, attn_l2_norm=True, cond_drop_rate=0.0, drop_path_rate=0.0)), gen).train()
+    img = torch.rand(2, 2 * pns[-1], 2 * pns[-1], 3, generator=gen) * 2 - 1
+    labels = torch.tensor([1, 7])
+    args = TrainArgs(remat=2)
+    idx_bl = tr.tokenize(vae, img, args)
+    kernels = _all_kernels()
+    rows, failures = {}, []
+    for impl in ("pallas", "hybrid"):
+        grads, losses = {}, {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            v_, q_ = copy.deepcopy(var).to(where), copy.deepcopy(vae).to(where)
+            _zero_counts(kernels)
+            with fp32_exact():
+                loss, _ = tr.teacher_loss(v_, q_, args, [i.to(where) for i in idx_bl],
+                                          labels.to(where), None, dtype=torch.float32,
+                                          attn_impl=impl)
+                loss.backward()
+            if side == "card":
+                torch.cuda.synchronize()
+                launches = _counts(kernels)
+            losses[side] = float(loss)
+            grads[side] = {n: p.grad.detach().cpu() for n, p in v_.named_parameters()}
+        worst, worst_name = 0.0, ""
+        for n, g in grads["cpu"].items():
+            rel = float((grads["card"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            if not rel <= worst:  # NaN counts as worst
+                worst, worst_name = rel, n
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        want = _train_want(2, impl)
+        rows[impl] = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+                      "loss_rel_err": loss_rel, "grad_rel_err_max": worst,
+                      "grad_rel_err_param": worst_name, "launches": launches}
+        if launches != want:
+            failures.append(f"{impl}: launches {launches}, want {want}")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+            failures.append(f"{impl}: loss rel {loss_rel}, grad rel {worst} ({worst_name})")
+    emit({"phase": "long_parity", "patch_nums": list(pns), "seq_len": var.cfg.seq_len,
+          "impls": rows, "tol": {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel_of_max": TRAIN_GRAD_RTOL}})
+    if failures:
+        raise AssertionError("512px fp32 steps differ between the card and the CPU: "
+                             + "; ".join(failures))
+
+
+def _timed(run, n: int):
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_long_main_path(dev):
+    """d16 teacher-forced training at the 512px preset (L 2240), batch 8,
+    bf16 compute with fp32 parameters and AdamW state, remat 2, tclip 2,
+    fp16=1 skip guard, seeded random weights and images, once per ``--attn``
+    choice (``auto``, resolved to paired on the card; ``pallas``; ``hybrid``):
+    counters set to 0 before a warm-up step and read after it, then 5 timed
+    steps. Then one 512px eval batch of 8 and one 1024px eval batch of 2
+    (L 9451) through ``pick_eval_attn`` of the auto choice, each counted on
+    its first batch and timed over 3 more. Returns {run: launches}."""
+    from var_tpu_torch.config import PATCH_NUM_PRESETS, TrainArgs, resolve_attn
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import build_vae_var_train
+
+    kernels = _all_kernels()
+    out = {}
+    auto = resolve_attn("auto", dev)
+    args = TrainArgs(depth=DEPTH, bs=LONG_BATCH, ac=1, ep=200, fp16=1, tclip=2.0, remat=2,
+                     seed=0, pn="512").finalize(world_size=1)
+    t0 = time.perf_counter()
+    vae_cfg, var_cfg, vae, var = build_vae_var_train(device=dev, seed=0, depth=DEPTH,
+                                                     patch_nums=PATCH_NUM_PRESETS["512"])
+    g = torch.Generator(device=dev).manual_seed(12)
+    reso = var_cfg.patch_nums[-1] * vae_cfg.downsample
+    imgs = torch.rand(1, LONG_BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    labels = torch.randint(0, var_cfg.num_classes, (1, LONG_BATCH), generator=g, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for choice in ("auto", "pallas", "hybrid"):
+        impl = resolve_attn(choice, dev)
+        init_state, step = tr.make_train_step(var_cfg, vae_cfg, args, iters_per_ep=1000,
+                                              dtype=torch.bfloat16, attn_impl=impl)
+        state = init_state(var)
+        gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
+        metrics = []
+
+        def run(i):
+            metrics.append(step(state, vae, imgs, labels, gen(i), i, 1.0)[1])
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        first_s = _timed(run, 1)[0]
+        launches = _counts(kernels)
+        want = _train_want(DEPTH, impl)
+        if launches != want:
+            raise AssertionError(f"512px {choice} training launches {launches}, want {want}")
+        times = _timed(lambda i: run(1 + i), 5)
+        losses = [float(m.loss) for m in metrics]
+        gnorms = [float(m.grad_norm) for m in metrics]
+        if not all(np.isfinite(losses + gnorms)):
+            raise AssertionError(f"non-finite 512px {choice} step: loss {losses} gnorm {gnorms}")
+        median_s = float(np.median(times))
+        emit({"phase": "long_main_path", "run": f"train_{choice}", "attn": impl,
+              "depth": DEPTH, "batch": LONG_BATCH, "seq_len": var_cfg.seq_len,
+              "dtype": "bfloat16", "remat": args.remat, "launches": launches,
+              "setup_s": setup_s, "first_step_s": first_s, "step_s": times,
+              "step_s_median": median_s, "img_per_s": LONG_BATCH / median_s, "loss": losses,
+              "grad_norm": gnorms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[f"train_{choice}"] = launches
+        del state, step, init_state, metrics
+        torch.cuda.empty_cache()
+    for preset, batch in (("512", LONG_BATCH), ("1024", EVAL_1024_BATCH)):
+        if preset == "1024":
+            del vae, var
+            torch.cuda.empty_cache()
+            vae_cfg, var_cfg, vae, var = build_vae_var_train(
+                device=dev, seed=0, depth=DEPTH, patch_nums=PATCH_NUM_PRESETS["1024"])
+        var.eval()
+        eval_attn = tr.pick_eval_attn(auto, var_cfg.seq_len)
+        eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=torch.bfloat16,
+                                      attn_impl=eval_attn)
+        reso = var_cfg.patch_nums[-1] * vae_cfg.downsample
+        img = torch.rand(batch, reso, reso, 3, generator=g, device=dev) * 2 - 1
+        label = torch.randint(0, var_cfg.num_classes, (batch,), generator=g, device=dev)
+        valid = torch.ones(batch, device=dev)
+        sums = []
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        first_s = _timed(lambda i: sums.append(eval_step(var, vae, img, label, valid)), 1)[0]
+        launches = _counts(kernels)
+        want = {**_train_want(DEPTH, "xla"), "flash_attention_fwd": DEPTH}
+        if launches != want:
+            raise AssertionError(f"{preset}px eval launches {launches}, want {want}")
+        s = sums[0].cpu()
+        if not bool(torch.isfinite(s).all()) or float(s[4]) != batch:
+            raise AssertionError(f"{preset}px eval sums {s.tolist()}")
+        times = _timed(lambda i: eval_step(var, vae, img, label, valid), 3)
+        median_s = float(np.median(times))
+        emit({"phase": "long_main_path", "run": f"eval_{preset}px", "attn": eval_attn,
+              "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
+              "launches": launches, "L_mean": float(s[0] / s[4]), "acc_mean": float(s[2] / s[4]),
+              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
+              "img_per_s": batch / median_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[f"eval_{preset}px"] = launches
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -990,6 +1389,8 @@ def main() -> None:
     phase_build()
     rows = [phase(dev) for phase in (phase_kernel_ln, phase_kernel_select,
                                      phase_kernel_attention, phase_kernel_decode_paired)]
+    rows += phase_kernel_flash(dev)
+    torch.cuda.empty_cache()
     rows += phase_kernel_ptrain(dev)
     for row in rows:
         emit({"phase": "kernel", **row})
@@ -1001,6 +1402,11 @@ def main() -> None:
     phase_zeroshot_parity(dev, root)
     zeroshot = phase_zeroshot_main_path(dev)
     launches["flash_decode_paired"] = zeroshot["flash_decode_paired"]
+    torch.cuda.empty_cache()
+    phase_long_parity(dev)
+    long_runs = phase_long_main_path(dev)
+    launches.update({k: v for k, v in long_runs["train_pallas"].items()
+                     if k.startswith("flash_attention")})
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),
@@ -1010,6 +1416,10 @@ def main() -> None:
                          "var_tpu/ops/pallas/flash_attention.py:556"),
         "flash_decode_paired": ("var_tpu_torch/ops/cuda/csrc/flash_attention.cu",
                                 "var_tpu/ops/pallas/flash_attention.py:635"),
+        "flash_attention_fwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
+                                "var_tpu/ops/pallas/flash_attention.py:194"),
+        "flash_attention_bwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
+                                "var_tpu/ops/pallas/flash_attention.py:305"),
         "paired_train_fwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
                              "var_tpu/ops/pallas/flash_attention.py:912"),
         "paired_train_bwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from var_tpu_torch.ops.attention import attention
-from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
+from var_tpu_torch.ops.cuda.flash_attention import (flash_attention, flash_attention_bwd,
+                                                    flash_attention_fwd,
+                                                    flash_attention_paired_train, flash_decode,
                                                     flash_decode_plain, paired_train_bwd,
                                                     paired_train_fwd)
 
@@ -197,6 +199,60 @@ def test_cuda_kv_window_decode_equals_cpu(cuda):
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, dtype):
+    """Row 5's forward and backward kernels against their plain versions at
+    the d16 512px training shape, the 1024px eval shape (forward), an
+    unmasked Lq 256 / Lk 680 shape and a ragged L of 1015
+    (chip_smoke.check_flash: fp32 within 1e-4 + 1e-4 |want|, bf16 within 3
+    bf16 ulps of each tensor's max|want|)."""
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    _chip_smoke().check_flash(cuda, dtypes=(dtype,))
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == f0 + 4 and flash_attention_bwd.launches == b0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ends,lq,lk", [((1, 5, 14, 30, 55, 91, 155), 155, 155),
+                                        (None, 100, 155)])
+def test_cuda_flash_attention_autograd_matches_dense(cuda, dtype, ends, lq, lk):
+    """flash_attention through autograd (scale folded into q, the kernels
+    forward and backward) against autograd through the dense fp32-logit
+    attention in fp32 on the same inputs: fp32 within 1e-4 + 1e-4 |want|,
+    bf16 within 4 bf16 ulps of each tensor's max|want| (the input's
+    rounding of q * scale, p and ds on top of the output's)."""
+    from var_tpu_torch.ops.attention import attention_fp32_logits
+
+    b, h = 2, 4
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, do = (torch.randn(b, lq, h, 64, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, lk, h, 64, generator=g, device=cuda).to(dtype) for _ in range(2))
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out = flash_attention(*got_in, 0.125, ends)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    want_in = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = attention_fp32_logits(*want_in, 0.125, ends)
+    ref.backward(do.float())
+    for got, want in zip([out] + [t.grad for t in got_in], [ref] + [t.grad for t in want_in]):
+        got, want = got.detach().float(), want.detach()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert float((got - want).abs().max()) <= 4 * _ulp(float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_head_dim_64_only(cuda):
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q, 1.0, None)
+
+
 def _planted_copy(tmp_path, source: str, old: str, new: str) -> None:
     """A copy of the package in tmp_path whose ``source`` carries a planted
     fault (every occurrence of ``old`` replaced by ``new``)."""
@@ -247,3 +303,15 @@ def test_planted_fault_fails_the_training_attention_check(cuda, tmp_path, mutant
     rc, last = _run_check(tmp_path, "check_ptrain")
     print(json.dumps({"mutant": mutant, "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "differs from its plain version" in last
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_the_flash_attention_check(cuda, tmp_path):
+    """A copy of the package whose row-5 instantiation alone skips the last
+    K tile of its forward and dQ loops, built in tmp_path, must fail
+    chip_smoke.check_flash."""
+    _planted_copy(tmp_path, "flash_attention_train.cu", "k0 < kend;",
+                  "k0 + (kRow == 5 ? PT_T : 0) < kend;")
+    rc, last = _run_check(tmp_path, "check_flash")
+    print(json.dumps({"mutant": "flash_skip_last_k_tile", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "flash_attention differs from its plain version" in last

@@ -2,17 +2,20 @@
 ``apps/profile_decode.py``):
 
     python -m var_tpu_torch.apps.profile_train --depth 16 --batch 32
+    python -m var_tpu_torch.apps.profile_train --pn 512 --batch 8 --attn pallas
 
 Builds d``depth`` with seeded random weights and the chip-smoke training
-configuration (256px, bf16 compute with fp32 parameters, remat 2, tclip 2,
-fp16=1), runs two warm-up steps on seeded random images, then:
+configuration (``--pn`` patch numbers, 256px by default; bf16 compute with
+fp32 parameters, remat 2, tclip 2, fp16=1; ``--attn`` resolved as the
+training CLI resolves it), runs two warm-up steps on seeded random images,
+then:
 
 * times steps and the frozen tokenizer alone (host clock around work that
   ends in ``torch.cuda.synchronize()``);
 * traces one step under ``torch.profiler`` and prints one JSON line: wall
   time, device-busy time (the device events' self time) and idle share,
-  device time grouped by kind (the training-attention kernels, GEMMs,
-  convolutions, the rest) and the top kernels by device time.
+  device time grouped by kind (the training-attention kernels of rows 5 and
+  6, GEMMs, convolutions, the rest) and the top kernels by device time.
 
 Needs an NVIDIA GPU.
 """
@@ -26,10 +29,11 @@ import time
 
 def _kind(name: str) -> str:
     n = name.lower()
+    row = "flash_attention" if "<5>" in n else "paired_train"  # the kernels' kRow
     if "ptrain_fwd" in n:
-        return "paired_train_fwd"
+        return f"{row}_fwd"
     if "ptrain_dq" in n or "ptrain_dkv" in n:
-        return "paired_train_bwd"
+        return f"{row}_bwd"
     if any(w in n for w in ("fprop", "dgrad", "wgrad", "conv", "cudnn", "fft")):
         return "conv"  # cuDNN also convolves through FFT kernels
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n or "cublas" in n:
@@ -43,23 +47,27 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=25)
+    p.add_argument("--pn", default="256", help="patch numbers: 256, 512, 1024 or 1_2_3...")
+    p.add_argument("--attn", default="auto", help="auto|xla|pallas|hybrid|paired")
     args = p.parse_args(argv)
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from var_tpu_torch.config import TrainArgs
+    from var_tpu_torch.config import TrainArgs, parse_patch_nums, resolve_attn
     from var_tpu_torch.device import resolve_device
     from var_tpu_torch.engine import trainer as tr
     from var_tpu_torch.models import build_vae_var_train
 
     dev = resolve_device("cuda")
+    attn = resolve_attn(args.attn, dev)
     targs = TrainArgs(depth=args.depth, bs=args.batch, ac=1, ep=200, fp16=1, tclip=2.0,
-                      remat=2, seed=0).finalize(world_size=1)
-    vae_cfg, var_cfg, vae, var = build_vae_var_train(device=dev, seed=0, depth=args.depth)
+                      remat=2, seed=0, pn=args.pn).finalize(world_size=1)
+    vae_cfg, var_cfg, vae, var = build_vae_var_train(device=dev, seed=0, depth=args.depth,
+                                                     patch_nums=parse_patch_nums(args.pn))
     init_state, step = tr.make_train_step(var_cfg, vae_cfg, targs, iters_per_ep=1000,
-                                          dtype=torch.bfloat16)
+                                          dtype=torch.bfloat16, attn_impl=attn)
     state = init_state(var)
     g = torch.Generator(device=dev).manual_seed(1)
     reso = var_cfg.patch_nums[-1] * vae_cfg.downsample
@@ -108,6 +116,7 @@ def main(argv=None):
     times.sort()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "depth": args.depth, "batch": args.batch,
+        "patch_nums": list(var_cfg.patch_nums), "attn": attn,
         "step_ms": [t * 1e3 for t in times], "step_ms_median": times[len(times) // 2] * 1e3,
         "img_per_s": args.batch / times[len(times) // 2], "tokenize_ms": tokenize_ms,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,

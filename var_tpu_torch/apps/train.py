@@ -4,7 +4,11 @@
 
 Flags are the reference recipes' (``config.TrainArgs``), plus ``--device``
 (default ``cuda``; without a GPU the default raises, ``--device cpu`` runs
-the plain PyTorch path). ``--local_debug=1`` is the two-step smoke on
+the plain PyTorch path) and ``--attn`` (``auto|xla|pallas|hybrid|paired``;
+``auto`` is ``paired`` on the GPU and ``xla`` on the CPU, as ``train.py``
+resolves it). The eval step's attention is ``trainer.pick_eval_attn`` of
+the training impl: the streaming kernel for a ``paired`` run at 512px and
+1024px. ``--local_debug=1`` is the two-step smoke on
 seeded random images at a tiny configuration, with a checkpoint round trip
 after the steps (reference ``train.py:140-162``). Training on ImageNet
 needs the data loader, which is not ported yet: without ``--local_debug``
@@ -19,7 +23,7 @@ import time
 
 import torch
 
-from var_tpu_torch.config import VAEConfig, VARConfig, parse_cli
+from var_tpu_torch.config import VAEConfig, VARConfig, parse_cli, resolve_attn
 from var_tpu_torch.device import resolve_device
 from var_tpu_torch.engine import checkpoint as ckpt
 from var_tpu_torch.engine import trainer as tr
@@ -51,6 +55,7 @@ def step_generator(dev, seed: int, g_it: int) -> torch.Generator:
 def main(argv=None) -> None:
     args = parse_cli(argv).finalize(world_size=1)
     dev = resolve_device(args.device)
+    attn = resolve_attn(args.attn, dev)
     if not args.local_debug:
         raise NotImplementedError(
             "training on ImageNet needs the data loader, which the port does not have yet "
@@ -74,8 +79,9 @@ def main(argv=None) -> None:
                                   init_head=args.hd, init_adaln=args.aln,
                                   init_adaln_gamma=args.alng).train()
     n_params = sum(p.numel() for p in var.parameters())
+    eval_attn = tr.pick_eval_attn(attn, var_cfg.seq_len)
     print(f"[train] device={dev} bs={args.bs} tlr={args.tlr:g} pn={args.patch_nums} "
-          f"VAR params {n_params / 1e6:.2f}M", flush=True)
+          f"attn={attn} eval_attn={eval_attn} VAR params {n_params / 1e6:.2f}M", flush=True)
 
     iters_train = 2
     reso = args.patch_nums[-1] * vae_cfg.downsample
@@ -88,14 +94,17 @@ def main(argv=None) -> None:
                                generator=data_gen, device=dev)
         return imgs, labels
 
-    init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype)
+    init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
+                                       attn_impl=attn)
     steps = {}
 
     def step_for(prog_si: int):
         if prog_si not in steps:
             steps[prog_si] = tr.make_train_step(var_cfg, vae_cfg, args, iters_train,
-                                                prog_si=prog_si, dtype=dtype)[1]
+                                                prog_si=prog_si, dtype=dtype, attn_impl=attn)[1]
         return steps[prog_si]
+
+    eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype, attn_impl=eval_attn)
 
     state = init_state(var)
     max_it, wp_it = args.ep * iters_train, args.wp * iters_train
@@ -120,6 +129,12 @@ def main(argv=None) -> None:
               f"loss {float(m.loss):.4f} Lm {float(m.Lm):.4f} Lt {float(m.Lt):.4f} "
               f"Accm {float(m.accm):.2f} tnm {float(m.grad_norm):.4f} tlr {m.lr:.3g} "
               f"wd {m.wd:.3g} step_t {time.perf_counter() - t0:.3f}s", flush=True)
+
+    # local_debug has no val split (the JAX trainer runs no eval there,
+    # train.py:331): the eval step runs once on the last smoke batch
+    sums = eval_step(state.var, vae, imgs[0], labels[0], torch.ones(args.batch_size, device=dev))
+    print(f"[local_debug] eval ({eval_attn}) L_mean {float(sums[0] / sums[4]):.4f} "
+          f"acc_mean {float(sums[2] / sums[4]):.2f}", flush=True)
 
     # checkpoint round trip (reference train.py:150-160)
     meta = dict(epoch=ep + 1, iter=0, args=args.state_dict())

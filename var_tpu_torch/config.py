@@ -5,8 +5,12 @@ width = 64 * depth, heads = depth, drop_path = 0.1 * depth / 24; patch-num
 presets 256/512/1024 (``arg_util.py:244-249``). ``TrainArgs``/``parse_cli``
 carry the reference training flags with the JAX package's ``finalize``
 rules (lr = ac * tblr * global_bs / 256, warmup ep / 50, progressive
-``pgwp`` and ``sche``), plus ``device``; the TPU attention-impl choice
-(``attn``) has no counterpart.
+``pgwp`` and ``sche``), plus ``device``. ``attn`` picks the training
+attention (``resolve_attn``): ``paired`` the paired-head training kernel
+(row 6 of PERF.md's kernel table), ``pallas`` the streaming flash-attention
+kernel forward and backward (row 5), ``hybrid`` row 5's forward with the
+dense backward, ``xla`` the dense path; ``auto`` is ``paired`` on the GPU and
+``xla`` on the CPU, as the JAX entry point resolves it (``train.py:187-198``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,19 @@ PATCH_NUM_PRESETS = {
     "512": (1, 2, 3, 4, 6, 9, 13, 18, 24, 32),
     "1024": (1, 2, 3, 4, 5, 7, 9, 12, 16, 21, 27, 36, 48, 64),
 }
+
+
+ATTN_IMPLS = ("auto", "xla", "pallas", "hybrid", "paired")
+
+
+def resolve_attn(attn: str, device) -> str:
+    """The training attention impl for ``attn`` on ``device``: ``auto`` is
+    ``paired`` on a GPU and ``xla`` on the CPU; an unknown name raises."""
+    if attn not in ATTN_IMPLS:
+        raise ValueError(f"--attn={attn!r}: want {'|'.join(ATTN_IMPLS)}")
+    if attn == "auto":
+        return "xla" if str(device).startswith("cpu") else "paired"
+    return attn
 
 
 def parse_patch_nums(pn: str) -> Tuple[int, ...]:
@@ -158,6 +175,7 @@ class TrainArgs:
     remat: int = 0  # 0 off; 1 whole-block recompute; 2 attention core + LN + FFN hidden
     vae_bf16: int = 0  # tokenize in bf16 (the quantizer stays fp32)
     tokenize_chunk: int = 0  # >0: tokenize in batch chunks of this size (same tokens)
+    attn: str = "auto"  # training attention: auto | xla | pallas | hybrid | paired (resolve_attn)
     dbg_nan: bool = False  # autograd anomaly detection (arg_util.py:137)
     allow_random_vae: bool = False  # train without a tokenizer checkpoint
     local_out_dir_path: str = "local_output"

@@ -186,7 +186,8 @@ def tokenize(vae: vae_mod.VQVAE, img: torch.Tensor, args: TrainArgs) -> List[tor
 def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
                  idx_bl: List[torch.Tensor], label: torch.Tensor,
                  generator: Optional[torch.Generator], prog_si: int = -1,
-                 prog_wp: float = 1.0, dtype: torch.dtype = torch.bfloat16):
+                 prog_wp: float = 1.0, dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "paired"):
     """(loss, metrics) of one micro-batch from its tokens (``trainer.py:207-241``)."""
     var_cfg = var.cfg
     L = var_cfg.seq_len
@@ -196,7 +197,8 @@ def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
     with torch.no_grad():
         x_in = q.idxBl_to_var_input(vae.quantize, vae.cfg, idx_bl)
     logits = var_mod.var_forward(var, label, x_in, generator=generator, train=True,
-                                 prog_si=prog_si, dtype=dtype, remat=args.remat)
+                                 prog_si=prog_si, dtype=dtype, remat=args.remat,
+                                 attn_impl=attn_impl)
     ce = cross_entropy(logits, gt_bl, args.ls)  # (B, ed)
     lw = torch.full((ed,), 1.0 / L, device=ce.device)
     if prog_si >= 0:
@@ -206,8 +208,10 @@ def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
 
 
 def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
-                    iters_per_ep: int, prog_si: int = -1, dtype: torch.dtype = torch.bfloat16):
-    """(init_state, step) (``trainer.py:175``).
+                    iters_per_ep: int, prog_si: int = -1, dtype: torch.dtype = torch.bfloat16,
+                    attn_impl: str = "paired"):
+    """(init_state, step) (``trainer.py:175``). ``attn_impl``: the training
+    attention, resolved already (``config.resolve_attn``).
 
     ``step(state, vae, imgs (ac, B, H, W, 3), labels (ac, B), generator, g_it,
     prog_wp) -> (state, StepMetrics)``: updates ``state.var`` in place."""
@@ -229,7 +233,7 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
         for i in range(ac):
             idx_bl = tokenize(vae, imgs[i], args)
             loss, m = teacher_loss(state.var, vae, args, idx_bl, labels[i], generator, prog_si,
-                                   prog_wp, dtype)
+                                   prog_wp, dtype, attn_impl)
             (loss * (scale / ac)).backward()  # loss scaled before backward (amp_sc.py:43)
             loss_acc += loss.detach() / ac
         if dynamic_scale:  # unscale (GradScaler.unscale_)
@@ -246,9 +250,21 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
     return init_state, step
 
 
-def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = torch.bfloat16):
+def pick_eval_attn(train_attn: str, seq_len: int) -> str:
+    """Eval attention for a train impl (``trainer.py:315-325``): the paired
+    kernel's eval beyond 1000 tokens (the 512px and 1024px presets) goes to
+    the streaming kernel, whose memory does not grow with L x L; 256px keeps
+    the dense path. Any other impl evaluates as it trains."""
+    if train_attn == "paired":
+        return "pallas" if seq_len > 1000 else "xla"
+    return train_attn
+
+
+def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = torch.bfloat16,
+                   attn_impl: str = "paired"):
     """Validation step (``trainer.py:328``): summed [L_mean, L_tail, acc_mean,
-    acc_tail, n] over the rows where ``valid`` (B,) is nonzero."""
+    acc_tail, n] over the rows where ``valid`` (B,) is nonzero. The caller
+    picks ``attn_impl`` with :func:`pick_eval_attn`."""
     last_l = var_cfg.patch_nums[-1] ** 2
 
     @torch.no_grad()
@@ -256,7 +272,8 @@ def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = 
         idx_bl = vae_mod.img_to_idxBl(vae, img)
         gt = torch.cat(idx_bl, dim=1)
         x_in = q.idxBl_to_var_input(vae.quantize, vae_cfg, idx_bl)
-        logits = var_mod.var_forward(var, label, x_in, train=False, dtype=dtype)
+        logits = var_mod.var_forward(var, label, x_in, train=False, dtype=dtype,
+                                     attn_impl=attn_impl)
         v = valid.float()
         ce = cross_entropy(logits, gt)
         hit = (logits.argmax(-1) == gt).float()

@@ -21,7 +21,9 @@ prealloc and concat through ``flash_decode_paired`` (row 4, q normalised
 outside and rounded to the compute dtype, ``var.py:402``).
 
 Teacher-forced training (``var_forward``): one pass over all L tokens with
-the block-causal mask through the training-attention kernel, the plain
+the block-causal mask through the attention impl the caller picks (the
+paired training kernel by default, the streaming flash-attention kernel,
+hybrid or dense, dispatched as in the JAX package), the plain
 LayerNorm (the LN kernel has no backward), cond-drop and drop-path from an
 explicit ``torch.Generator``, ``prog_si`` truncation and remat 0/1/2.
 Parameters stay float32 and are cast to the compute dtype at each use, as
@@ -42,7 +44,7 @@ import torch.nn.functional as F
 
 from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
-from var_tpu_torch.ops.attention import recompute_grad
+from var_tpu_torch.ops.attention import attention, recompute_grad
 from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
                                                     flash_decode_paired)
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
@@ -384,10 +386,13 @@ def _mod_ln(eps: float, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
     return _ln(x, eps) * (scale + 1.0) + shift
 
 
-def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], qkv: torch.Tensor,
+def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], impl: str, qkv: torch.Tensor,
                scale_mul: Optional[torch.Tensor]) -> torch.Tensor:
     """Merged qkv -> per-head QK L2 norm (or the 0.25/sqrt(d) scale) ->
-    block-causal attention, (B, L, C) (``var.py:293-347``)."""
+    block-causal attention, (B, L, C) (``var.py:293-347``): ``paired``
+    through the paired training kernel (row 6) on merged tensors, every
+    other impl through :func:`ops.attention.attention` on BLHD views
+    (``pallas``: the streaming kernel, row 5; else the dense path)."""
     b, l, _ = qkv.shape
     c, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     dtype = qkv.dtype
@@ -399,20 +404,34 @@ def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], qkv: torch.Tensor,
         q = _l2_heads(q, h, sm).to(dtype).reshape(b, l, c)
     else:
         scale = 0.25 / math.sqrt(d)
-    return flash_attention_paired_train(q, k, v, h, scale, scale_ends)
+    if impl == "paired":
+        return flash_attention_paired_train(q, k, v, h, scale, scale_ends)
+    out = attention(q.reshape(b, l, h, d), k.reshape(b, l, h, d), v.reshape(b, l, h, d), scale,
+                    impl=impl, scale_ends=scale_ends)
+    return out.reshape(b, l, c)
 
 
 def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
-                     scale_ends: Sequence[int], remat_core: bool) -> torch.Tensor:
+                     scale_ends: Sequence[int], remat_core: bool,
+                     impl: str = "paired") -> torch.Tensor:
     """Fused QKV with a zero k bias, then the attention core, then the
-    projection (``var.py:402-410``). With ``remat_core`` (remat mode 2)
-    the core is recomputed in backward: only the qkv tensor is kept
-    (``var.py:322-359``)."""
+    projection (``var.py:402-410``). ``paired`` degrades to ``xla`` unless
+    the heads pair into 128 lanes (even count, head_dim 64; ``var.py:262``).
+    With ``remat_core`` (remat mode 2) the core is recomputed in backward:
+    only the qkv tensor is kept (``var.py:322-359``); ``hybrid`` then runs
+    row 5's forward as the primal and takes the dense path's backward.
+    Without it, ``hybrid`` is the dense path, as JAX's ``attention`` treats
+    every impl but ``pallas`` (``ops/attention.py:98``)."""
+    if impl == "paired" and not (cfg.num_heads % 2 == 0 and 2 * cfg.head_dim == 128):
+        impl = "xla"
     dtype = x.dtype
     bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias]).to(dtype)
     qkv = F.linear(x, attn.mat_qkv.weight.to(dtype), bias)
-    core = functools.partial(_attn_core, cfg, scale_ends)
-    if remat_core:
+    core = functools.partial(_attn_core, cfg, scale_ends, impl)
+    if remat_core and impl == "hybrid":
+        core = recompute_grad(functools.partial(_attn_core, cfg, scale_ends, "pallas"),
+                              bwd_fn=functools.partial(_attn_core, cfg, scale_ends, "xla"))
+    elif remat_core:
         core = recompute_grad(core)
     return _linear(attn.proj, core(qkv, attn.scale_mul_1H11 if cfg.attn_l2_norm else None))
 
@@ -420,13 +439,15 @@ def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
 def train_block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor,
                       cond_h: torch.Tensor, shared: Optional[torch.Tensor],
                       scale_ends: Sequence[int], remat: int = 0,
-                      drop_path: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                      drop_path: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      attn_impl: str = "paired"):
     """Pre-norm AdaLN block (``var.py:475-548``) for teacher forcing:
     x += dp(attn(ln(x)*(s1+1)+sh1) * g1); x += dp(ffn(ln(x)*(s2+1)+sh2) * g2),
     with the plain LayerNorm. ``cond_h`` = silu(class embedding) (B, C) fp32;
     ``shared``: the (B, 6, C) ``shared_ada_lin`` output with shared AdaLN.
     ``remat`` 2 recomputes the LN, the attention core and the FFN hidden
-    states in backward. ``drop_path``: two (B, 1, 1) fp32 keep/keep-rate masks."""
+    states in backward. ``drop_path``: two (B, 1, 1) fp32 keep/keep-rate
+    masks. ``attn_impl``: see :func:`train_attn_apply`."""
     dtype = x.dtype
     p6 = _adaln6(blk, cfg, cond_h, shared)[:, None]  # (B, 1, 6, C) fp32
     g1, g2, s1, s2, sh1, sh2 = (p6[:, :, i].to(dtype) for i in range(6))
@@ -434,7 +455,8 @@ def train_block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor,
     ffn = ffn_apply
     if remat == 2:
         mod_ln, ffn = recompute_grad(mod_ln), recompute_grad(ffn_apply)
-    a_out = train_attn_apply(blk.attn, cfg, mod_ln(x, s1, sh1), scale_ends, remat == 2) * g1
+    a_out = train_attn_apply(blk.attn, cfg, mod_ln(x, s1, sh1), scale_ends, remat == 2,
+                             attn_impl) * g1
     if drop_path is not None:
         a_out = a_out * drop_path[0].to(dtype)
     x = x + a_out
@@ -474,7 +496,7 @@ def drop_path_masks(cfg: VARConfig, batch: int, generator: torch.Generator,
 def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[torch.Tensor],
                 *, generator: Optional[torch.Generator] = None, train: bool = False,
                 prog_si: int = -1, dtype: torch.dtype = torch.bfloat16,
-                remat: int = 0) -> torch.Tensor:
+                remat: int = 0, attn_impl: str = "paired") -> torch.Tensor:
     """Teacher-forced forward (``var.py:614-723``) -> fp32 logits (B, ed, V).
 
     ``x_blcv_wo_first_l``: (B, L - first_l, Cvae) quantizer-space inputs from
@@ -485,7 +507,9 @@ def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[tor
     with probability 1 - rate_i (rates linear in depth up to
     ``drop_path_rate``), both drawn from ``generator``. ``remat``: 0 off;
     1 recomputes each whole block in backward; 2 only the LN, attention core
-    and FFN hidden states (``attn_remat``)."""
+    and FFN hidden states (``attn_remat``). ``attn_impl``: ``paired`` (the
+    default: what ``auto`` resolves to on the GPU), ``pallas``, ``hybrid``
+    or ``xla``, dispatched as in the JAX package (:func:`train_attn_apply`)."""
     cfg = var.cfg
     b, c = label_b.shape[0], cfg.embed_dim
     ed = cfg.seq_len if prog_si < 0 else cfg.begin_ends[prog_si][1]
@@ -509,8 +533,8 @@ def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[tor
         dps = drop_path_masks(cfg, b, generator, x.device)
     for blk, dp in zip(var.blocks, dps):
         if remat == 1:
-            x = recompute_grad(functools.partial(train_block_apply, blk, cfg))(
-                x, cond_h, shared, scale_ends, 0, dp)
+            x = recompute_grad(train_block_apply)(blk, cfg, x, cond_h, shared, scale_ends, 0, dp,
+                                                  attn_impl)
         else:
-            x = train_block_apply(blk, cfg, x, cond_h, shared, scale_ends, remat, dp)
+            x = train_block_apply(blk, cfg, x, cond_h, shared, scale_ends, remat, dp, attn_impl)
     return get_logits(var, x, cond_bd)

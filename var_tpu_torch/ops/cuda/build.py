@@ -107,12 +107,14 @@ def lib() -> ctypes.CDLL:
         cdll.var_decode_attention_paired.argtypes = [P, LL, LL, P, P, LL, LL, P, LL, LL,
                                                      I, I, I, I, I, I, I, P]
         ENDS = ctypes.POINTER(ctypes.c_int)
-        cdll.var_ptrain_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
-        cdll.var_ptrain_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I,
-                                        I, P]
+        train_fwd = [P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
+        train_bwd = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
+        cdll.var_ptrain_fwd.argtypes = cdll.var_flash_fwd.argtypes = train_fwd
+        cdll.var_ptrain_bwd.argtypes = cdll.var_flash_bwd.argtypes = train_bwd
         for fn in (cdll.var_modulated_layernorm, cdll.var_topk_topp_bound,
                    cdll.var_decode_attention, cdll.var_decode_attention_paired,
-                   cdll.var_ptrain_fwd, cdll.var_ptrain_bwd):
+                   cdll.var_ptrain_fwd, cdll.var_ptrain_bwd, cdll.var_flash_fwd,
+                   cdll.var_flash_bwd):
             fn.restype = I
         cdll.var_cuda_error_string.argtypes = [I]
         cdll.var_cuda_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,24 @@
-// Row 6 of the kernel table (PERF.md): teacher-forced block-causal
-// attention, forward and backward.
+// Rows 5 and 6 of the kernel table (PERF.md): teacher-forced attention,
+// forward and backward, over one layout that serves both.
 //
-// Replaces var_tpu/ops/pallas/flash_attention.py::flash_attention_paired_train
+// Row 6 (kRow = 6, entries var_ptrain_*) replaces
+// var_tpu/ops/pallas/flash_attention.py::flash_attention_paired_train
 // (:1144): the forward _fwd_kernel_ptrain (:700, pallas_call :912) and the
 // backward _bwd_fused_kernel_ptrain (:941, :1071) or _bwd_dq_kernel_ptrain
 // (:775, :1092) with _bwd_dkv_kernel_ptrain (:838, :1108).
+// Row 5 (kRow = 5, entries var_flash_*) replaces the streaming BLHD kernel
+// flash_attention.py::flash_attention (:375): _fwd (:190, pallas_call :194),
+// the dq pass (:305) and the dk/dv pass (:324) of its VJP. A BLHD-contiguous
+// (B, L, H, 64) tensor is exactly the merged (B, L, C) layout below, so the
+// two rows are two instantiations of the same device code: the TPU's
+// differences between them (row 5 transposes to (B*H, L, D) and streams K in
+// _pick_block_k blocks with 128-lane scratch, row 6 packs head pairs into
+// 128 lanes) are Mosaic layout choices with no counterpart here. kRow gives
+// each row its own kernel symbols, so profiles and launch counts tell them
+// apart. Row 5 also serves the unmasked Lq != Lk case (no ends: every key
+// visible, the loops run over all Lk keys and all Lq queries) and L up to
+// 9451 (1024px): row and batch offsets are 64-bit, shared memory does not
+// grow with L.
 //
 // Function: q, k, v merged (B, L, C), head h in lanes [64h, 64h + 64), q
 // already multiplied by the softmax scale (the caller rounds q * scale to the
@@ -25,7 +39,9 @@
 // useful work is sum_s n_s * e_s = 286434 of the L^2 = 462400 (query, key)
 // pairs (62%): forward 4 B H D sum n_s e_s = 37.5 GFLOP (38 us of tensor
 // cores) against 179.7 MB of q, k, v, out and lse (54 us); backward
-// 93.9 GFLOP (95 us) against 359 MB (107 us).
+// 93.9 GFLOP (95 us) against 359 MB (107 us). At 512px (batch 8, L = 2240,
+// 65% of the pairs useful) and 1024px (batch 2, L = 9451) the tensor cores
+// bound it: forward 107 GFLOP (108 us) and 467 GFLOP (472 us).
 // Design, right first and simple:
 //  * the mask's structure bounds every loop: a query tile visits key tiles
 //    only up to ends[level(its last query)], a key tile visits query tiles
@@ -167,6 +183,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, int C, int r,
 // ---------------------------------------------------------------------------
 // bf16 forward: block = (64-query tile, head, batch), warp = 16 queries.
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
@@ -261,6 +278,7 @@ ptrain_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bf16 dQ: block = (64-query tile, head, batch), warp = 16 queries, the same
 // key tiles as the forward.
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -325,6 +343,7 @@ ptrain_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bf16 dK/dV: block = (64-key tile, head, batch), warp = 16 keys, looping
 // over the query tiles that can see the tile.
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -411,6 +430,7 @@ __device__ __forceinline__ void load_rows_f32(const float* __restrict__ src, int
   }
 }
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
@@ -505,6 +525,7 @@ ptrain_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
@@ -601,6 +622,7 @@ ptrain_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int kRow>
 __global__ void __launch_bounds__(128)
 ptrain_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
@@ -714,6 +736,8 @@ ptrain_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // C interface. Every tensor is contiguous: q, out, dout, dq (B, Lq, H * 64);
 // k, v, dk, dv (B, Lk, H * 64); lse, delta (B, H, Lq) fp32. ``ends`` holds
 // n_ends ascending scale ends (none: no mask). Returns cudaGetLastError().
+// var_ptrain_* launch the kRow = 6 instantiation (row 6), var_flash_* the
+// kRow = 5 one (row 5).
 
 static int make_ends(const int* ends, int n_ends, Ends* out) {
   if (n_ends < 0 || n_ends > PT_MAX_ENDS || (n_ends > 0 && ends == nullptr)) return 1;
@@ -722,9 +746,10 @@ static int make_ends(const int* ends, int n_ends, Ends* out) {
   return 0;
 }
 
-extern "C" int var_ptrain_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
-                              int dtype, int device, void* stream) {
+template <int kRow>
+static int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                      int Lq, int Lk, int H, int D, const int* ends, int n_ends, int dtype,
+                      int device, void* stream) {
   Ends e;
   if (D != PT_D || B < 1 || Lq < 1 || Lk < 1 || H < 1 || make_ends(ends, n_ends, &e))
     return (int)cudaErrorInvalidValue;
@@ -733,23 +758,25 @@ extern "C" int var_ptrain_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32) {
     const dim3 grid((unsigned)((Lq + PT_FROWS - 1) / PT_FROWS), (unsigned)H, (unsigned)B);
-    ptrain_fwd_f32_kernel<<<grid, 128, 0, st>>>((const float*)q, (const float*)k,
-                                                (const float*)v, (float*)out, (float*)lse, Lq,
-                                                Lk, H, e);
+    ptrain_fwd_f32_kernel<kRow><<<grid, 128, 0, st>>>((const float*)q, (const float*)k,
+                                                      (const float*)v, (float*)out, (float*)lse,
+                                                      Lq, Lk, H, e);
   } else if (dtype == kBF16) {
     const dim3 grid((unsigned)((Lq + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_fwd_mma_kernel<<<grid, 128, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                (bf16*)out, (float*)lse, Lq, Lk, H, e);
+    ptrain_fwd_mma_kernel<kRow><<<grid, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
+                                                      (const bf16*)v, (bf16*)out, (float*)lse,
+                                                      Lq, Lk, H, e);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int var_ptrain_bwd(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                              int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
-                              int dtype, int device, void* stream) {
+template <int kRow>
+static int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
+                      int Lq, int Lk, int H, int D, const int* ends, int n_ends, int dtype,
+                      int device, void* stream) {
   Ends e;
   if (D != PT_D || B < 1 || Lq < 1 || Lk < 1 || H < 1 || make_ends(ends, n_ends, &e))
     return (int)cudaErrorInvalidValue;
@@ -760,27 +787,56 @@ extern "C" int var_ptrain_bwd(const void* q, const void* k, const void* v, const
   const float* dl = (const float*)delta;
   if (dtype == kF32) {
     const dim3 gq((unsigned)((Lq + PT_FROWS - 1) / PT_FROWS), (unsigned)H, (unsigned)B);
-    ptrain_dq_f32_kernel<<<gq, 128, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                             (const float*)dout, ls, dl, (float*)dq, Lq, Lk, H,
-                                             e);
+    ptrain_dq_f32_kernel<kRow><<<gq, 128, 0, st>>>((const float*)q, (const float*)k,
+                                                   (const float*)v, (const float*)dout, ls, dl,
+                                                   (float*)dq, Lq, Lk, H, e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const dim3 gk((unsigned)((Lk + PT_FROWS - 1) / PT_FROWS), (unsigned)H, (unsigned)B);
-    ptrain_dkv_f32_kernel<<<gk, 128, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                              (const float*)dout, ls, dl, (float*)dk,
-                                              (float*)dv, Lq, Lk, H, e);
+    ptrain_dkv_f32_kernel<kRow><<<gk, 128, 0, st>>>((const float*)q, (const float*)k,
+                                                    (const float*)v, (const float*)dout, ls, dl,
+                                                    (float*)dk, (float*)dv, Lq, Lk, H, e);
   } else if (dtype == kBF16) {
     const dim3 gq((unsigned)((Lq + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_dq_mma_kernel<<<gq, 128, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                             (const bf16*)dout, ls, dl, (bf16*)dq, Lq, Lk, H, e);
+    ptrain_dq_mma_kernel<kRow><<<gq, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
+                                                   (const bf16*)v, (const bf16*)dout, ls, dl,
+                                                   (bf16*)dq, Lq, Lk, H, e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const dim3 gk((unsigned)((Lk + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_dkv_mma_kernel<<<gk, 128, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                              (const bf16*)dout, ls, dl, (bf16*)dk, (bf16*)dv,
-                                              Lq, Lk, H, e);
+    ptrain_dkv_mma_kernel<kRow><<<gk, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
+                                                    (const bf16*)v, (const bf16*)dout, ls, dl,
+                                                    (bf16*)dk, (bf16*)dv, Lq, Lk, H, e);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int var_ptrain_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                              int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
+                              int dtype, int device, void* stream) {
+  return launch_fwd<6>(q, k, v, out, lse, B, Lq, Lk, H, D, ends, n_ends, dtype, device, stream);
+}
+
+extern "C" int var_ptrain_bwd(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                              int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
+                              int dtype, int device, void* stream) {
+  return launch_bwd<6>(q, k, v, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, D, ends, n_ends,
+                       dtype, device, stream);
+}
+
+extern "C" int var_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
+                             int dtype, int device, void* stream) {
+  return launch_fwd<5>(q, k, v, out, lse, B, Lq, Lk, H, D, ends, n_ends, dtype, device, stream);
+}
+
+extern "C" int var_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                             int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
+                             int dtype, int device, void* stream) {
+  return launch_bwd<5>(q, k, v, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, D, ends, n_ends,
+                       dtype, device, stream);
 }

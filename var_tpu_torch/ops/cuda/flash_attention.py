@@ -20,13 +20,25 @@ is folded into q before the dot. It serves the ``prealloc``/``concat``
 caches and ``kv_window`` pruning, over rows ``[0, lk)`` of the same
 in-place buffer.
 
+Row 5: streaming flash attention over BLHD tensors, forward and backward
+(``csrc/flash_attention_train.cu``, the ``kRow = 5`` instantiation, entries
+``var_flash_fwd``/``var_flash_bwd``), replacing
+``flash_attention.py::flash_attention`` (:375) and its VJP:
+:func:`flash_attention` folds the scale into q, then runs
+:func:`flash_attention_fwd` (out and the (B, H, Lq) fp32 log-sum-exp) and,
+in backward, :func:`flash_attention_bwd` (dq, dk, dv from the lse and delta).
+It serves the ``pallas`` and ``hybrid`` training impls and the eval of the
+512px and 1024px presets; unmasked, Lq may differ from Lk. Fewer than 8
+queries or keys take JAX's dense branch (``:398-406``), no kernel.
+
 Row 6: teacher-forced block-causal attention for training
-(``csrc/flash_attention_train.cu``), replacing
+(``csrc/flash_attention_train.cu``, ``kRow = 6``), replacing
 ``flash_attention.py::flash_attention_paired_train``:
 :func:`flash_attention_paired_train` is a ``torch.autograd.Function`` whose
 forward (:func:`paired_train_fwd`) returns ``out`` and saves the (B, H, L)
 fp32 log-sum-exp, and whose backward (:func:`paired_train_bwd`) recomputes
-p from it and returns dq, dk, dv.
+p from it and returns dq, dk, dv. Over merged (B, L, C) tensors it computes
+what row 5 computes over the same bytes viewed as (B, L, H, 64).
 
 The kernels serve head_dim 64 (every published model); other head sizes run
 only on the CPU through the plain versions.
@@ -39,7 +51,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from var_tpu_torch.ops.attention import attention, block_causal_logits
+from var_tpu_torch.ops.attention import attention_fp32_logits, block_causal_logits, dense_probs
 from var_tpu_torch.ops.cuda import build
 
 HEAD_DIM = 64
@@ -59,8 +71,8 @@ def flash_decode_plain(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: 
         inv = torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24)
         inv = inv * q_l2_scale_mul.float().reshape(h, 1)
         q = (qf * inv).to(qkv.dtype).reshape(b, lq, c)
-    out = attention(q.reshape(b, lq, h, d), k[:, :lk].reshape(b, lk, h, d),
-                    v[:, :lk].reshape(b, lk, h, d), scale)
+    out = attention_fp32_logits(q.reshape(b, lq, h, d), k[:, :lk].reshape(b, lk, h, d),
+                                v[:, :lk].reshape(b, lk, h, d), scale)
     return out.reshape(b, lq, c)
 
 
@@ -137,8 +149,9 @@ def flash_decode_paired_plain(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torch.T
     b, lq, c = q_m.shape
     lk = k_m.shape[1] if lk is None else lk
     h, d = num_heads, c // num_heads
-    out = attention(_prescale(q_m, scale).reshape(b, lq, h, d),
-                    k_m[:, :lk].reshape(b, lk, h, d), v_m[:, :lk].reshape(b, lk, h, d), 1.0)
+    out = attention_fp32_logits(_prescale(q_m, scale).reshape(b, lq, h, d),
+                                k_m[:, :lk].reshape(b, lk, h, d),
+                                v_m[:, :lk].reshape(b, lk, h, d), 1.0)
     return out.reshape(b, lq, c)
 
 
@@ -207,6 +220,12 @@ def paired_train_bwd_plain(qs, k, v, do, lse, delta, num_heads: int,
     dk = torch.einsum("bhlm,blhd->bmhd", ds, qh.float())
     dv = torch.einsum("bhlm,blhd->bmhd", p, doh.float())
     return tuple(g.reshape(t.shape).to(dt) for g, t in ((dq, qs), (dk, k), (dv, v)))
+
+
+def _check_ends(ends: Optional[Tuple[int, ...]]) -> None:
+    if ends is not None and (not ends or ends[0] < 1
+                             or any(b <= a for a, b in zip(ends, ends[1:]))):
+        raise ValueError(f"scale_ends must be positive and increasing, got {ends}")
 
 
 def _ends_arg(ends):
@@ -321,9 +340,125 @@ def flash_attention_paired_train(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torc
     ends = tuple(int(e) for e in scale_ends) if scale_ends is not None else None
     if ends is not None and q_m.shape[1] != k_m.shape[1]:
         raise ValueError("scale_ends requires full-sequence q (no KV cache offset)")
-    if ends is not None and (not ends or ends[0] < 1
-                             or any(b <= a for a, b in zip(ends, ends[1:]))):
-        raise ValueError(f"scale_ends must be positive and increasing, got {ends}")
+    _check_ends(ends)
     qs = q_m if scale == 1.0 else (q_m.float() * scale).to(q_m.dtype)
     return _PairedTrainAttention.apply(qs.contiguous(), k_m.contiguous(), v_m.contiguous(),
                                        num_heads, ends)
+
+
+# ---------------------------------------------------------------------------
+# row 5: streaming flash attention over BLHD tensors
+
+
+def _merged(t: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, D) -> (B, L, H * D): a view of a contiguous tensor."""
+    b, l, h, d = t.shape
+    return t.reshape(b, l, h * d)
+
+
+def flash_attention_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              ends: Optional[Tuple[int, ...]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward of row 5 on pre-scaled BLHD q: (out (B, Lq, H, D)
+    in the input dtype, lse (B, H, Lq) float32); the CPU path and the
+    kernel's oracle. ``ends``: the block-causal mask, or None (unmasked)."""
+    out, lse = paired_train_fwd_plain(_merged(qs), _merged(k), _merged(v), qs.shape[2], ends)
+    return out.reshape(qs.shape), lse
+
+
+def flash_attention_bwd_plain(qs, k, v, do, lse, delta, ends: Optional[Tuple[int, ...]]):
+    """Plain PyTorch backward of row 5 from the saved lse and delta (B, H,
+    Lq) float32: (dq, dk, dv) BLHD in the input dtype, p and ds rounded to
+    it before their products, as the kernels (and the TPU kernels) do."""
+    grads = paired_train_bwd_plain(_merged(qs), _merged(k), _merged(v), _merged(do), lse, delta,
+                                   qs.shape[2], ends)
+    return tuple(g.reshape(t.shape) for g, t in zip(grads, (qs, k, v)))
+
+
+def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        ends: Optional[Tuple[int, ...]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward of :func:`flash_attention` on pre-scaled contiguous BLHD q, k,
+    v: (out, lse). CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if qs.device.type == "cpu":
+        return flash_attention_fwd_plain(qs, k, v, ends)
+    b, lq, h, _ = qs.shape
+    _check_train("flash_attention_fwd", h, (_merged(qs),), (_merged(k), _merged(v)))
+    out = torch.empty_like(qs)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=qs.device)
+    arr, n = _ends_arg(ends)
+    rc = build.lib().var_flash_fwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, lq,
+        k.shape[1], h, HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index,
+        build.stream_of(qs))
+    build.check(rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(qs, k, v, out, lse, do, ends: Optional[Tuple[int, ...]]):
+    """Backward of :func:`flash_attention`: (dq, dk, dv), dq with respect to
+    the pre-scaled q. delta = sum_d do * out per (row, head), in float32 from
+    the rounded output, is one elementwise pass here, outside the kernels, as
+    in the JAX package (``flash_attention.py:303``). CPU tensors take the
+    plain version; CUDA tensors launch the dQ and the dK/dV kernel."""
+    h = qs.shape[2]
+    delta = paired_train_delta(_merged(out), _merged(do), h)
+    if qs.device.type == "cpu":
+        return flash_attention_bwd_plain(qs, k, v, do, lse, delta, ends)
+    b, lq = qs.shape[:2]
+    _check_train("flash_attention_bwd", h, (_merged(qs), _merged(do)), (_merged(k), _merged(v)),
+                 lse)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    arr, n = _ends_arg(ends)
+    rc = build.lib().var_flash_bwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], h,
+        HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index, build.stream_of(qs))
+    build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Row 5 with its VJP (``flash_attention.py:354-372``): the forward saves
+    q, k, v, out and the lse; the backward recomputes p from the lse."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, ends):
+        out, lse = flash_attention_fwd(qs, k, v, ends)
+        ctx.save_for_backward(qs, k, v, out, lse)
+        ctx.ends = ends
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(qs, k, v, out, lse, do.contiguous(), ctx.ends)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
+                    scale_ends: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Flash attention over BLHD tensors with VAR's block-causal scale mask
+    (``flash_attention.py:375-419``), differentiable. q: (B, Lq, H, D); k, v:
+    (B, Lk, H, D). ``scale_ends``: the cumulative per-scale token counts
+    (attend where key level <= query level), or None: unmasked, and Lq may
+    differ from Lk. Fewer than 8 queries or keys take the dense branch, as
+    in the JAX package (progressive training at ``prog_si`` 0 and 1); else
+    ``scale`` is folded into q and rounded to q's dtype before the kernel,
+    inside autograd, so dq flows through the scale. Output in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"flash_attention: want q (B, Lq, H, D) and k, v (B, Lk, H, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    ends = tuple(int(e) for e in scale_ends) if scale_ends is not None else None
+    _check_ends(ends)
+    if q.shape[1] < 8 or k.shape[1] < 8:
+        probs = dense_probs(q, k, scale, ends).to(v.dtype)
+        return torch.einsum("bhlm,bmhd->blhd", probs, v)
+    qs = (q.float() * scale).to(q.dtype)
+    return _FlashAttention.apply(qs.contiguous(), k.contiguous(), v.contiguous(), ends)
