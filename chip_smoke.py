@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
 each against its plain PyTorch version at the d16 main-path shapes (rows
-1-6 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
-an unmasked Lq != Lk shape and a ragged L), then drives the port's four
+1-7 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
+an unmasked Lq != Lk shape and a ragged L), then drives the port's five
 paths, each run with the launch counters set to 0 just before it and read
 just after:
 
@@ -34,7 +34,21 @@ just after:
   8, bf16, remat 2) for ``auto`` (row 6), ``pallas`` (row 5) and ``hybrid``
   (row 5's forward, the dense backward), one warm-up and five timed steps
   each, and one 512px (batch 8) and one 1024px (L 9451, batch 2) eval batch
-  through ``pick_eval_attn`` (row 5's forward), with exact launch counts.
+  through ``pick_eval_attn`` (row 5's forward), with exact launch counts;
+* tokenizer training: one fp32 step of the ch160 VQVAE with the
+  ``vae_prod.npz`` weights and images and ``gn_impl="pallas"`` (row 7 in
+  every GroupNorm) must give the fixture's tokens and the CPU's loss and
+  gradients, and the ``"dot"`` step the same loss; then the published
+  tokenizer (ch 160, ch_mult (1, 1, 2, 2, 4), V 4096, Cvae 32, the 256px
+  pyramid; seeded random weights and images, fp32, batch 8, lr 3e-4, tclip
+  2) trains one counted warm-up step and five timed steps for ``"dot"`` and
+  for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
+  with each.
+
+Row 7 (GroupNorm channel statistics) is also held against its plain
+version at every GroupNorm input shape of that tokenizer at batch 8 and at
+ragged shapes, in fp32 and bf16, with its VJP. No path before tokenizer
+training launches it.
 
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
@@ -90,6 +104,19 @@ LONG_BATCH, EVAL_1024_BATCH = 8, 2
 # the fp32 mass sums (taken in another order) straddle p * M, i.e. where the
 # float64 mass above the disputed threshold is within this share of M of p * M
 SELECT_MASS_TOL = 1e-5
+# GroupNorm statistics (row 7) against the plain version on the same inputs:
+# |got - want| <= atol + rtol * sum|x| for the sums and atol + rtol * sum x^2
+# for the sums of squares (both fp32; sums of signed values can cancel, so
+# the scale is the sum of magnitudes, not the sum); the VJP within
+# atol + rtol |want|, rtol one bf16 ulp for bf16
+GN_TOL = (1e-5, 1e-5)
+GN_VJP_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
+VAE_BATCH = 8
+# (C, H = W) of every GroupNorm input of the ch160 tokenizer at 256px: 25,
+# 11, 9, 9, 9 and one each of the last four of its 67 layers
+GN_SHAPES = ((640, 16), (160, 256), (160, 128), (320, 64), (320, 32), (160, 64), (320, 16),
+             (640, 32), (320, 128))
+GN_RAGGED = ((3, 7, 15, 15), (2, 5, 7, 5), (2, 3, 1, 1))  # odd C, H * W no multiple of 16 bytes
 
 
 def emit(obj) -> None:
@@ -725,6 +752,85 @@ def phase_kernel_flash(dev):
     return [fwd_row, bwd_row]
 
 
+def gn_shapes():
+    """(B, C, H, W) of row 7's checks: every GroupNorm input shape of the
+    ch160 tokenizer at 256px batch 8, then the ragged shapes."""
+    return [(VAE_BATCH, c, h, h) for c, h in GN_SHAPES] + list(GN_RAGGED)
+
+
+def check_gn_stats(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """gn_channel_stats against its plain version at every shape of
+    gn_shapes, and the VJP of its autograd Function against autograd
+    through the plain version at the largest and the ragged shapes, in
+    each dtype; tolerances GN_TOL and GN_VJP_TOL. Raises on any violation;
+    returns {dtype: {"s", "ss", "dx": worst error}}."""
+    from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats, gn_channel_stats_plain
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    atol, rtol = GN_TOL
+    shapes = gn_shapes()
+    errs, failures = {}, []
+    for dtype in dtypes:
+        row = {"s": 0.0, "ss": 0.0, "dx": 0.0}
+        for shape in shapes:
+            x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+            with torch.no_grad():
+                got = gn_channel_stats(x)
+                want = gn_channel_stats_plain(x)
+                xf = x.float()
+                scales = (xf.abs().sum((2, 3)), (xf * xf).sum((2, 3)))
+            for name, a_, w_, sc in zip(("s", "ss"), got, want, scales):
+                diff = (a_ - w_).abs()
+                if not bool((diff <= atol + rtol * sc).all()):  # NaN fails too
+                    failures.append(f"{dtype} {shape} {name}: max err {float(diff.max())}")
+                row[name] = max(row[name], float(diff.max()))
+            if shape == shapes[1] or shape in GN_RAGGED:  # the VJP
+                gs, gss = (torch.randn(shape[:2], generator=g, device=dev) for _ in range(2))
+                xg = x.clone().requires_grad_()
+                s_, ss_ = gn_channel_stats(xg)
+                (dx,) = torch.autograd.grad((s_ * gs).sum() + (ss_ * gss).sum(), xg)
+                xp = x.clone().requires_grad_()
+                s_, ss_ = gn_channel_stats_plain(xp)
+                (dx_want,) = torch.autograd.grad((s_ * gs).sum() + (ss_ * gss).sum(), xp)
+                va, vr = GN_VJP_TOL[dtype]
+                diff = (dx.float() - dx_want.float()).abs()
+                if dx.dtype != dtype or not bool((diff <= va + vr * dx_want.float().abs()).all()):
+                    failures.append(f"{dtype} {shape} dx: max err {float(diff.max())}")
+                row["dx"] = max(row["dx"], float(diff.max()))
+            del x
+        errs[str(dtype).replace("torch.", "")] = row
+    if failures:
+        raise AssertionError("gn_channel_stats differs from its plain version: "
+                             + "; ".join(failures) + f" (errors {errs})")
+    return errs
+
+
+def phase_kernel_gn_stats(dev):
+    """Row 7 at every tokenizer shape and the ragged ones; timed at the
+    largest, (8, 160, 256, 256) fp32 (11 of the 67 layers)."""
+    from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats, gn_channel_stats_plain
+
+    errs = check_gn_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    shape = gn_shapes()[1]
+    x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+    ms = device_ms(lambda: gn_channel_stats(x), 50)
+    wall = call_ms(lambda: gn_channel_stats(x), 50)
+    plain_ms = device_ms(lambda: gn_channel_stats_plain(x), 20)
+    # the library yardstick (never used by the port): the nearest single call
+    library_ms = device_ms(lambda: torch.var_mean(x.float(), dim=(2, 3), correction=0), 20)
+    b, c = shape[:2]
+    bound_ms, bound_by = bound(x.numel() * 4 + 8 * b * c, 3.0 * x.numel(), FP32_FLOPS)
+    return {"name": "gn_channel_stats", "max_abs_err": errs["float32"]["s"],
+            "errors": errs, "tol": {"stats": f"{GN_TOL[0]} + {GN_TOL[1]} sum|x| (sum x^2)",
+                                    "vjp": {str(k).replace("torch.", ""): list(v)
+                                            for k, v in GN_VJP_TOL.items()}},
+            "shapes": gn_shapes(), "ms": ms, "call_ms": wall, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch.var_mean(x, dim=(2, 3), correction=0)", "shape": list(shape),
+            "dtype": "float32"}
+
+
 def _prod_models(root):
     """fp32 VAR and full VQVAE at the var_prod.npz geometry (d16 width,
     depth 2, 16 heads, 1000 classes, the 256px pyramid) with the weights
@@ -836,10 +942,12 @@ def _all_kernels():
                                                         flash_decode_paired, paired_train_bwd,
                                                         paired_train_fwd)
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
+    from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
     from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
     return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
-            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd)
+            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd,
+            gn_channel_stats)
 
 
 def _zero_counts(kernels) -> None:
@@ -856,7 +964,7 @@ def _decode_want(depth: int, sn: int) -> dict:
     the attention kernels at 0: the caller sets the one its cache uses."""
     return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
             "flash_decode_paired": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "paired_train_fwd": 0, "paired_train_bwd": 0}
+            "paired_train_fwd": 0, "paired_train_bwd": 0, "gn_channel_stats": 0}
 
 
 def _train_want(depth: int, impl: str = "paired") -> dict:
@@ -1375,6 +1483,180 @@ def phase_long_main_path(dev):
     return out
 
 
+VAE_PARITY_BATCH = 2
+
+
+def phase_vae_train_parity(dev, root):
+    """One fp32 tokenizer-training forward and backward of the ch160 VQVAE
+    (vae_prod.npz's synthesized weights, its first VAE_PARITY_BATCH 256px
+    images), TF32 off in the forward and the backward: with
+    ``gn_impl="pallas"`` on the card the tokens must equal the fixture's
+    idx_*, row 7 must launch once per GroupNorm (67) and nothing else, and
+    the loss and every parameter gradient must equal the same step on the
+    CPU (the plain path) within TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL of each
+    tensor's max; the card's ``"dot"`` loss must equal its "pallas" loss
+    within TRAIN_LOSS_RTOL."""
+    import copy
+
+    from tests.synth_weights import synth_state_dict
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.models import build_vae_train
+    from var_tpu_torch.models.vae import vae_train_forward
+
+    vdata = np.load(os.path.join(root, "tests", "fixtures", "vae_prod.npz"))
+    pns = tuple(vdata["patch_nums"].tolist())
+    sd = {k: torch.from_numpy(a) for k, a in synth_state_dict(
+        json.loads(bytes(vdata["keys_shapes_json"]).decode())).items()
+        if "ema_vocab_hit" not in k}
+    vae_cpu = build_vae_train(device="cpu", cfg=VAEConfig(v_patch_nums=pns), state_dict=sd)
+    vae_card = copy.deepcopy(vae_cpu).to(dev)
+    n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae_cpu.modules())
+    img = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(vdata["img"][:VAE_PARITY_BATCH], (0, 2, 3, 1))))
+    kernels = _all_kernels()
+
+    def step(vae, x, impl):
+        vae.zero_grad(set_to_none=True)
+        with fp32_exact():  # the backward too: it runs outside the forward's context
+            out = vae_train_forward(vae, x, impl)
+            loss = ((out.recon - x) ** 2).mean() + out.vq_loss  # make_vae_train_step's loss
+            loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for n, p in vae.named_parameters()}
+        return float(loss.detach()), out, grads
+
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    loss_card, out, grads_card = step(vae_card, img.to(dev), "pallas")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _counts(kernels)
+    idx = [i.cpu().numpy() for i in out.idx_bl]
+    equal = sum(int((i == vdata[f"idx_{si}"][:VAE_PARITY_BATCH]).sum()) for si, i in enumerate(idx))
+    total = sum(i.size for i in idx)
+    loss_dot, _, _ = step(vae_card, img.to(dev), "dot")
+    t0 = time.perf_counter()
+    loss_cpu, _, grads_cpu = step(vae_cpu, img, "pallas")
+    cpu_s = time.perf_counter() - t0
+    worst, worst_name = 0.0, ""
+    for n, g in grads_cpu.items():
+        rel = float((grads_card[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if not rel <= worst:  # NaN counts as worst
+            worst, worst_name = rel, n
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    dot_rel = abs(loss_dot - loss_card) / abs(loss_card)
+    want = {**dict.fromkeys(launches, 0), "gn_channel_stats": n_gn}
+    emit({"phase": "vae_train_parity", "batch": VAE_PARITY_BATCH, "gn_impl": "pallas",
+          "tokens_equal": equal, "tokens": total, "loss_card": loss_card, "loss_cpu": loss_cpu,
+          "loss_rel_err": loss_rel, "loss_card_dot": loss_dot, "dot_vs_pallas_rel": dot_rel,
+          "grad_rel_err_max": worst, "grad_rel_err_param": worst_name,
+          "params": len(grads_cpu), "group_norms": n_gn, "launches": launches,
+          "card_s": card_s, "cpu_s": cpu_s,
+          "tol": {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel_of_max": TRAIN_GRAD_RTOL}})
+    if equal != total:
+        raise AssertionError(f"card tokens differ from vae_prod.npz: {equal}/{total} equal")
+    if launches != want:
+        raise AssertionError(f"tokenizer parity launches {launches}, want {want}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL and dot_rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"fp32 tokenizer step differs: card vs CPU loss rel {loss_rel}, "
+                             f"grad rel {worst} ({worst_name}); dot vs pallas loss rel {dot_rel}")
+
+
+def phase_vae_train_main_path(dev):
+    """The published tokenizer (VAEConfig(): ch 160, ch_mult (1, 1, 2, 2, 4),
+    V 4096, Cvae 32, the 256px pyramid, nothing cut), fp32 parameters and
+    compute under torch's default TF32 flags, batch VAE_BATCH of seeded
+    random images, lr 3e-4, tclip 2, seeded random weights: for each
+    gn_impl, counters set to 0 before one warm-up step and read after it
+    (row 7 once per GroupNorm with "pallas", never with "dot", no other
+    kernel), then 5 timed steps; then one bf16 decoder render of a batch
+    through each impl (row 7 once per decoder GroupNorm with "pallas").
+    Returns {run: launches}."""
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.engine.vae_trainer import make_vae_train_step, vocab_usage_percent
+    from var_tpu_torch.models import build_vae_train
+    from var_tpu_torch.models.vae import fhat_to_img
+
+    cfg = VAEConfig()
+    g = torch.Generator(device=dev).manual_seed(15)
+    reso = cfg.v_patch_nums[-1] * cfg.downsample
+    img = torch.rand(VAE_BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    kernels = _all_kernels()
+    zero = dict.fromkeys(_counts(kernels), 0)
+    out = {}
+    for impl in ("dot", "pallas"):
+        t0 = time.perf_counter()
+        vae = build_vae_train(device=dev, seed=0, cfg=cfg)
+        init_state, step = make_vae_train_step(cfg, lr=3e-4, tclip=2.0, gn_impl=impl)
+        state = init_state(vae)
+        n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.modules())
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        metrics = []
+
+        def run(i):
+            nonlocal state
+            state, m = step(state, img)
+            metrics.append(m)
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        first_s = _timed(run, 1)[0]
+        launches = _counts(kernels)
+        want = {**zero, "gn_channel_stats": n_gn if impl == "pallas" else 0}
+        if launches != want:
+            raise AssertionError(f"tokenizer training {impl} launches {launches}, want {want}")
+        times = _timed(run, 5)
+        vals = {k: [float(m[k]) for m in metrics] for k in ("loss", "recon", "vq", "grad_norm")}
+        if not all(np.isfinite(sum(vals.values(), []))):
+            raise AssertionError(f"non-finite tokenizer step ({impl}): {vals}")
+        median_s = float(np.median(times))
+        emit({"phase": "vae_train_main_path", "run": f"train_{impl}", "gn_impl": impl,
+              "ch": cfg.ch, "ch_mult": list(cfg.ch_mult), "vocab_size": cfg.vocab_size,
+              "z_channels": cfg.z_channels, "batch": VAE_BATCH, "dtype": "float32", "tf32": tf32,
+              "group_norms": n_gn, "launches": launches, "steps_taken": state.step,
+              "setup_s": setup_s, "first_step_s": first_s, "step_s": times,
+              "step_s_median": median_s, "img_per_s": VAE_BATCH / median_s, **vals,
+              "vocab_usage_pct": vocab_usage_percent(state, cfg, 1, VAE_BATCH).tolist(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[f"train_{impl}"] = launches
+        del state, step, init_state, metrics
+        torch.cuda.empty_cache()
+    vae.eval()
+    n_dec = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.decoder.modules())
+    f_hat = (torch.randn(VAE_BATCH, cfg.v_patch_nums[-1], cfg.v_patch_nums[-1], cfg.z_channels,
+                         generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    renders = {}
+    for impl in ("dot", "pallas"):
+        with torch.inference_mode():
+            _zero_counts(kernels)
+            t0 = time.perf_counter()
+            renders[impl] = fhat_to_img(vae, f_hat, impl)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = _counts(kernels)
+            want = {**zero, "gn_channel_stats": n_dec if impl == "pallas" else 0}
+            if launches != want:
+                raise AssertionError(f"render {impl} launches {launches}, want {want}")
+            times = _timed(lambda i: fhat_to_img(vae, f_hat, impl), 5)
+        r = renders[impl]
+        if tuple(r.shape) != (VAE_BATCH, reso, reso, 3) or not bool(torch.isfinite(r).all()):
+            raise AssertionError(f"render {impl}: bad image {tuple(r.shape)}")
+        median_s = float(np.median(times))
+        emit({"phase": "vae_train_main_path", "run": f"render_{impl}", "gn_impl": impl,
+              "batch": VAE_BATCH, "dtype": "bfloat16", "launches": launches,
+              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
+              "img_per_s": VAE_BATCH / median_s})
+        out[f"render_{impl}"] = launches
+    diff = float((renders["dot"].float() - renders["pallas"].float()).abs().max())
+    emit({"phase": "vae_train_main_path", "run": "render_dot_vs_pallas", "max_abs_diff": diff,
+          "bf16_ulp_at_1": bf16_ulp(1.0)})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1392,6 +1674,7 @@ def main() -> None:
     rows += phase_kernel_flash(dev)
     torch.cuda.empty_cache()
     rows += phase_kernel_ptrain(dev)
+    rows.append(phase_kernel_gn_stats(dev))
     for row in rows:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
@@ -1407,6 +1690,10 @@ def main() -> None:
     long_runs = phase_long_main_path(dev)
     launches.update({k: v for k, v in long_runs["train_pallas"].items()
                      if k.startswith("flash_attention")})
+    torch.cuda.empty_cache()
+    phase_vae_train_parity(dev, root)
+    launches["gn_channel_stats"] = phase_vae_train_main_path(dev)["train_pallas"][
+        "gn_channel_stats"]
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),
@@ -1424,6 +1711,8 @@ def main() -> None:
                              "var_tpu/ops/pallas/flash_attention.py:912"),
         "paired_train_bwd": ("var_tpu_torch/ops/cuda/csrc/flash_attention_train.cu",
                              "var_tpu/ops/pallas/flash_attention.py:1071"),
+        "gn_channel_stats": ("var_tpu_torch/ops/cuda/csrc/gn_stats.cu",
+                             "var_tpu/ops/pallas/gn_stats.py:51"),
     }
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": meta[r["name"]][0],
                        "replaces": meta[r["name"]][1], "launches": launches[r["name"]],

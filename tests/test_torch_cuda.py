@@ -25,6 +25,7 @@ from var_tpu_torch.ops.cuda.flash_attention import (flash_attention, flash_atten
 
 ROOT = Path(__file__).resolve().parent.parent
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
+from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats, gn_channel_stats_plain
 from var_tpu_torch.ops.cuda.select import (bound_mass_gap, topk_topp_bound,
                                            topk_topp_bound_plain)
 
@@ -253,14 +254,15 @@ def test_cuda_flash_attention_takes_head_dim_64_only(cuda):
         flash_attention(q, q, q, 1.0, None)
 
 
-def _planted_copy(tmp_path, source: str, old: str, new: str) -> None:
+def _planted_copy(tmp_path, source: str, old: str, new: str, min_count: int = 2) -> None:
     """A copy of the package in tmp_path whose ``source`` carries a planted
-    fault (every occurrence of ``old`` replaced by ``new``)."""
+    fault (every occurrence of ``old``, at least ``min_count``, replaced by
+    ``new``)."""
     shutil.copytree(ROOT / "var_tpu_torch", tmp_path / "var_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     src = tmp_path / "var_tpu_torch" / "ops" / "cuda" / "csrc" / source
     text = src.read_text()
-    assert text.count(old) >= 2
+    assert text.count(old) >= min_count
     src.write_text(text.replace(old, new))
 
 
@@ -315,3 +317,110 @@ def test_planted_fault_fails_the_flash_attention_check(cuda, tmp_path):
     rc, last = _run_check(tmp_path, "check_flash")
     print(json.dumps({"mutant": "flash_skip_last_k_tile", "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "flash_attention differs from its plain version" in last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 160, 64, 64), (8, 320, 16, 16), (3, 7, 15, 15),
+                                   (2, 5, 7, 5), (1, 4, 256, 256)])
+def test_cuda_gn_channel_stats_matches_plain(cuda, dtype, shape):
+    """Row 7's sums and sums of squares against the plain version on the
+    same inputs, at even shapes and ragged ones (H * W no multiple of 16
+    bytes, odd C), within 1e-5 + 1e-5 sum|x| (sum x^2); the autograd
+    Function's gradient against autograd through the plain version within
+    1e-5 + rtol |want| (rtol 1e-5, or one bf16 ulp)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    before = gn_channel_stats.launches
+    xg = x.clone().requires_grad_()
+    s, ss = gn_channel_stats(xg)
+    torch.cuda.synchronize()
+    assert gn_channel_stats.launches == before + 1
+    xf = x.float()
+    for got, want, scale in zip((s, ss), gn_channel_stats_plain(x),
+                                (xf.abs().sum((2, 3)), (xf * xf).sum((2, 3)))):
+        assert bool(((got.detach() - want).abs() <= 1e-5 + 1e-5 * scale).all())
+    gs, gss = (torch.randn(shape[:2], generator=g, device=cuda) for _ in range(2))
+    ((s * gs).sum() + (ss * gss).sum()).backward()
+    xp = x.clone().requires_grad_()
+    sp, ssp = gn_channel_stats_plain(xp)
+    ((sp * gs).sum() + (ssp * gss).sum()).backward()
+    assert xg.grad.dtype == dtype
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(xg.grad.float(), xp.grad.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_channel_stats_at_the_tokenizer_shapes(cuda):
+    """chip_smoke.check_gn_stats: every GroupNorm input shape of the ch160
+    tokenizer at batch 8 and the ragged shapes, fp32 and bf16, with the VJP."""
+    before = gn_channel_stats.launches
+    _chip_smoke().check_gn_stats(cuda)
+    torch.cuda.synchronize()
+    assert gn_channel_stats.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_gn_channel_stats_refuses_other_layouts(cuda):
+    """No quiet copy: a non-contiguous, channels-last, non-4-D or float16
+    tensor is refused, never made contiguous or sent to the plain version."""
+    x = torch.randn(2, 8, 6, 6, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_channel_stats(x[:, :, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_channel_stats(x.to(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_channel_stats(x[0])
+    with pytest.raises(TypeError):
+        gn_channel_stats(x.half())
+
+
+@pytest.mark.cuda
+def test_cuda_tokenizer_training_step_equals_cpu(cuda):
+    """One fp32 tokenizer-training forward and backward of a tiny VQVAE
+    (ch 64, ch_mult (1, 2): 2 and 4 channels per group; 16x16 images) with
+    gn_impl="pallas" on the card (row 7 once per GroupNorm) against the same
+    step on the CPU, TF32 off: tokens equal, loss within 1e-5 relative,
+    every gradient within 1e-4 of its tensor's max."""
+    import copy
+
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.models import build_vae_train
+    from var_tpu_torch.models.vae import vae_train_forward
+
+    cfg = VAEConfig(vocab_size=64, z_channels=8, ch=64, ch_mult=(1, 2), v_patch_nums=(1, 2, 4, 8))
+    vae = build_vae_train(device="cpu", seed=3, cfg=cfg)
+    img = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.modules())
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        v = copy.deepcopy(vae).to(dev)
+        before = gn_channel_stats.launches
+        with fp32_exact():
+            res = vae_train_forward(v, img.to(dev), "pallas")
+            loss = ((res.recon - img.to(dev)) ** 2).mean() + res.vq_loss
+            loss.backward()
+        torch.cuda.synchronize()
+        out[dev.type] = (float(loss.detach()), [i.cpu() for i in res.idx_bl],
+                         {n: p.grad.cpu() for n, p in v.named_parameters() if p.grad is not None},
+                         gn_channel_stats.launches - before)
+    assert out["cuda"][3] == n_gn and out["cpu"][3] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+    assert out["cuda"][2].keys() == out["cpu"][2].keys()
+    for n, want in out["cpu"][2].items():
+        err = float((out["cuda"][2][n] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-12, n
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_the_gn_stats_check(cuda, tmp_path):
+    """A copy of row 7's kernel without its scalar tail loop (only a ragged
+    or unaligned row needs it), built in tmp_path, must fail
+    chip_smoke.check_gn_stats."""
+    _planted_copy(tmp_path, "gn_stats.cu", "i < hw; i += NT", "i < 0; i += NT", min_count=1)
+    rc, last = _run_check(tmp_path, "check_gn_stats")
+    print(json.dumps({"mutant": "gn_stats_drop_tail", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "gn_channel_stats differs from its plain version" in last

@@ -122,6 +122,32 @@ def test_profile_train_raises_without_gpu():
         main(["--depth", "2"])
 
 
+def test_build_vae_train_default_device_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.models import build_vae_train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_vae_train(cfg=VAEConfig(ch=32, ch_mult=(1, 1), v_patch_nums=(1, 2)))
+
+
+def test_profile_vae_train_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.apps.profile_vae_train import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--batch", "1"])
+
+
+def test_build_vae_train_keeps_fp32_trainable_params():
+    from var_tpu_torch.models import build_vae_train
+
+    vae = build_vae_train(device="cpu", cfg=VAEConfig(ch=32, ch_mult=(1, 1), vocab_size=64,
+                                                      v_patch_nums=(1, 2)))
+    assert vae.training
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in vae.parameters())
+    assert hasattr(vae, "encoder") and hasattr(vae, "decoder")
+
+
 def test_train_app_without_local_debug_names_the_data_slice():
     from var_tpu_torch.apps.train import main
 

@@ -7,12 +7,13 @@ seeded random weights, with the blocks' matmul weights stored in the compute
 dtype the sampler will decode in. ``build_vae_var_train`` builds the same
 pair for training: float32 VAR parameters that require grad, in train mode
 (the forward casts them at each use), and the frozen VQVAE in eval mode.
-``from_pretrained_dict`` is not ported yet.
+``build_vae_train`` builds the VQVAE alone for tokenizer training, float32
+and trainable. ``from_pretrained_dict`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -113,3 +114,20 @@ def build_vae_var_train(
         device, seed, patch_nums, V, Cvae, ch, share_quant_resi, num_classes, depth, shared_aln,
         attn_l2_norm, init_adaln, init_adaln_gamma, init_head, init_std, vae_ckpt, var_ckpt)
     return vae_cfg, var_cfg, vae.eval().requires_grad_(False), var.train().requires_grad_(True)
+
+
+def build_vae_train(device="cuda", seed: int = 0, cfg: VAEConfig = VAEConfig(),
+                    state_dict: Optional[Dict[str, torch.Tensor]] = None) -> vae_mod.VQVAE:
+    """A trainable VQVAE for ``engine/vae_trainer.py``: float32 parameters
+    that require grad, in train mode, on ``device`` (``"cuda"`` unless the
+    caller passes ``"cpu"``), from a reference-named ``state_dict`` when
+    given, else from seeded random weights (``init_vae_params``)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        vae = vae_mod.VQVAE(cfg)
+    vae = vae.to_empty(device=dev)
+    if state_dict is not None:
+        vae.load_state_dict(state_dict)
+    else:
+        vae_mod.init_vae_params(vae, torch.Generator(device=dev).manual_seed(seed))
+    return vae.train().requires_grad_(True)

@@ -7,14 +7,16 @@ Holds the codebook and the partially shared phi convs under the reference
 loop (the phi tick rule, ``apply_phi``, ``embed``,
 ``get_next_autoregressive_input``) and of tokenization and teacher forcing
 (``nearest_code``, ``f_to_idxBl``, ``idxBl_to_var_input``,
-``embed_to_fhat``). Everything runs in float32 with TF32 off: token choices
-are discrete. Public tensors are NHWC, as in the JAX package.
-``quantizer_forward`` (tokenizer training) is not ported yet.
+``embed_to_fhat``), and of tokenizer training (``quantizer_forward`` with
+the straight-through estimator and the commitment loss, ``update_ema_hits``,
+``vocab_usage``, the codebook re-init ``eini``). Everything runs in float32,
+and the codebook lookups with TF32 off: token choices are discrete. Public
+tensors are NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,3 +191,80 @@ def embed_to_fhat(quant: VectorQuantizer2, cfg: VAEConfig, ms_h_bhwc: List[torch
             f_hat = f_hat + apply_phi(quant, cfg, si, ms_h_bhwc[si], sn)
             outs.append(f_hat)
     return outs[-1] if last_one else outs
+
+
+# ---------------------------------------------------------------------------
+# tokenizer training (straight-through estimator + commitment loss)
+
+
+class QuantResult(NamedTuple):
+    f_hat: torch.Tensor  # (B, H, W, C), straight-through gradient to f
+    vq_loss: torch.Tensor  # scalar
+    hits: torch.Tensor  # (S, V) per-scale codebook hit counts of this batch
+    idx_bl: List[torch.Tensor]
+
+
+def quantizer_forward(quant: VectorQuantizer2, cfg: VAEConfig, f_bhwc: torch.Tensor) -> QuantResult:
+    """Training forward (``quant.py:52-104``): f_hat with the straight-through
+    estimator ``sg(f_hat) - sg(f) + f`` and the commitment loss
+    ``mean_si [beta * mse(sg(f_hat), f) + mse(f_hat, sg(f))]``; the residual
+    is updated with the detached code. Returns raw per-scale hit counts:
+    the EMA of usage is the trainer's state (``engine/vae_trainer.py``).
+    Hits are counted with ``index_add_`` of ones, exact in float32, since
+    ``torch.bincount`` reads its input's range back to the host on a GPU."""
+    f = f_bhwc.float()
+    b, h, w, c = f.shape
+    f_ng = f.detach()
+    f_rest = f_ng
+    f_hat = torch.zeros_like(f_ng)
+    pns = cfg.v_patch_nums
+    sn = len(pns)
+    vq_loss = 0.0
+    hits, idx_bl = [], []
+    for si, pn in enumerate(pns):
+        z = resize_area(f_rest, (pn, pn))
+        idx = nearest_code(quant, z.reshape(-1, c), cfg.using_znorm)
+        idx_bl.append(idx.reshape(b, pn * pn))
+        hits.append(torch.zeros(cfg.vocab_size, device=f.device).index_add_(
+            0, idx, torch.ones(idx.shape, device=f.device)))
+        h_b = resize_bicubic(embed(quant, idx).reshape(b, pn, pn, c), (h, w))
+        h_b = apply_phi(quant, cfg, si, h_b, sn)
+        f_hat = f_hat + h_b
+        f_rest = f_rest - h_b.detach()
+        # beta * |sg(f_hat) - f|^2 pulls the encoder toward the codes;
+        # |f_hat - sg(f)|^2 trains the codebook and phi (quant.py:95)
+        vq_loss = vq_loss + cfg.beta * F.mse_loss(f_hat.detach(), f) + F.mse_loss(f_hat, f_ng)
+    f_hat_ste = f_hat.detach() - f_ng + f  # quant.py:98
+    return QuantResult(f_hat_ste, vq_loss / sn, torch.stack(hits), idx_bl)
+
+
+def update_ema_hits(ema_sv: torch.Tensor, hits_sv: torch.Tensor, record_hit: int) -> torch.Tensor:
+    """EMA codebook-usage update (``quant.py:88-93``): the first recorded
+    step replaces outright, then decay 0.9 until 100 recorded steps and 0.99
+    after. ``record_hit`` is a Python int, so the update reads nothing back
+    from the device. ``1 - decay`` is taken in float32, as JAX takes it."""
+    decay = np.float32(0.0 if record_hit == 0 else (0.9 if record_hit < 100 else 0.99))
+    return ema_sv * float(decay) + hits_sv * float(np.float32(1.0) - decay)
+
+
+def vocab_usage(ema_sv: torch.Tensor, cfg: VAEConfig, world_size: int, tokens_per_img: int,
+                batch: int) -> torch.Tensor:
+    """(S,) percent of the codebook in live use per scale (``quant.py:100-102``)."""
+    margin = world_size * (batch * tokens_per_img) / cfg.vocab_size * 0.08
+    return (ema_sv >= margin).float().mean(1) * 100.0
+
+
+@torch.no_grad()
+def eini(quant: VectorQuantizer2, generator: torch.Generator, value: float) -> VectorQuantizer2:
+    """Codebook re-init in place (``quant.py:44-46``): value > 0 draws a
+    normal of std ``value`` truncated to [-2, 2] (torch's ``trunc_normal_``
+    bounds, which the JAX package reproduces as a standard normal truncated
+    at +-2 / value, times value); value < 0 a uniform on +-|value| / V;
+    0 leaves it. Draws from ``generator``: not JAX's stream."""
+    emb = quant.embedding.weight
+    if value > 0:
+        torch.nn.init.trunc_normal_(emb, std=value, a=-2.0, b=2.0, generator=generator)
+    elif value < 0:
+        v = emb.shape[0]
+        emb.uniform_(-abs(value) / v, abs(value) / v, generator=generator)
+    return quant

@@ -9,13 +9,16 @@ weights to the input dtype at use, as the JAX package does, so the networks
 run in the compute dtype. Public tensors are NHWC: ``img_to_idxBl`` takes an
 image (B, H, W, 3) in [-1, 1] and returns the token pyramid; ``fhat_to_img``
 takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3);
-``img_to_fhat`` and ``idxBl_to_img`` are the classifier's round trips.
+``img_to_fhat`` and ``idxBl_to_img`` are the classifier's round trips;
+``vae_train_forward`` is the tokenizer-training forward. ``gn_impl`` picks
+the GroupNorm formulation of every function that runs the networks
+(:func:`group_norm`): "dot" by default, "pallas" through row 7's kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -25,6 +28,7 @@ from var_tpu_torch.config import VAEConfig
 from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
+from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
 
 
 class Conv2d(nn.Conv2d):
@@ -34,11 +38,36 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
-def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+GN_IMPLS = ("dot", "xla", "pallas")
+
+
+def group_norm(norm: nn.GroupNorm, x: torch.Tensor, impl: str = "dot") -> torch.Tensor:
     """``torch.nn.GroupNorm`` semantics (``basic_vae.py:18-19``; statistics
-    accumulate in float32 for every input dtype)."""
-    return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
-                        norm.eps)
+    accumulate in float32 for every input dtype), on NCHW ``x``.
+
+    ``impl`` as in the JAX package's ``group_norm``: "dot" and "xla" (two
+    XLA formulations of the same float32 statistics there, no kernel in
+    either) are ``F.group_norm``; "pallas" takes the per-channel sums from
+    row 7's kernel (``ops/cuda/gn_stats.py``, which needs dense NCHW ``x``
+    on the GPU) and follows JAX's lines: group sums, ``var = E[x^2] -
+    mean^2`` unclamped, the affine folded into one per-(batch, channel)
+    scale and shift in float32, cast to x's dtype, applied as
+    ``x * scale + shift``."""
+    if impl in ("dot", "xla"):
+        return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
+                            norm.eps)
+    if impl != "pallas":
+        raise ValueError(f"group_norm impl {impl!r}: want one of {GN_IMPLS}")
+    b, c, h, w = x.shape
+    g = norm.num_groups
+    n = h * w * (c // g)  # elements per (batch, group)
+    s, ss = gn_channel_stats(x)  # (b, c) float32 each
+    mean = s.reshape(b, g, -1).sum(-1, keepdim=True) / n  # (b, g, 1)
+    var = ss.reshape(b, g, -1).sum(-1, keepdim=True) / n - mean * mean
+    g_scale = norm.weight.float().reshape(1, g, -1) * torch.rsqrt(var + norm.eps)  # (b, g, c/g)
+    g_shift = norm.bias.float().reshape(1, g, -1) - mean * g_scale
+    return (x * g_scale.reshape(b, c, 1, 1).to(x.dtype)
+            + g_shift.reshape(b, c, 1, 1).to(x.dtype))
 
 
 def _norm(c: int) -> nn.GroupNorm:
@@ -189,20 +218,20 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def resnet_block(blk: ResnetBlock, x: torch.Tensor) -> torch.Tensor:
+def resnet_block(blk: ResnetBlock, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """norm-swish-conv x2 with a (1x1-projected) residual (``basic_vae.py:40-60``)."""
-    h = blk.conv1(swish(group_norm(blk.norm1, x)))
-    h = blk.conv2(swish(group_norm(blk.norm2, h)))
+    h = blk.conv1(swish(group_norm(blk.norm1, x, gn_impl)))
+    h = blk.conv2(swish(group_norm(blk.norm2, h, gn_impl)))
     if blk.nin_shortcut is not None:
         x = blk.nin_shortcut(x)
     return x + h
 
 
-def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
+def attn_block(blk: AttnBlock, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """Single-head self-attention over the spatial grid, in float32
     (``basic_vae.py:63-92``); qkv channel blocks are q | k | v."""
     b, c, h, w = x.shape
-    qkv = blk.qkv(group_norm(blk.norm, x)).reshape(b, 3, c, h * w).float()
+    qkv = blk.qkv(group_norm(blk.norm, x, gn_impl)).reshape(b, 3, c, h * w).float()
     q, k, v = qkv.unbind(1)  # (B, C, HW) each
     attn = torch.softmax(torch.bmm(q.transpose(1, 2), k) * (c ** -0.5), dim=-1)
     out = torch.bmm(v, attn.transpose(1, 2)).reshape(b, c, h, w).to(x.dtype)
@@ -219,53 +248,63 @@ def upsample2x(up: Upsample2x, x: torch.Tensor) -> torch.Tensor:
     return up.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
-def encoder_apply(enc: Encoder, x: torch.Tensor) -> torch.Tensor:
+def encoder_apply(enc: Encoder, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """(B, 3, H, W) in [-1, 1] -> (B, Cvae, H/16, W/16), NCHW (``basic_vae.py:144-160``)."""
     h = enc.conv_in(x)
     for level in enc.down:
         for j, blk in enumerate(level.block):
-            h = resnet_block(blk, h)
+            h = resnet_block(blk, h, gn_impl)
             if len(level.attn):
-                h = attn_block(level.attn[j], h)
+                h = attn_block(level.attn[j], h, gn_impl)
         if level.downsample is not None:
             h = downsample2x(level.downsample, h)
-    h = resnet_block(enc.mid.block_1, h)
+    h = resnet_block(enc.mid.block_1, h, gn_impl)
     if enc.mid.attn_1 is not None:
-        h = attn_block(enc.mid.attn_1, h)
-    h = resnet_block(enc.mid.block_2, h)
-    return enc.conv_out(swish(group_norm(enc.norm_out, h)))
+        h = attn_block(enc.mid.attn_1, h, gn_impl)
+    h = resnet_block(enc.mid.block_2, h, gn_impl)
+    return enc.conv_out(swish(group_norm(enc.norm_out, h, gn_impl)))
 
 
-def decoder_apply(dec: Decoder, z: torch.Tensor) -> torch.Tensor:
+def decoder_apply(dec: Decoder, z: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """(B, Cvae, h, w) -> (B, 3, 16h, 16w), NCHW (``basic_vae.py:210-226``)."""
     h = dec.conv_in(z)
-    h = resnet_block(dec.mid.block_1, h)
+    h = resnet_block(dec.mid.block_1, h, gn_impl)
     if dec.mid.attn_1 is not None:
-        h = attn_block(dec.mid.attn_1, h)
-    h = resnet_block(dec.mid.block_2, h)
+        h = attn_block(dec.mid.attn_1, h, gn_impl)
+    h = resnet_block(dec.mid.block_2, h, gn_impl)
     for i in reversed(range(len(dec.up))):
         level = dec.up[i]
         for j, blk in enumerate(level.block):
-            h = resnet_block(blk, h)
+            h = resnet_block(blk, h, gn_impl)
             if len(level.attn):
-                h = attn_block(level.attn[j], h)
+                h = attn_block(level.attn[j], h, gn_impl)
         if level.upsample is not None:
             h = upsample2x(level.upsample, h)
-    return dec.conv_out(swish(group_norm(dec.norm_out, h)))
+    return dec.conv_out(swish(group_norm(dec.norm_out, h, gn_impl)))
 
 
-def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor) -> torch.Tensor:
+def _nchw(t: torch.Tensor, gn_impl: str) -> torch.Tensor:
+    """NHWC -> NCHW at the networks' boundary. The view keeps NHWC memory
+    (channels-last), which a convolution carries to its output. Row 7 reads
+    dense NCHW rows, so ``gn_impl="pallas"`` takes a dense copy here, and
+    every activation after it is dense NCHW (as the JAX package's "pallas"
+    impl first copies to a dense layout)."""
+    t = t.permute(0, 3, 1, 2)
+    return t.contiguous() if gn_impl == "pallas" else t
+
+
+def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """post_quant_conv + decoder, clamped to [-1, 1] (``vqvae.py:62-63``).
     f_hat: (B, h, w, Cvae) -> image (B, 16h, 16w, 3), in f_hat's dtype."""
-    z = vae.post_quant_conv(f_hat.permute(0, 3, 1, 2))
-    img = decoder_apply(vae.decoder, z).clamp(-1.0, 1.0)
+    z = vae.post_quant_conv(_nchw(f_hat, gn_impl))
+    img = decoder_apply(vae.decoder, z, gn_impl).clamp(-1.0, 1.0)
     return img.permute(0, 2, 3, 1)
 
 
-def img_to_f(vae: VQVAE, img: torch.Tensor) -> torch.Tensor:
+def img_to_f(vae: VQVAE, img: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """Encoder + quant_conv (``vqvae.py:66``): image (B, H, W, 3) -> features
     (B, H/16, W/16, Cvae), in the image's dtype."""
-    f = vae.quant_conv(encoder_apply(vae.encoder, img.permute(0, 3, 1, 2)))
+    f = vae.quant_conv(encoder_apply(vae.encoder, _nchw(img, gn_impl), gn_impl))
     return f.permute(0, 2, 3, 1)
 
 
@@ -306,3 +345,21 @@ def idxBl_to_img(vae: VQVAE, ms_idx_bl: List[torch.Tensor], same_shape: bool = T
     if last_one:
         return fhat_to_img(vae, fh)
     return [fhat_to_img(vae, f) for f in fh]
+
+
+class VAETrainOutput(NamedTuple):
+    recon: torch.Tensor  # (B, H, W, 3), not clamped
+    vq_loss: torch.Tensor  # scalar
+    hits: torch.Tensor  # (S, V) per-scale codebook hit counts of this batch
+    idx_bl: list
+
+
+def vae_train_forward(vae: VQVAE, img: torch.Tensor, gn_impl: str = "dot") -> VAETrainOutput:
+    """Tokenizer-training forward (``vqvae.py:56-59``): encode, quantize with
+    the straight-through estimator and the commitment loss, decode. ``img``
+    (B, H, W, 3) in [-1, 1]; the reconstruction is NHWC too."""
+    f = img_to_f(vae, img, gn_impl)
+    res = q.quantizer_forward(vae.quantize, vae.cfg, f)
+    z = vae.post_quant_conv(_nchw(res.f_hat, gn_impl))
+    recon = decoder_apply(vae.decoder, z, gn_impl).permute(0, 2, 3, 1)
+    return VAETrainOutput(recon, res.vq_loss, res.hits, res.idx_bl)
