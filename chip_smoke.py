@@ -45,6 +45,12 @@ just after:
   for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
   with each.
 
+Rows 2 and 4 (decode attention) are held at every stage shape of the
+chunked, prealloc and ``kv_window=2`` decodes over cache buffers whose rows
+from the cache length on are NaN, row 4 also on the raw fused qkv with its
+q norm in the launch, and timed at each stage (``stage_ms``, and
+``ms_per_batch`` = depth 16 x their sum).
+
 Row 7 (GroupNorm channel statistics) is also held against its plain
 version at every GroupNorm input shape of that tokenizer at batch 8 and at
 ragged shapes, in fp32 and bf16, with its VJP. No path before tokenizer
@@ -194,7 +200,8 @@ def phase_build():
         stale.unlink()
     path, log, seconds = build.build()
     build.lib()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines()  # registers, spills, wgmma notes
+             if any(w in ln for w in ("registers", "Compiling", "spill", "C75"))]
     emit({"phase": "build", "seconds": round(seconds, 3), "sources": list(build.SOURCES),
           "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
 
@@ -285,120 +292,197 @@ def l2_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return (tf * torch.rsqrt((tf * tf).sum(-1, keepdim=True) + 1e-24)).reshape(b, l, c).to(t.dtype)
 
 
-def phase_kernel_attention(dev):
-    import torch.nn.functional as F
+# the decode checks read rows [0, lk) of buffers POISON_ROWS rows longer than
+# the longest cache, with every row from lk on set to NaN: a kernel that lets
+# one row past lk reach its P V product (0 * NaN) fails
+POISON_ROWS = 64
 
+
+def _poisoned(t: torch.Tensor, lk: int) -> torch.Tensor:
+    out = t.clone()
+    out[:, lk:] = float("nan")
+    return out
+
+
+def _check_errs(name, dtype, got, want, errs, failures, what):
+    """Hold one output of decode kernel ``name`` against its plain version:
+    fp32 within TOL, bf16 within FLASH_BF16_ULPS bf16 ulps of max|want|; NaN
+    fails too."""
+    err = float((got - want).abs().max())
+    if dtype == torch.float32:
+        atol, rtol = TOL[(name, dtype)]
+        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        tol = f"{atol} + {rtol} |want|"
+    else:
+        ulp = bf16_ulp(float(want.abs().max()))
+        ok, tol = err <= FLASH_BF16_ULPS * ulp, FLASH_BF16_ULPS * ulp
+        errs["bfloat16_ulps"] = max(errs.get("bfloat16_ulps", 0.0), err / ulp)
+    if not ok:
+        failures.append(f"{dtype} {what}: err {err} tol {tol}")
+    key = str(dtype).replace("torch.", "")
+    errs[key] = max(errs.get(key, 0.0), err)
+
+
+def chunked_shapes():
+    """(Lq, Lk) of every stage of the chunked decode: Lk = every stage so far."""
+    lens, cums = _stage_lens()
+    return [(l, c + l) for l, c in zip(lens, cums)]
+
+
+def check_decode(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """flash_decode (row 2) against its plain version at every stage of the
+    chunked decode, 2B = 16, C 1024, 16 heads, q in the fused (2B, Lq, 3C)
+    qkv, over rows [0, Lk) of a longer NaN-poisoned buffer: as the model
+    feeds it (the q norm with scale_mul 4 in the kernel, L2-normalised K,
+    scale 1) and with raw K and the post-dot scale 0.25 / sqrt(d). fp32
+    within TOL; bf16 against the plain version in fp32 on the same bf16
+    inputs, within FLASH_BF16_ULPS bf16 ulps of max|want|. Raises on any
+    violation; returns {dtype: worst error}."""
     from var_tpu_torch.ops.cuda.flash_attention import flash_decode, flash_decode_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
     b2, d = 2 * BATCH, C // HEADS
-    lens, cums = _stage_lens()
-    lmax = sum(lens)
+    lmax = sum(_stage_lens()[0]) + POISON_ROWS
     sm = torch.full((HEADS,), 4.0, device=dev)  # exp(log 4), the init scale_mul
-    errs, ulps, failures = {}, 0.0, []
-    for dtype in (torch.float32, torch.bfloat16):
+    errs, failures = {}, []
+    for dtype in dtypes:
         k_raw = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
         v = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
-        # as on the main path: the L2-normalised cache with scale_mul, the raw
-        # cache with the post-dot scale 0.25 / sqrt(d)
         cases = (("scale_mul", l2_heads(k_raw, HEADS), 1.0, sm),
                  ("scale", k_raw, 0.25 / d ** 0.5, None))
-        worst = 0.0
-        for l, cum in zip(lens, cums):
+        for l, lk in chunked_shapes():
             qkv = torch.randn(b2, l, 3 * C, generator=g, device=dev).to(dtype)
+            vp = _poisoned(v, lk)
             for case, k, scale, smul in cases:
-                got = flash_decode(qkv, k, v, cum + l, HEADS, scale, smul).float()
-                want = flash_decode_plain(qkv.float(), k.float(), v.float(), cum + l, HEADS,
-                                          scale, smul)
-                err = float((got - want).abs().max())
-                if dtype == torch.float32:
-                    atol, rtol = TOL[("flash_decode", dtype)]
-                    ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
-                    tol = f"{atol} + {rtol} |want|"
-                else:
-                    ulp = bf16_ulp(float(want.abs().max()))
-                    ok, tol = err <= FLASH_BF16_ULPS * ulp, FLASH_BF16_ULPS * ulp
-                    ulps = max(ulps, err / ulp)
-                if not ok:  # NaN fails too
-                    failures.append(f"{dtype} {case} l={l} lk={cum + l}: err {err} tol {tol}")
-                worst = max(worst, err)
-        errs[str(dtype)] = worst
+                got = flash_decode(qkv, _poisoned(k, lk), vp, lk, HEADS, scale, smul).float()
+                want = flash_decode_plain(qkv.float(), k.float(), v.float(), lk, HEADS, scale,
+                                          smul)
+                _check_errs("flash_decode", dtype, got, want, errs, failures,
+                            f"{case} l={l} lk={lk}")
     if failures:
         raise AssertionError("flash_decode differs from its plain version: " + "; ".join(failures))
-    l, lk = lens[-1], lmax
-    qkv = torch.randn(b2, l, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+    return errs
+
+
+def _sdpa_decode_ms(qn, k, v):
+    """SDPA's device ms on the normalised q and the cache rows, as (B, H, L,
+    d) views: the library yardstick, never used by the port."""
+    import torch.nn.functional as F
+
+    b2, d = qn.shape[0], C // HEADS
+    qh, kh, vh = (t.reshape(b2, t.shape[1], HEADS, d).transpose(1, 2) for t in (qn, k, v))
+    return device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), 20)
+
+
+def _decode_timings(run, shapes, dev, seed):
+    """Device ms of ``run(qkv, k, v, lk)`` at each (Lq, Lk) of ``shapes``, on
+    seeded bf16 inputs as the model feeds them (raw fused qkv, L2-normalised
+    K); the call ms of back-to-back calls at the first (smallest) shape,
+    where the host's issue time exceeds the device's; the inputs of the
+    last shape."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b2, lmax = 2 * BATCH, max(lk for _, lk in shapes)
     k = l2_heads(torch.randn(b2, lmax, C, generator=g, device=dev), HEADS).to(torch.bfloat16)
     v = torch.randn(b2, lmax, C, generator=g, device=dev).to(torch.bfloat16)
-    ms = device_ms(lambda: flash_decode(qkv, k, v, lk, HEADS, 1.0, sm), 20)
-    wall = call_ms(lambda: flash_decode(qkv, k, v, lk, HEADS, 1.0, sm), 20)
-    plain_ms = device_ms(lambda: flash_decode_plain(qkv, k, v, lk, HEADS, 1.0, sm), 5)
-    # the library yardstick: SDPA on the already-normalised q (never used by the port)
+    stage_ms, first_call_ms = [], None
+    for lq, lk in shapes:
+        qkv = torch.randn(b2, lq, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+        stage_ms.append(device_ms(lambda: run(qkv, k, v, lk), 10))
+        if first_call_ms is None:  # host-bound: the host cost of one launch
+            first_call_ms = call_ms(lambda: run(qkv, k, v, lk), 50)
+    return stage_ms, first_call_ms, (qkv, k, v, lk)
+
+
+def _decode_row(name, errs, run, plain, shapes, dev, seed) -> dict:
+    """A decode kernel's row: its errors, stage ms and ms per batch (depth
+    16 x the stage sum), and at the last stage its device and call ms, the
+    plain version's, SDPA's and the bound."""
+    stage_ms, first_call_ms, (qkv, k, v, lk) = _decode_timings(run, shapes, dev, seed)
+    b2, l, d = qkv.shape[0], qkv.shape[1], C // HEADS
+    ms = device_ms(lambda: run(qkv, k, v, lk), 20)
+    wall = call_ms(lambda: run(qkv, k, v, lk), 20)
+    plain_ms = device_ms(lambda: plain(qkv, k, v, lk), 5)
     qf = qkv[..., :C].float().reshape(b2, l, HEADS, d)
     qn = (qf * torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24) * 4.0).to(torch.bfloat16)
-    qh, kh, vh = (t.transpose(1, 2) for t in (qn, k.reshape(b2, lk, HEADS, d),
-                                               v.reshape(b2, lk, HEADS, d)))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), 20)
+    library_ms = _sdpa_decode_ms(qn.reshape(b2, l, C), k[:, :lk], v[:, :lk])
     nbytes = 2 * (2 * b2 * l * C + 2 * b2 * lk * C)  # q, out, K, V in bf16
     bound_ms, bound_by = bound(nbytes, 4.0 * b2 * HEADS * l * lk * d, BF16_TENSOR_FLOPS)
-    return {"name": "flash_decode", "max_abs_err": errs[str(torch.bfloat16)],
-            "max_err_bf16_ulps": ulps, "max_abs_err_fp32": errs[str(torch.float32)],
-            "tol": {**tolerances("flash_decode"),
+    return {"name": name, "max_abs_err": errs["bfloat16"],
+            "max_err_bf16_ulps": errs["bfloat16_ulps"], "max_abs_err_fp32": errs["float32"],
+            "tol": {**tolerances(name),
                     "bfloat16": f"{FLASH_BF16_ULPS} bf16 ulps of max|want| per stage, "
                                 "want in fp32 from the same bf16 inputs"},
             "ms": ms, "call_ms": wall, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "sdpa_factor": ms / library_ms,
+            "stage_shapes": shapes, "stage_ms": stage_ms, "first_stage_call_ms": first_call_ms,
+            "ms_per_batch": DEPTH * sum(stage_ms),
             "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
 
 
+def phase_kernel_attention(dev):
+    """Row 2 at the chunked stage shapes; timed at each stage, and in full at
+    the last (Lq 256, Lk 680), bf16, q norm in the kernel."""
+    from var_tpu_torch.ops.cuda.flash_attention import flash_decode, flash_decode_plain
+
+    sm = torch.full((HEADS,), 4.0, device=dev)
+    return _decode_row(
+        "flash_decode", check_decode(dev),
+        lambda qkv, k, v, lk: flash_decode(qkv, k, v, lk, HEADS, 1.0, sm),
+        lambda qkv, k, v, lk: flash_decode_plain(qkv, k, v, lk, HEADS, 1.0, sm),
+        chunked_shapes(), dev, 4)
+
+
+def kv_window2_shapes():
+    """(Lq, Lk) of every stage of the kv_window=2 decode: Lk = stage 0 and
+    the last two stages."""
+    lens = _stage_lens()[0]
+    return [(l, lens[0] + sum(lens[max(1, t - 1):t + 1])) for t, l in enumerate(lens)]
+
+
 def decode_paired_shapes():
-    """(Lq, Lk) of every stage of the prealloc decode (Lk = every stage so
-    far) and of the kv_window=2 decode (Lk = stage 0 and the last two)."""
-    lens, cums = _stage_lens()
-    shapes = [(l, c + l) for l, c in zip(lens, cums)]
-    shapes += [(l, lens[0] + sum(lens[max(1, t - 1):t + 1])) for t, l in enumerate(lens)]
-    return sorted(set(shapes))
+    """(Lq, Lk) of every stage of the prealloc decode (the chunked shapes)
+    and of the kv_window=2 decode."""
+    return sorted(set(chunked_shapes() + kv_window2_shapes()))
 
 
 def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """flash_decode_paired against its plain version at every (Lq, Lk) of
     decode_paired_shapes, 2B = 16, C 1024, 16 heads, over rows [0, Lk) of a
-    longer buffer: as the model feeds it (per-head L2-normalised q times
-    scale_mul 4, L2-normalised K, scale 1) and with raw K and the scale
-    0.125 folded into q. fp32 within TOL; bf16 against the plain version in
-    fp32 on the same bf16 inputs, within FLASH_BF16_ULPS bf16 ulps of
-    max|want|. Raises on any violation; returns {dtype: worst error}."""
+    longer NaN-poisoned buffer: as an l2 model feeds it (the raw fused
+    (2B, Lq, 3C) qkv with q_l2_scale_mul 4, the norm in the launch,
+    L2-normalised K, scale 1), as a model without the norm feeds it (the
+    fused qkv, raw K, the scale 0.125 folded into q), with q normalised
+    beforehand and with a (2B, Lq, C) q, raw K and the scale 0.125. fp32
+    within TOL; bf16 against the
+    plain version in fp32 on the same bf16 inputs, within FLASH_BF16_ULPS
+    bf16 ulps of max|want|. Raises on any violation; returns {dtype: worst
+    error}."""
     from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
                                                         flash_decode_paired_plain)
 
     g = torch.Generator(device=dev).manual_seed(6)
-    b2, lmax = 2 * BATCH, sum(_stage_lens()[0])
+    b2, lmax = 2 * BATCH, sum(_stage_lens()[0]) + POISON_ROWS
+    sm = torch.full((HEADS,), 4.0, device=dev)
     errs, failures = {}, []
     for dtype in dtypes:
         k_raw = torch.randn(b2, lmax, C, generator=g, device=dev)
         v = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
-        cases = (("model", l2_heads(k_raw, HEADS).to(dtype), 1.0, True),
-                 ("scale", k_raw.to(dtype), 0.125, False))
-        worst = 0.0
+        k_l2 = l2_heads(k_raw, HEADS).to(dtype)
         for lq, lk in decode_paired_shapes():
-            q_raw = torch.randn(b2, lq, C, generator=g, device=dev)
-            for case, k, scale, l2 in cases:
-                q = (l2_heads(q_raw, HEADS) * 4.0 if l2 else q_raw).to(dtype)
-                got = flash_decode_paired(q, k, v, HEADS, scale, lk=lk).float()
+            qkv = torch.randn(b2, lq, 3 * C, generator=g, device=dev).to(dtype)
+            q_raw = qkv[..., :C].float()
+            cases = (("model", qkv, k_l2, 1.0, sm),
+                     ("model_no_norm", qkv, k_raw.to(dtype), 0.125, None),
+                     ("prenormed", (l2_heads(q_raw, HEADS) * 4.0).to(dtype), k_l2, 1.0, None),
+                     ("scale", q_raw.to(dtype), k_raw.to(dtype), 0.125, None))
+            vp = _poisoned(v, lk)
+            for case, q, k, scale, smul in cases:
+                got = flash_decode_paired(q, _poisoned(k, lk), vp, HEADS, scale, lk=lk,
+                                          q_l2_scale_mul=smul).float()
                 want = flash_decode_paired_plain(q.float(), k.float(), v.float(), HEADS, scale,
-                                                 lk)
-                err = float((got - want).abs().max())
-                if dtype == torch.float32:
-                    atol, rtol = TOL[("flash_decode_paired", dtype)]
-                    ok, tol = bool(((got - want).abs() <= atol + rtol * want.abs()).all()), \
-                        f"{atol} + {rtol} |want|"
-                else:
-                    ulp = bf16_ulp(float(want.abs().max()))
-                    ok, tol = err <= FLASH_BF16_ULPS * ulp, FLASH_BF16_ULPS * ulp
-                    errs["bfloat16_ulps"] = max(errs.get("bfloat16_ulps", 0.0), err / ulp)
-                if not ok:  # NaN fails too
-                    failures.append(f"{dtype} {case} lq={lq} lk={lk}: err {err} tol {tol}")
-                worst = max(worst, err)
-        errs[str(dtype).replace("torch.", "")] = worst
+                                                 lk, smul)
+                _check_errs("flash_decode_paired", dtype, got, want, errs, failures,
+                            f"{case} lq={lq} lk={lk}")
     if failures:
         raise AssertionError("flash_decode_paired differs from its plain version: "
                              + "; ".join(failures))
@@ -406,37 +490,23 @@ def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
 
 
 def phase_kernel_decode_paired(dev):
-    """Row 4 at the stage shapes; timed at the last prealloc stage (Lq 256,
-    Lk 680), bf16."""
-    import torch.nn.functional as F
-
+    """Row 4 at the stage shapes, the q norm in its launch, bf16: timed at
+    each prealloc and each kv_window=2 stage, and in full at the last
+    prealloc stage (Lq 256, Lk 680)."""
     from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
                                                         flash_decode_paired_plain)
 
-    errs = check_decode_paired(dev)
-    g = torch.Generator(device=dev).manual_seed(7)
-    b2, d = 2 * BATCH, C // HEADS
-    lk = sum(_stage_lens()[0])
-    l = PATCH_NUMS[-1] ** 2
-    q = (l2_heads(torch.randn(b2, l, C, generator=g, device=dev), HEADS) * 4.0).to(torch.bfloat16)
-    k = l2_heads(torch.randn(b2, lk, C, generator=g, device=dev), HEADS).to(torch.bfloat16)
-    v = torch.randn(b2, lk, C, generator=g, device=dev).to(torch.bfloat16)
-    ms = device_ms(lambda: flash_decode_paired(q, k, v, HEADS, 1.0), 20)
-    wall = call_ms(lambda: flash_decode_paired(q, k, v, HEADS, 1.0), 20)
-    plain_ms = device_ms(lambda: flash_decode_paired_plain(q, k, v, HEADS, 1.0), 5)
-    # the library yardstick: SDPA on the same q, k, v (never used by the port)
-    qh, kh, vh = (t.reshape(b2, -1, HEADS, d).transpose(1, 2) for t in (q, k, v))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), 20)
-    nbytes = 2 * (2 * b2 * l * C + 2 * b2 * lk * C)  # q, out, K, V in bf16
-    bound_ms, bound_by = bound(nbytes, 4.0 * b2 * HEADS * l * lk * d, BF16_TENSOR_FLOPS)
-    return {"name": "flash_decode_paired", "max_abs_err": errs["bfloat16"],
-            "max_err_bf16_ulps": errs["bfloat16_ulps"], "max_abs_err_fp32": errs["float32"],
-            "tol": {**tolerances("flash_decode_paired"),
-                    "bfloat16": f"{FLASH_BF16_ULPS} bf16 ulps of max|want| per stage, "
-                                "want in fp32 from the same bf16 inputs"},
-            "stage_shapes": decode_paired_shapes(), "ms": ms, "call_ms": wall,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
+    sm = torch.full((HEADS,), 4.0, device=dev)
+    run = lambda qkv, k, v, lk: flash_decode_paired(  # noqa: E731
+        qkv, k, v, HEADS, 1.0, lk=lk, q_l2_scale_mul=sm)
+    row = _decode_row(
+        "flash_decode_paired", check_decode_paired(dev), run,
+        lambda qkv, k, v, lk: flash_decode_paired_plain(qkv, k, v, HEADS, 1.0, lk, sm),
+        chunked_shapes(), dev, 7)
+    kvw_ms, _, _ = _decode_timings(run, kv_window2_shapes(), dev, 8)
+    row.update(stage_shapes_kv_window2=kv_window2_shapes(), stage_ms_kv_window2=kvw_ms,
+               ms_per_batch_kv_window2=DEPTH * sum(kvw_ms))
+    return row
 
 
 def _scale_ends():

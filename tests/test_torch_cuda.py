@@ -105,6 +105,27 @@ def test_cuda_flash_decode_matches_plain(cuda, dtype, l2):
         assert float((got - want).abs().max()) <= 3 * ulp
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_cuda_flash_decode_takes_any_scale(cuda, dtype, scale):
+    """Row 2's post-dot scale may be negative (the bf16 kernel negates q so
+    that its softmax factor is never negative) or zero (uniform weights,
+    nothing from the rows past lk), as in the plain version."""
+    h, b, lmax, l, lk = 2, 2, 200, 70, 131
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(b, l, 3 * 64 * h, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, lmax, 64 * h, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k[:, lk:], v[:, lk:] = float("nan"), float("nan")
+    got = flash_decode(qkv, k, v, lk, h, scale).float()
+    torch.cuda.synchronize()
+    want = flash_decode_plain(qkv.float(), k.float(), v.float(), lk, h, scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert float((got - want).abs().max()) <= 3 * _ulp(float(want.abs().max()))
+
+
 def _ulp(x: float) -> float:
     return float(torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(x)))
 
@@ -166,10 +187,10 @@ def test_cuda_flash_decode_paired_matches_plain(cuda, dtype):
     assert flash_decode_paired.launches > before
 
 
-@pytest.mark.cuda
-def test_cuda_kv_window_decode_equals_cpu(cuda):
-    """A greedy fp32 kv_window=2 decode of a head_dim-64 model on the card
-    (through flash_decode_paired) gives the CPU's tokens."""
+def _paired_decode_card_and_cpu(cuda, l2: bool, **decode_kw):
+    """A greedy fp32 decode of a tiny head_dim-64 model (``attn_l2_norm``
+    = ``l2``) on the CPU and on the card, through the paired cache route:
+    {device type: (tokens, f_hat, flash_decode_paired launches)}."""
     from var_tpu_torch.config import VAEConfig, VARConfig
     from var_tpu_torch.device import fp32_exact
     from var_tpu_torch.engine.sampler import decode_tokens_cfg
@@ -183,7 +204,7 @@ def test_cuda_kv_window_decode_equals_cpu(cuda):
         vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
     var = var_mod.init_var_params(var_mod.VAR(VARConfig(
         num_classes=10, depth=2, embed_dim=128, num_heads=2, patch_nums=pns, vocab_size=64,
-        z_channels=8, attn_l2_norm=True, cond_drop_rate=0.0)), gen, init_head=2.0)
+        z_channels=8, attn_l2_norm=l2, cond_drop_rate=0.0)), gen, init_head=2.0)
     out = {}
     for dev in (torch.device("cpu"), cuda):
         v, q = var.to(dev).eval(), vae.to(dev).eval()
@@ -192,10 +213,30 @@ def test_cuda_kv_window_decode_equals_cpu(cuda):
             tokens, f_hat = decode_tokens_cfg(
                 v, q, torch.tensor([1, 7, 3], device=dev),
                 torch.Generator(device=dev).manual_seed(0), cfg_scale=1.5, top_k=1,
-                dtype=torch.float32, kv_window=2)
+                dtype=torch.float32, **decode_kw)
         torch.cuda.synchronize()
         out[dev.type] = (tokens.cpu(), f_hat.cpu(), flash_decode_paired.launches - before)
     assert out["cuda"][2] == 2 * len(pns) and out["cpu"][2] == 0
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_kv_window_decode_equals_cpu(cuda):
+    """A greedy fp32 kv_window=2 decode of a head_dim-64 model on the card
+    (through flash_decode_paired) gives the CPU's tokens."""
+    out = _paired_decode_card_and_cpu(cuda, True, kv_window=2)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [False, True])
+def test_cuda_prealloc_decode_equals_cpu(cuda, l2):
+    """A greedy fp32 prealloc decode on the card, where flash_decode_paired
+    reads q from the fused qkv, gives the CPU's tokens: for a model with the
+    q/k L2 norm (the norm in the launch) and for one without it (raw q, the
+    scale 0.25 / sqrt(d) folded in)."""
+    out = _paired_decode_card_and_cpu(cuda, l2, cache_impl="prealloc")
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=0)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
 
@@ -280,12 +321,52 @@ def _run_check(tmp_path, check: str):
 
 @pytest.mark.cuda
 def test_planted_fault_fails_the_decode_paired_check(cuda, tmp_path):
-    """A copy of the decode-attention kernels that skips the last K tile,
-    built in tmp_path, must fail chip_smoke.check_decode_paired."""
-    _planted_copy(tmp_path, "flash_attention.cu", "k0 < Lk; k0 +=", "k0 + 64 < Lk; k0 +=")
+    """A copy of the bf16 decode-attention kernel that streams one K/V tile
+    too few (none of the last, partial one), built in tmp_path, must fail
+    chip_smoke.check_decode_paired."""
+    _planted_copy(tmp_path, "flash_attention.cu", "const int ntiles = (Lk + DEC_BK - 1) / DEC_BK;",
+                  "const int ntiles = max(1, (Lk - 1) / DEC_BK);", min_count=1)
     rc, last = _run_check(tmp_path, "check_decode_paired")
     print(json.dumps({"mutant": "decode_skip_last_k_tile", "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "flash_decode_paired differs from its plain version" in last
+
+
+# planted faults of the bf16 decode kernel's K/V ring
+DECODE_MUTANTS = {
+    # S reads the K tile of the next stage of the ring, not the one tile
+    # ``it`` landed in (the barriers stay right: no hang)
+    "wrong_stage": ("wgmma_desc_sw128(sk + kst * DEC_TILE,",
+                    "wgmma_desc_sw128(sk + (kst + 1) % DEC_KSTAGES * DEC_TILE,"),
+    # tensor maps one tile longer than the cache: rows >= lk come from the
+    # buffer (NaN in the checks), not as zeros
+    "no_zero_fill": ("(cuuint64_t)Lk, (cuuint64_t)B}", "(cuuint64_t)Lk + DEC_BK, (cuuint64_t)B}"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(DECODE_MUTANTS))
+def test_planted_fault_fails_both_decode_checks(cuda, tmp_path, mutant):
+    """A copy of the package whose bf16 decode kernel carries a planted
+    fault in its K/V ring, built in tmp_path, must fail chip_smoke's checks
+    of row 2 (check_decode) and of row 4 (check_decode_paired)."""
+    _planted_copy(tmp_path, "flash_attention.cu", *DECODE_MUTANTS[mutant], min_count=1)
+    for check, name in (("check_decode", "flash_decode"),
+                        ("check_decode_paired", "flash_decode_paired")):
+        rc, last = _run_check(tmp_path, check)
+        print(json.dumps({"mutant": mutant, "check": check, "rc": rc, "error": last[:3000]}))
+        assert rc != 0 and f"{name} differs from its plain version" in last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_plain_at_the_stage_shapes(cuda, dtype):
+    """Row 2 against its plain version at every stage of the d16 bs8 chunked
+    decode, NaN past lk (chip_smoke.check_decode: fp32 within 1e-4 + 1e-4
+    |want|, bf16 within 3 bf16 ulps of max|want|)."""
+    before = flash_decode.launches
+    _chip_smoke().check_decode(cuda, dtypes=(dtype,))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 2 * 10
 
 
 # planted faults: textual mutations of the training-attention source

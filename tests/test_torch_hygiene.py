@@ -173,3 +173,11 @@ def test_zeroshot_app_default_device_raises_without_gpu(app, tmp_path):
     main = importlib.import_module(f"var_tpu_torch.apps.{app}").main
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--depth", "2", "--pn", "1_2", "--data_path", str(tmp_path)])
+
+
+def test_decode_host_cost_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.apps.decode_host_cost import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--iters", "1"])

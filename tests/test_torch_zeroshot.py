@@ -190,9 +190,9 @@ def test_kv_window_keeps_the_window_contiguous(monkeypatch, tiny):
     full, seen = [], []
     real = tvar.flash_decode_paired
 
-    def spy(q, k, v, h, scale, lk=None):
+    def spy(q, k, v, h, scale, lk=None, **kw):
         seen.append(k[:, :lk].clone())
-        return real(q, k, v, h, scale, lk=lk)
+        return real(q, k, v, h, scale, lk=lk, **kw)
 
     monkeypatch.setattr(tvar, "flash_decode_paired", spy)
     tiny.port_decode(cfg_scale=1.5, cache_impl="prealloc")
@@ -463,6 +463,42 @@ def test_flash_decode_paired_plain_matches_jax_kernel(dtype, h, lq, lk, scale):
     assert got.dtype == dtype and got.shape == (2, lq, c)
     torch.testing.assert_close(got, flash_decode_paired_plain(tq_, tk, tv, h, scale, lk),
                                rtol=0, atol=0)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    else:
+        ulp = float(torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(np.abs(want).max())))
+        assert float(np.abs(got.float().numpy() - want).max()) <= 2 * ulp
+
+
+@pytest.mark.parametrize("dtype,h,lq,lk,scale", [
+    (torch.float32, 2, 1, 9, 1.0),
+    (torch.float32, 4, 100, 341, 0.17),
+    (torch.bfloat16, 2, 36, 119, 1.0),
+    (torch.bfloat16, 4, 100, 341, 0.125),
+])
+def test_flash_decode_paired_folded_q_norm_matches_jax(dtype, h, lq, lk, scale):
+    """Row 4 with the q norm in its launch: the port reads the first C lanes
+    of a raw (2, Lq, 3C) qkv and normalises them per head with
+    ``q_l2_scale_mul``; JAX normalises as ``_split_norm`` does (fp32 norm
+    times exp(min(scale_mul, ln 100)), cast to the dtype) and passes q to
+    its kernel in interpret mode. fp32 within 2e-5; bf16 within 2 bf16 ulps
+    of max|want|."""
+    c = 64 * h
+    rng = np.random.default_rng(lq * 1000 + lk + 1)
+    qkv = rng.standard_normal((2, lq, 3 * c)).astype(np.float32)
+    k, v = (rng.standard_normal((2, lk + 7, c)).astype(np.float32) for _ in range(2))
+    scale_mul = rng.uniform(0.0, 5.0, h).astype(np.float32)  # some past ln 100
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    sm = jnp.exp(jnp.minimum(jnp.asarray(scale_mul), np.log(100.0)))
+    qf = jnp.asarray(qkv[..., :c], jdt).astype(jnp.float32).reshape(2, lq, h, 64)
+    qn = (qf * jax.lax.rsqrt(jnp.sum(qf * qf, -1, keepdims=True) + 1e-24)
+          * sm[:, None]).astype(jdt).reshape(2, lq, c)
+    want = np.asarray(jax_decode_paired(qn, jnp.asarray(k[:, :lk], jdt),
+                                        jnp.asarray(v[:, :lk], jdt), h, scale)).astype(np.float32)
+    tqkv, tk, tv = (torch.from_numpy(a).to(dtype) for a in (qkv, k, v))
+    tsm = torch.exp(torch.from_numpy(scale_mul).clamp(max=float(np.log(100.0))))
+    got = flash_decode_paired(tqkv, tk, tv, h, scale, lk=lk, q_l2_scale_mul=tsm)
+    assert got.dtype == dtype and got.shape == (2, lq, c)
     if dtype == torch.float32:
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     else:

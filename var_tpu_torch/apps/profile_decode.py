@@ -31,7 +31,7 @@ import time
 def _kind(name: str) -> str:
     n = name.lower()
     if "decode_attention" in n:  # row 4 is the kPaired instantiation of row 2's kernels
-        return "decode_attention_paired" if "<true>" in n else "decode_attention"
+        return "decode_attention_paired" if "<true" in n else "decode_attention"
     for kernel in ("modulated_ln", "topk_topp_bound"):
         if kernel in n:
             return kernel

@@ -221,7 +221,7 @@ def decode_cfg(
     attends to stage 0 plus stages max(1, t - kv_window + 1) .. t.
     ``cache_impl``: ``"chunked"`` attends through ``flash_decode`` (q norm
     in the kernel), ``"prealloc"``/``"concat"`` and every ``kv_window``
-    decode through ``flash_decode_paired`` (q normalised outside), all over
+    decode through ``flash_decode_paired`` (scale folded into q), all over
     one in-place buffer (see ``models/var.py``)."""
     tokens, f_hat = decode_tokens_cfg(
         var, vae, label_b, generator, cfg_scale=cfg_scale, top_k=top_k, top_p=top_p,

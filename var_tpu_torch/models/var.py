@@ -17,8 +17,9 @@ in-place buffers, ``"concat"`` grow-by-concat arrays) differ only in how
 immutable arrays grow, so this one buffer serves all three; the
 representation picks the kernel, as it does in the JAX package: chunked
 attends through ``flash_decode`` (row 2, q L2 norm in the kernel),
-prealloc and concat through ``flash_decode_paired`` (row 4, q normalised
-outside and rounded to the compute dtype, ``var.py:402``).
+prealloc and concat through ``flash_decode_paired`` (row 4, the scale
+folded into q, ``var.py:402``; its q norm runs in the kernel's launch
+too).
 
 Teacher-forced training (``var_forward``): one pass over all L tokens with
 the block-causal mask through the attention impl the caller picks (the
@@ -299,10 +300,10 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
                cache: KVCache, layer: int) -> torch.Tensor:
     """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time,
     then attention of this stage's queries over cache rows [0, cum + l)
-    (``basic_var.py:90-119``): chunked through ``flash_decode`` with the q
-    norm in the kernel, paired through ``flash_decode_paired`` with q
-    normalised here, rounded to the compute dtype, and the scale folded
-    into q (``var.py:402-454``)."""
+    (``basic_var.py:90-119``): chunked through ``flash_decode``, paired
+    through ``flash_decode_paired`` (the scale folded into q,
+    ``var.py:402-454``), both reading q from the fused qkv, with the q norm
+    (where ``cfg.attn_l2_norm``) in the kernel's launch."""
     b, l, c = x.shape
     h, d = cfg.num_heads, cfg.head_dim
     dtype = x.dtype
@@ -320,10 +321,8 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
         k_dst.copy_(k)
     cache.v[layer, :, cum:cum + l] = v
     if cache.paired:
-        q = qkv[..., :c]
-        if cfg.attn_l2_norm:
-            q = _l2_heads(q, h, ctx.scale_mul).to(dtype).reshape(b, l, c)
-        out = flash_decode_paired(q, cache.k[layer], cache.v[layer], h, scale, lk=cum + l)
+        out = flash_decode_paired(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
+                                  q_l2_scale_mul=ctx.scale_mul)
     else:
         out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
                            q_l2_scale_mul=ctx.scale_mul)

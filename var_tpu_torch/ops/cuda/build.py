@@ -103,10 +103,10 @@ def lib() -> ctypes.CDLL:
         P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         cdll.var_modulated_layernorm.argtypes = [P, P, P, P, LL, I, I, LL, LL, F, I, I, P]
         cdll.var_topk_topp_bound.argtypes = [P, P, LL, I, I, F, I, P]
-        cdll.var_decode_attention.argtypes = [P, LL, LL, P, P, LL, LL, P, LL, LL, P,
-                                              I, I, I, I, I, F, I, I, P]
-        cdll.var_decode_attention_paired.argtypes = [P, LL, LL, P, P, LL, LL, P, LL, LL,
-                                                     I, I, I, I, I, I, I, P]
+        decode = [P, LL, LL, P, P, LL, LL, P, LL, LL, P, I, I, I, I, I, F, I, I, P]
+        cdll.var_decode_attention.argtypes = cdll.var_decode_attention_paired.argtypes = decode
+        cdll.var_decode_tensor_maps_us.argtypes = [P, P, LL, LL, I, I, I, I]
+        cdll.var_decode_tensor_maps_us.restype = ctypes.c_double
         ENDS = ctypes.POINTER(ctypes.c_int)
         train_fwd = [P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
         train_bwd = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]

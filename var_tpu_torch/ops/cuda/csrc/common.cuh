@@ -103,6 +103,144 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// ---------------------------------------------------------------------------
+// Hopper building blocks: mbarriers, TMA tile loads, the async-proxy fence
+// and warpgroup MMA (wgmma, sm_90a) on 128-byte-swizzled shared-memory tiles.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Makes initialised mbarriers visible to the other threads and to the TMA
+// unit; a __syncthreads() follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive and announce ``bytes`` of copies that will complete on ``bar``.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of ``bar`` with parity ``parity`` has completed (a
+// fresh barrier is in phase 0, so parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// One TMA copy of a box of the 3-D tensor ``map`` at (c0, c1, c2) into
+// shared memory at ``dst``, completing on ``bar``. Elements outside the
+// tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// Writes by this thread to shared memory (st.shared) become visible to the
+// async proxy, which wgmma reads operands through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier over ``count`` threads (a multiple of 32) on named barrier ``id``
+// (1-15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Byte offset of 16-byte chunk ``c`` of row ``r`` in a tile of 128-byte rows
+// under the 128-byte swizzle (TMA's SWIZZLE_128B, wgmma's layout type 1):
+// within each 1024-byte atom of 8 rows, chunk c of row r sits at c ^ (r % 8).
+// The tile must start on a 1024-byte boundary.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr, uint32_t lbo,
+                                                     uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin accumulator registers after wgmma.wait_group: the compiler may not
+// move their reads above the wait.
+__device__ __forceinline__ void wgmma_fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define VTT_ACC32(d)                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+      "+f"(d[31])
+
+#define VTT_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D (64 x 64, fp32) = A B (+ D if ``accumulate``), A (64 x 16) and B (16 x 64)
+// bf16 in shared memory, both K-major (A row-major, B stored [n][k]). The
+// accumulator layout, with w = warp % 4, g = lane / 4, t = lane % 4: d[4j + e]
+// is row 16w + g + 8 (e / 2), column 8j + 2t + e % 2 -- per warp the
+// mma.sync m16n8k16 accumulator layout of eight n8 tiles.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VTT_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VTT_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += A B with A (64 x 16) bf16 in registers -- per warp the mma.sync
+// m16n8k16 A fragment of its 16 rows, which is the accumulator layout of two
+// neighbouring n8 tiles -- and B (16 x 64) in shared memory stored MN-major
+// ([k][n], n contiguous: the transpose bit).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VTT_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VTT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 }  // namespace vtt
 
 // Error string for a code returned by one of the launch functions.

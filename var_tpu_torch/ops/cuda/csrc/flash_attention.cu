@@ -14,35 +14,65 @@
 // Row 4 (var_decode_attention_paired) replaces
 // var_tpu/ops/pallas/flash_attention.py::flash_decode_paired
 // (_fwd_kernel_paired :426): the same softmax(q k^T) v over a merged
-// (B, Lk, C) cache, but q arrives normalised and pre-scaled by the wrapper
-// (rounded to q's dtype, as flash_attention.py:658 does), so the kernel has
-// no norm and no post-dot scale. It is the kPaired instantiation of the
-// same device code: the rows of the cache it reads are [0, Lk) of one
-// layer's in-place buffer, which holds the prealloc/concat caches and the
-// kv_window-pruned window alike.
+// (B, Lk, C) cache, with ``scale`` folded into q before the dot and rounded
+// to q's dtype (flash_attention.py:658). With ``scale_mul`` it also takes
+// the q norm that JAX's caller runs before it (_split_norm,
+// var_tpu/models/var.py:293): fp32 q * rsqrt(sum q^2 + 1e-24) * scale_mul,
+// rounded to q's dtype, then * scale, rounded again -- so q may be the fused
+// qkv here too. It is the kPaired instantiation of the same device code: the
+// rows of the cache it reads are [0, Lk) of one layer's in-place buffer,
+// which holds the prealloc/concat caches and the kv_window-pruned window.
 //
-// Logits, softmax and the running sums are fp32; with bf16 inputs the
-// normalised q and the softmax weights are rounded to bf16 before their
-// products, as the TPU kernels feed bf16 operands to the MXU; fp32 inputs
-// stay fp32 throughout. The paired-head 128-lane packing, scalar-prefetched
-// layer index and VMEM budget of the TPU kernels are Mosaic workarounds and
-// have no counterpart: the caller passes the layer's cache base pointer and
-// strides, and every stage is served, l < 8 and long caches included.
+// Logits, softmax and the running sums are fp32; with bf16 inputs q and the
+// softmax weights are rounded to bf16 before their products, as the TPU
+// kernels feed bf16 operands to the MXU; fp32 inputs stay fp32 throughout.
+// The paired-head 128-lane packing, scalar-prefetched layer index and VMEM
+// budget of the TPU kernels are Mosaic workarounds and have no counterpart:
+// the caller passes the layer's cache base pointer and strides, and every
+// stage is served, l < 8 and long caches included.
 //
-// Bound on the H100: memory. At the last 256px stage (Lq = 256, Lk = 680,
-// d16, 2B = 16) the kernel must read K and V once (~45 MB bf16) plus q and
-// the output (~17 MB), against ~11 GFLOP that the tensor cores do in
-// ~12 us. Design: K/V stream through shared memory in 64-key tiles with an
-// online softmax, so no (Lq, Lk) matrix exists anywhere.
-//   * bf16 (the sampling path): one block per (sample, head, 64-query
-//     tile), four warps of 16 queries, both products on the tensor cores
-//     with mma.sync (decode_attention_mma_kernel); K/V are read from L2
-//     once per 64-query tile.
-//   * fp32 (the parity path): the same algorithm on the CUDA cores in full
-//     fp32, 16-query tiles (decode_attention_kernel); tensor-core TF32
-//     would round the logits.
-// Loads are synchronous; cp.async/TMA double buffering and wgmma are left
-// for a later tuning pass.
+// Bound on the H100: memory. At the last 256px stage (2B = 16, Lq = 256,
+// Lk = 680, 16 heads of 64, bf16) the kernel must read q (8.4 MB of the
+// fused qkv), K and V (44.6 MB) and write the output (8.4 MB): 61.3 MB,
+// 18.3 us at 3.35 TB/s, against 11.4 GFLOP, 11.5 us on the tensor cores at
+// 989 TF. Both are close, and the softmax's 45 M exponentials take about as
+// long on the SFUs, so the design keeps the copies, the tensor cores and the
+// SFUs busy at once:
+//   * bf16 (the sampling path, decode_attention_wgmma_kernel): one
+//     warpgroup per (sample, head, 64-query tile), four blocks per SM (106
+//     registers, 49 KB of shared memory). Thread 0 streams 64-key K and V
+//     tiles with TMA (cp.async.bulk.tensor) into two rings in dynamic shared
+//     memory -- 2 K stages, 3 V stages -- each stage completing on an
+//     mbarrier; a stage is refilled as soon as every warp is past its last
+//     reader, so each tile is in flight for two iterations and the loop has
+//     one 128-thread barrier, no block-wide one. The tensor maps have Lk
+//     rows, so the rows of the last tile past Lk arrive as zeros and stale
+//     or NaN rows of the in-place buffer never reach P V. Tiles land
+//     128-byte swizzled, as wgmma reads them without bank conflicts. q is
+//     read once with 16-byte loads, normalised in fp32 where asked, rounded
+//     to bf16 and written into the swizzled Q tile: no fp32 staging.
+//     S = Q K^T is 4 wgmma m64n64k16 per tile from shared memory; the online
+//     softmax runs on the fp32 accumulator in registers (the row max on the
+//     raw logits, then one fused multiply-add by the scale times log2 e and
+//     one ex2 per logit); P, rounded to bf16, is the register A
+//     operand of O += P V, whose B is the V tile in its natural (key, d)
+//     layout through the descriptor's transpose bit -- no element transpose
+//     anywhere. Within a warpgroup, tile i's softmax runs while the tensor
+//     cores still compute tile i-1's P V; across the blocks of an SM, one's
+//     softmax overlaps another's products and copies. Measured on the H100
+//     (PERF.md section 6): blocks of two warpgroups sharing each K/V tile halve
+//     L2-to-SM traffic but ran slower (fewer blocks per SM, the slower
+//     warpgroup holding the ring), as did a producer warp with "empty"
+//     barriers and a single 4-stage K+V ring. Host work per launch: two
+//     tensor-map encodings.
+//   * fp32 (the parity path, decode_attention_kernel): the same algorithm on
+//     the CUDA cores in full fp32, 16-query tiles, synchronous loads;
+//     tensor-core TF32 would round the logits.
+
+#include <cuda.h>
+#include <float.h>
+
+#include <chrono>
 
 #include "common.cuh"
 
@@ -77,16 +107,25 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
     qs[r][d] = qi < Lq ? qb[(long long)qi * q_rs + d] : 0.f;
   }
   __syncthreads();
-  if (!kPaired && scale_mul != nullptr) {
-    // per-head q L2 norm x learned scale; each warp owns its own query rows
-    const float sm = scale_mul[h];
+  if (scale_mul != nullptr || kPaired) {
+    // per-head q L2 norm x learned scale, then row 4's pre-dot scale; each
+    // warp owns its own query rows
+    const float sm = scale_mul != nullptr ? scale_mul[h] : 1.f;
 #pragma unroll
     for (int i = 0; i < ATT_QPW; ++i) {
       const int r = warp * ATT_QPW + i;
-      const float a = qs[r][lane], c = qs[r][lane + 32];
-      const float inv = rsqrtf(warp_sum(a * a + c * c) + 1e-24f) * sm;
-      qs[r][lane] = a * inv;
-      qs[r][lane + 32] = c * inv;
+      float a = qs[r][lane], c = qs[r][lane + 32];
+      if (scale_mul != nullptr) {
+        const float inv = rsqrtf(warp_sum(a * a + c * c) + 1e-24f) * sm;
+        a *= inv;
+        c *= inv;
+      }
+      if (kPaired) {
+        a *= scale;
+        c *= scale;
+      }
+      qs[r][lane] = a;
+      qs[r][lane + 32] = c;
     }
     __syncwarp();
   }
@@ -180,175 +219,288 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate). One block per
-// (sample, head, 64-query tile), four warps of 16 queries. Per 64-key tile:
-// S = Q K^T in registers, online softmax on the accumulator fragments (each
-// thread holds rows g and g + 8 of its warp's 16), P rounded to bf16 and fed
-// straight back as the A operand of O += P V (the S accumulator layout is
-// the A fragment layout), V stored transposed in shared memory so each B
-// fragment register is one 32-bit load.
+// bf16: warpgroup MMA over TMA rings (see the note at the top). Dynamic
+// shared memory, from a 1024-byte aligned base: the Q tile, DEC_KSTAGES K
+// tiles, DEC_VSTAGES V tiles, each 64 rows of 128 bytes (8 KB), 128-byte
+// swizzled, then one mbarrier per stage.
 
-#define MMA_BQ 64
-#define MMA_BK 64
-#define MMA_PAD 72  // bf16 row stride in shared memory: 144 bytes, 16-byte aligned
+#define DEC_BQ 64                 // queries per block: one warpgroup
+#define DEC_BK 64                 // keys per tile
+#define DEC_KSTAGES 2             // K tiles in their ring
+#define DEC_VSTAGES 3             // V tiles in theirs
+#define DEC_TILE (64 * ATT_D * 2) // bytes of one swizzled 64 x 64 bf16 tile
+#define DEC_LOG2E 1.4426950408889634f
+// Q, the K ring, the V ring; + room to align the base, + the mbarriers
+#define DEC_SMEM ((1 + DEC_KSTAGES + DEC_VSTAGES) * DEC_TILE + 1024 + \
+                  (DEC_KSTAGES + DEC_VSTAGES) * 8)
+
+__device__ __forceinline__ float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <bool kPaired>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_rs,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, long long kv_bs,
-                            long long kv_rs, __nv_bfloat16* __restrict__ out, long long o_bs,
-                            long long o_rs, const float* __restrict__ scale_mul, int Lq, int Lk,
-                            float scale) {
-  __shared__ float qf[MMA_BQ][ATT_D];
-  __shared__ __align__(16) __nv_bfloat16 qb[MMA_BQ][MMA_PAD];
-  __shared__ __align__(16) __nv_bfloat16 ks[MMA_BK][MMA_PAD];
-  __shared__ __align__(16) __nv_bfloat16 vt[ATT_D][MMA_PAD];  // vt[d][key]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(128)
+decode_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __nv_bfloat16* __restrict__ q, long long q_bs,
+                              long long q_rs, __nv_bfloat16* __restrict__ out, long long o_bs,
+                              long long o_rs, const float* __restrict__ scale_mul, int Lq,
+                              int Lk, float scale) {
+  extern __shared__ uint8_t dec_smem[];
+  const uint32_t base = (smem_u32(dec_smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp index, broadcast from lane 0 so that the compiler sees it (and
+  // every branch on it) as warp-uniform; a branch it cannot prove uniform
+  // around wgmma makes ptxas serialise every wgmma
+  const int wq = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, tq = lane & 3;
   const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int q0 = blockIdx.x * MMA_BQ;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * DEC_BQ;
+  const uint32_t sq = base;
+  const uint32_t sk = sq + DEC_TILE;
+  const uint32_t sv = sk + DEC_KSTAGES * DEC_TILE;
+  const uint32_t kfull = sv + DEC_VSTAGES * DEC_TILE;  // + 8 s: K tile of stage s landed
+  const uint32_t vfull = kfull + DEC_KSTAGES * 8;      // + 8 s: V tile of stage s landed
+  const int ntiles = (Lk + DEC_BK - 1) / DEC_BK;
+  // thread 0 copies tile t of K or V into its stage with TMA; rows >= Lk
+  // lie outside the tensor maps and arrive as zeros
+  auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t bars, int stages, int t) {
+    const int ps = t % stages;
+    mbar_arrive_expect_tx(bars + 8 * ps, DEC_TILE);
+    tma_load_3d(ring + ps * DEC_TILE, map, bars + 8 * ps, h * ATT_D, t * DEC_BK, b);
+  };
 
-  const __nv_bfloat16* qbase = q + b * q_bs + (long long)h * ATT_D;
-  for (int idx = tid; idx < MMA_BQ * ATT_D; idx += blockDim.x) {
-    const int r = idx / ATT_D, d = idx % ATT_D, qi = q0 + r;
-    qf[r][d] = qi < Lq ? __bfloat162float(qbase[(long long)qi * q_rs + d]) : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < DEC_KSTAGES; ++s) mbar_init(kfull + 8 * s, 1);
+    for (int s = 0; s < DEC_VSTAGES; ++s) mbar_init(vfull + 8 * s, 1);
+    mbar_init_fence();
+    for (int t = 0; t < DEC_KSTAGES && t < ntiles; ++t) load(&tm_k, sk, kfull, DEC_KSTAGES, t);
+    load(&tm_v, sv, vfull, DEC_VSTAGES, 0);
   }
-  __syncthreads();
-  // per-head q L2 norm x learned scale (fp32), rounded to bf16; each warp
-  // owns rows [16 warp, 16 warp + 16)
-  const float sm = (!kPaired && scale_mul != nullptr) ? scale_mul[h] : 1.f;
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    float a = qf[r][lane], c = qf[r][lane + 32];
-    if (!kPaired && scale_mul != nullptr) {
-      const float inv = rsqrtf(warp_sum(a * a + c * c) + 1e-24f) * sm;
-      a *= inv;
-      c *= inv;
-    }
-    qb[r][lane] = __float2bfloat16(a);
-    qb[r][lane + 32] = __float2bfloat16(c);
-  }
-  __syncwarp();
 
-  const int r0 = warp * 16 + g;
-  uint32_t qa[4][4];
+  // q: 16-byte loads, 8 lanes per row, four rows per pass; per-head fp32
+  // norm x scale_mul where asked, rounded to bf16; row 4 then folds the
+  // scale in and rounds again; row 2 negates q (exactly) for a negative
+  // scale, so that the factor the softmax applies is never negative;
+  // written into the swizzled Q tile
+  {
+    const float sm = scale_mul != nullptr ? scale_mul[h] : 1.f;
+    const float qsign = !kPaired && scale < 0.f ? -1.f : 1.f;
+    const int sub = lane >> 3, c = lane & 7;
+    const __nv_bfloat16* qb = q + b * q_bs + (long long)h * ATT_D + c * 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qa[kk][0] = ld32(&qb[r0][kk * 16 + 2 * t]);
-    qa[kk][1] = ld32(&qb[r0 + 8][kk * 16 + 2 * t]);
-    qa[kk][2] = ld32(&qb[r0][kk * 16 + 8 + 2 * t]);
-    qa[kk][3] = ld32(&qb[r0 + 8][kk * 16 + 8 + 2 * t]);
-  }
-
-  float o[8][4];
+    for (int i = 0; i < 4; ++i) {
+      const int r = wq * 16 + i * 4 + sub, qi = q0 + r;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (qi < Lq) raw = *reinterpret_cast<const uint4*>(qb + (long long)qi * q_rs);
+      __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(&raw);
+      float x[8];
 #pragma unroll
-  for (int jd = 0; jd < 8; ++jd) o[jd][0] = o[jd][1] = o[jd][2] = o[jd][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const __nv_bfloat16* kbase = k + b * kv_bs + (long long)h * ATT_D;
-  const __nv_bfloat16* vbase = v + b * kv_bs + (long long)h * ATT_D;
-  for (int k0 = 0; k0 < Lk; k0 += MMA_BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < MMA_BK * (ATT_D / 8); idx += blockDim.x) {
-      const int j = idx >> 3, c8 = (idx & 7) * 8, kj = k0 + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);  // 0 past Lk
-      if (kj < Lk) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (long long)kj * kv_rs + c8);
-        vv = *reinterpret_cast<const uint4*>(vbase + (long long)kj * kv_rs + c8);
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pr[e]);
+        x[2 * e] = f.x;
+        x[2 * e + 1] = f.y;
       }
-      *reinterpret_cast<uint4*>(&ks[j][c8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+      if (scale_mul != nullptr) {
+        float ss = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[c8 + e][j] = ve[e];
-    }
-    __syncthreads();
-
-    float s[8][4];
+        for (int e = 0; e < 8; ++e) ss = fmaf(x[e], x[e], ss);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+        const float inv = rsqrtf(ss + 1e-24f) * sm;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t kb[2] = {ld32(&ks[j * 8 + g][kk * 16 + 2 * t]),
-                                ld32(&ks[j * 8 + g][kk * 16 + 8 + 2 * t])};
-        mma_bf16_16816(s[j], qa[kk], kb);
+        for (int e = 0; e < 8; ++e) x[e] = rnd<__nv_bfloat16>(x[e] * inv);
       }
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pw[e] = kPaired ? pack_bf16(x[2 * e] * scale, x[2 * e + 1] * scale)
+                        : pack_bf16(x[2 * e] * qsign, x[2 * e + 1] * qsign);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(sq + sw128(r, c)),
+                   "r"(packed.x), "r"(packed.y), "r"(packed.z), "r"(packed.w)
+                   : "memory");
     }
+    fence_proxy_async();
+  }
+  __syncthreads();  // the Q tile is written and the barriers are initialised
 
+  // row 2 scales the logits after the dot; both rows work in log2 units.
+  // c2 > 0 (FLT_MIN for a zero scale: every weight still comes out 1), so
+  // the largest scaled logit is c2 times the largest logit, and a logit
+  // masked to -inf scales to -inf
+  const float c2 = fmaxf((kPaired ? 1.f : fabsf(scale)) * DEC_LOG2E, FLT_MIN);
+  const uint64_t dq = wgmma_desc_sw128(sq, 16, 1024);
+  float o[32], s[32];
+  uint32_t pa[4][4];  // P of the previous tile in bf16, the A operand of O += P V
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  float alpha0 = 1.f, alpha1 = 1.f;
+  // Online softmax of the logits of tile ``it`` in s, in place: s becomes
+  // p = exp2(c2 s - m) in fp32, one fused multiply-add and one ex2 per
+  // logit; m (in scaled units), l (this thread's share of the row sums) and
+  // alpha, the factor O must take before this tile's P V, move on.
+  auto softmax = [&](int it) {
+    const int kq = it * DEC_BK;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < Lk ? (kPaired ? s[j][e] : s[j][e] * scale) : -INFINITY;
-        s[j][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
+        float t = s[4 * j + e];
+        if (kq + DEC_BK > Lk && kq + 8 * j + 2 * tq + (e & 1) >= Lk) t = -INFINITY;
+        s[4 * j + e] = t;
+        if (e < 2) mx0 = fmaxf(mx0, t); else mx1 = fmaxf(mx1, t);
       }
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 0 on the first tile
+    const float mn0 = fmaxf(m0, mx0 * c2), mn1 = fmaxf(m1, mx1 * c2);
+    alpha0 = fast_exp2(m0 - mn0);  // 0 on the first tile (m = -inf)
+    alpha1 = fast_exp2(m1 - mn1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - (e < 2 ? mn0 : mn1));
-        s[j][e] = p;
+        const float p = fast_exp2(fmaf(s[4 * j + e], c2, -(e < 2 ? mn0 : mn1)));
+        s[4 * j + e] = p;
         if (e < 2) sum0 += p; else sum1 += p;
       }
     }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
     m0 = mn0;
     m1 = mn1;
+  };
+  // O *= alpha, then P (in s) rounded to bf16 into the A fragments: keys
+  // 16 kk .. 16 kk + 15 are the accumulator's n8 tiles 2 kk and 2 kk + 1
+  auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int jd = 0; jd < 8; ++jd) {
-      o[jd][0] *= alpha0;
-      o[jd][1] *= alpha0;
-      o[jd][2] *= alpha1;
-      o[jd][3] *= alpha1;
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
     }
-
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jd = 0; jd < 8; ++jd) {
-        const uint32_t vb[2] = {ld32(&vt[jd * 8 + g][kk * 16 + 2 * t]),
-                                ld32(&vt[jd * 8 + g][kk * 16 + 8 + 2 * t])};
-        mma_bf16_16816(o[jd], pa, vb);
-      }
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-  }
+  };
+  // O += P V over V tile ``t``, once it has landed: B stored [key][d] =
+  // [k][n], MN-major; one 1024-byte atom spans all 64 d and 8-key groups are
+  // 1024 bytes apart (either offset field may carry it); 16 keys per step
+  auto issue_pv = [&](int t) {
+    const int vst = t % DEC_VSTAGES;
+    mbar_wait(vfull + 8 * vst, (t / DEC_VSTAGES) & 1);
+    const uint64_t dv = wgmma_desc_sw128(sv + vst * DEC_TILE, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_tb(o, pa[kk], dv + 128 * kk);
+    wgmma_commit();
+  };
 
-  const int ra = q0 + r0, rb = ra + 8;
+  // Iteration it: S = Q K_it^T is issued once K_it has landed, then
+  // O += P_{it-1} V_{it-1}. When S is done, K_it's stage and V_{it-2}'s are
+  // free: thread 0 refills them with K_{it+2} and V_{it+1}, so each tile is
+  // in flight for two iterations. The softmax of S runs while the tensor
+  // cores still work on P V; O is rescaled once P V is done.
+  for (int it = 0; it < ntiles; ++it) {
+    const int kst = it % DEC_KSTAGES;
+    mbar_wait(kfull + 8 * kst, (it / DEC_KSTAGES) & 1);
+    // K tile: B of S = Q K^T stored [key][d], K-major; 16 of d (32 bytes
+    // along the swizzled row) per step
+    const uint64_t dk = wgmma_desc_sw128(sk + kst * DEC_TILE, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    wgmma_commit();
+    if (it > 0) {
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S is done; P V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    wgmma_fence_regs(s);
+    named_barrier(1, 128);  // every warp is past S_it and P_{it-2} V_{it-2}
+    if (tid == 0) {
+      if (it + DEC_KSTAGES < ntiles) load(&tm_k, sk, kfull, DEC_KSTAGES, it + DEC_KSTAGES);
+      if (it + 1 < ntiles) load(&tm_v, sv, vfull, DEC_VSTAGES, it + 1);
+    }
+    softmax(it);
+    wgmma_wait<0>();
+    wgmma_fence_regs(o);
+    rescale_and_pack();
+  }
+  wgmma_fence();
+  issue_pv(ntiles - 1);
+  wgmma_wait<0>();
+  wgmma_fence_regs(o);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int ra = q0 + wq * 16 + g, rb = ra + 8;
   __nv_bfloat16* ob = out + b * o_bs + (long long)h * ATT_D;
 #pragma unroll
-  for (int jd = 0; jd < 8; ++jd) {
-    const int col = jd * 8 + 2 * t;
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * tq;
     if (ra < Lq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)ra * o_rs + col) =
-          __floats2bfloat162_rn(o[jd][0] * inv0, o[jd][1] * inv0);
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     if (rb < Lq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)rb * o_rs + col) =
-          __floats2bfloat162_rn(o[jd][2] * inv1, o[jd][3] * inv1);
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
+// so the library links against nothing beyond the CUDA runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The (B, rows, C) bf16 cache view as a 3-D tensor map of 64 x 64 boxes
+// (head_dim x keys), 128-byte swizzled, with ``Lk`` rows: the boxes of the
+// last tile reach past it and get zeros there.
+static cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long bs, long long rs,
+                                 int B, int Lk, int H) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * ATT_D, (cuuint64_t)Lk, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};  // bytes
+  const cuuint32_t box[3] = {ATT_D, DEC_BK, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <bool kPaired>
@@ -360,24 +512,50 @@ static int launch_decode_attention(const void* q, long long q_bs, long long q_rs
   if (D != ATT_D || Lk < 1 || Lq < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(ATT_WARPS * 32);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32) {
     const dim3 grid((unsigned)((Lq + ATT_BQ - 1) / ATT_BQ), (unsigned)H, (unsigned)B);
-    decode_attention_kernel<kPaired><<<grid, block, 0, st>>>(
+    decode_attention_kernel<kPaired><<<grid, ATT_WARPS * 32, 0, st>>>(
         (const float*)q, q_bs, q_rs, (const float*)k, (const float*)v, kv_bs, kv_rs,
         (float*)out, o_bs, o_rs, (const float*)scale_mul, Lq, Lk, scale);
   } else if (dtype == kBF16) {
-    // 16-byte K/V row loads: the wrapper checks alignment and strides
-    const dim3 grid((unsigned)((Lq + MMA_BQ - 1) / MMA_BQ), (unsigned)H, (unsigned)B);
-    decode_attention_mma_kernel<kPaired><<<grid, block, 0, st>>>(
-        (const __nv_bfloat16*)q, q_bs, q_rs, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, kv_bs, kv_rs, (__nv_bfloat16*)out, o_bs, o_rs,
+    // 16-byte aligned q rows and K/V rows, strides in multiples of 16 bytes:
+    // the wrapper checks them (TMA needs them too)
+    CUtensorMap tm_k, tm_v;
+    if ((err = kv_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess ||
+        (err = kv_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess)
+      return (int)err;
+    static bool ready[64] = {};  // the shared-memory attribute, set once per device
+    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+    if (!ready[device]) {
+      err = cudaFuncSetAttribute(decode_attention_wgmma_kernel<kPaired>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      ready[device] = true;
+    }
+    const dim3 grid((unsigned)((Lq + DEC_BQ - 1) / DEC_BQ), (unsigned)H, (unsigned)B);
+    decode_attention_wgmma_kernel<kPaired><<<grid, 128, DEC_SMEM, st>>>(
+        tm_k, tm_v, (const __nv_bfloat16*)q, q_bs, q_rs, (__nv_bfloat16*)out, o_bs, o_rs,
         (const float*)scale_mul, Lq, Lk, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Host microseconds of the two tensor-map encodings one bf16 launch makes,
+// averaged over n pairs: the measurement of a launch's host cost reads it
+// (apps/decode_host_cost.py); no kernel path calls it. -1 on failure.
+extern "C" double var_decode_tensor_maps_us(const void* k, const void* v, long long kv_bs,
+                                            long long kv_rs, int B, int Lk, int H, int n) {
+  CUtensorMap tm_k, tm_v;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < n; ++i)
+    if (kv_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H) != cudaSuccess ||
+        kv_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H) != cudaSuccess)
+      return -1.0;
+  const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
+  return n > 0 ? dt.count() / n : 0.0;
 }
 
 // Row 2: q read from the fused qkv, optional in-kernel q L2 norm, post-dot scale.
@@ -390,12 +568,13 @@ extern "C" int var_decode_attention(const void* q, long long q_bs, long long q_r
                                         scale_mul, B, Lq, Lk, H, D, scale, dtype, device, stream);
 }
 
-// Row 4: q normalised and pre-scaled by the caller; no norm, no scale here.
+// Row 4: optional in-kernel q L2 norm, then the scale folded into q.
 extern "C" int var_decode_attention_paired(const void* q, long long q_bs, long long q_rs,
                                            const void* k, const void* v, long long kv_bs,
                                            long long kv_rs, void* out, long long o_bs,
-                                           long long o_rs, int B, int Lq, int Lk, int H, int D,
-                                           int dtype, int device, void* stream) {
+                                           long long o_rs, const void* scale_mul, int B, int Lq,
+                                           int Lk, int H, int D, float scale, int dtype,
+                                           int device, void* stream) {
   return launch_decode_attention<true>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, out, o_bs, o_rs,
-                                       nullptr, B, Lq, Lk, H, D, 1.f, dtype, device, stream);
+                                       scale_mul, B, Lq, Lk, H, D, scale, dtype, device, stream);
 }

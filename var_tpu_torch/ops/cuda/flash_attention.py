@@ -15,10 +15,13 @@ fused (B, Lq, 3C) qkv. With ``q_l2_scale_mul`` ((H,) fp32,
 
 Row 4: decode attention over a contiguous merged (B, Lk, C) cache
 (``csrc/flash_attention.cu``, :func:`flash_decode_paired`), replacing
-``flash_attention.py::flash_decode_paired``: q arrives normalised, the scale
-is folded into q before the dot. It serves the ``prealloc``/``concat``
-caches and ``kv_window`` pruning, over rows ``[0, lk)`` of the same
-in-place buffer.
+``flash_attention.py::flash_decode_paired``: the scale is folded into q
+before the dot. q is read as row 2 reads it, from the first C lanes of
+(B, Lq, >= C) ``q_m`` (the fused qkv, as the model passes it); with
+``q_l2_scale_mul`` the per-head q norm runs in the launch (what JAX's
+``_split_norm`` does before its kernel). It serves the
+``prealloc``/``concat`` caches and ``kv_window`` pruning, over rows
+``[0, lk)`` of the same in-place buffer.
 
 Row 5: streaming flash attention over BLHD tensors, forward and backward
 (``csrc/flash_attention_train.cu``, the ``kRow = 5`` instantiation, entries
@@ -57,6 +60,16 @@ from var_tpu_torch.ops.cuda import build
 HEAD_DIM = 64
 
 
+def _l2_norm_q(q: torch.Tensor, num_heads: int, scale_mul: torch.Tensor) -> torch.Tensor:
+    """Per-head L2 norm of merged (B, L, C) ``q`` in fp32 times ``scale_mul``
+    (H,), rounded to q's dtype: what the kernels do to q in their launch."""
+    b, l, c = q.shape
+    qf = q.float().reshape(b, l, num_heads, c // num_heads)
+    inv = torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24)
+    inv = inv * scale_mul.float().reshape(num_heads, 1)
+    return (qf * inv).to(q.dtype).reshape(b, l, c)
+
+
 def flash_decode_plain(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
                        num_heads: int, scale: float = 1.0,
                        q_l2_scale_mul: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -67,20 +80,19 @@ def flash_decode_plain(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: 
     h, d = num_heads, c // num_heads
     q = qkv[..., :c]
     if q_l2_scale_mul is not None:
-        qf = q.float().reshape(b, lq, h, d)
-        inv = torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24)
-        inv = inv * q_l2_scale_mul.float().reshape(h, 1)
-        q = (qf * inv).to(qkv.dtype).reshape(b, lq, c)
+        q = _l2_norm_q(q, h, q_l2_scale_mul)
     out = attention_fp32_logits(q.reshape(b, lq, h, d), k[:, :lk].reshape(b, lk, h, d),
                                 v[:, :lk].reshape(b, lk, h, d), scale)
     return out.reshape(b, lq, c)
 
 
 def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
-                  num_heads: int) -> None:
+                  num_heads: int, q_l2_scale_mul: Optional[torch.Tensor]) -> Optional[int]:
     """What both decode kernels take: CUDA tensors of one dtype, q (B, Lq,
     >= C) and k, v (B, Lmax, C) with head_dim 64, 1 <= lk <= Lmax, unit
-    stride along C, k and v strided alike, 16-byte aligned bf16 rows."""
+    stride along C, k and v strided alike, 16-byte aligned bf16 rows, and
+    ``q_l2_scale_mul`` None or contiguous float32 (H,) on q's device.
+    Returns the pointer to pass for ``q_l2_scale_mul``."""
     build.require_cuda(name, q, k, v)
     c = k.shape[-1]
     if c != num_heads * HEAD_DIM:
@@ -99,6 +111,13 @@ def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     if q.dtype == torch.bfloat16 and any(  # the bf16 kernel loads 16-byte rows
             t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in (q, k, v)):
         raise ValueError(f"{name}: bf16 tensors need 16-byte aligned rows")
+    if q_l2_scale_mul is None:
+        return None
+    if (q_l2_scale_mul.device != q.device or q_l2_scale_mul.dtype != torch.float32
+            or q_l2_scale_mul.numel() != num_heads or not q_l2_scale_mul.is_contiguous()):
+        raise ValueError(f"{name}: q_l2_scale_mul must be contiguous float32 (H,) "
+                         "on q's device")
+    return q_l2_scale_mul.data_ptr()
 
 
 def flash_decode(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
@@ -109,16 +128,9 @@ def flash_decode(qkv: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lk: int,
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if qkv.device.type == "cpu":
         return flash_decode_plain(qkv, k, v, lk, num_heads, scale, q_l2_scale_mul)
-    _check_decode("flash_decode", qkv, k, v, lk, num_heads)
+    sm_ptr = _check_decode("flash_decode", qkv, k, v, lk, num_heads, q_l2_scale_mul)
     b, lq, _ = qkv.shape
     c = k.shape[-1]
-    sm_ptr = None
-    if q_l2_scale_mul is not None:
-        if (q_l2_scale_mul.device != qkv.device or q_l2_scale_mul.dtype != torch.float32
-                or q_l2_scale_mul.numel() != num_heads or not q_l2_scale_mul.is_contiguous()):
-            raise ValueError("flash_decode: q_l2_scale_mul must be contiguous float32 (H,) "
-                             "on qkv's device")
-        sm_ptr = q_l2_scale_mul.data_ptr()
     out = torch.empty(b, lq, c, dtype=qkv.dtype, device=qkv.device)
     rc = build.lib().var_decode_attention(
         qkv.data_ptr(), qkv.stride(0), qkv.stride(1), k.data_ptr(), v.data_ptr(),
@@ -139,42 +151,51 @@ def _prescale(q_m: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def flash_decode_paired_plain(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torch.Tensor,
-                              num_heads: int, scale: float = 1.0,
-                              lk: Optional[int] = None) -> torch.Tensor:
+                              num_heads: int, scale: float = 1.0, lk: Optional[int] = None,
+                              q_l2_scale_mul: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of row 4; the CPU path and the kernel's oracle.
-    q_m: (B, Lq, C), normalised already; k_m, v_m: (B, >= lk, C). The scale
-    is folded into q and rounded to its dtype before the dot, the softmax
-    runs in fp32 and its weights are rounded to v's dtype before the PV
-    product. Returns (B, Lq, C) in q's dtype."""
-    b, lq, c = q_m.shape
+    q_m: (B, Lq, >= C), of which the first C lanes are read, normalised
+    here first with ``q_l2_scale_mul`` (H,) (:func:`_l2_norm_q`); k_m, v_m:
+    (B, >= lk, C). The scale is folded
+    into q and rounded to its dtype before the dot, the softmax runs in fp32
+    and its weights are rounded to v's dtype before the PV product. Returns
+    (B, Lq, C) in q's dtype."""
+    b, lq = q_m.shape[:2]
+    c = k_m.shape[2]
     lk = k_m.shape[1] if lk is None else lk
     h, d = num_heads, c // num_heads
-    out = attention_fp32_logits(_prescale(q_m, scale).reshape(b, lq, h, d),
+    q = q_m[..., :c]
+    if q_l2_scale_mul is not None:
+        q = _l2_norm_q(q, h, q_l2_scale_mul)
+    out = attention_fp32_logits(_prescale(q, scale).reshape(b, lq, h, d),
                                 k_m[:, :lk].reshape(b, lk, h, d),
                                 v_m[:, :lk].reshape(b, lk, h, d), 1.0)
     return out.reshape(b, lq, c)
 
 
 def flash_decode_paired(q_m: torch.Tensor, k_m: torch.Tensor, v_m: torch.Tensor,
-                        num_heads: int, scale: float = 1.0,
-                        lk: Optional[int] = None) -> torch.Tensor:
-    """Attention of the Lq normalised queries ``q_m`` (B, Lq, C) over rows
-    ``[0, lk)`` of ``k_m``/``v_m`` (B, >= lk, C; by default all of them),
-    with ``scale`` folded into q before the dot. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+                        num_heads: int, scale: float = 1.0, lk: Optional[int] = None,
+                        q_l2_scale_mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of the Lq queries in ``q_m[..., :C]`` ((B, Lq, >= C), e.g.
+    the fused qkv) over rows ``[0, lk)`` of ``k_m``/``v_m`` (B, >= lk, C; by
+    default all of them), with ``scale`` folded into q before the dot. With
+    ``q_l2_scale_mul`` ((H,) fp32) the kernel first normalises q per head in
+    fp32, times the scales, and rounds to q's dtype -- JAX's ``_split_norm``
+    followed by ``flash_decode_paired``, in one launch. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     if q_m.device.type == "cpu":
-        return flash_decode_paired_plain(q_m, k_m, v_m, num_heads, scale, lk)
+        return flash_decode_paired_plain(q_m, k_m, v_m, num_heads, scale, lk, q_l2_scale_mul)
     lk = k_m.shape[1] if lk is None else int(lk)
-    qs = _prescale(q_m, scale)
-    _check_decode("flash_decode_paired", qs, k_m, v_m, lk, num_heads)
-    b, lq, c = qs.shape
-    if c != k_m.shape[2]:
-        raise ValueError(f"flash_decode_paired: q has {c} lanes, k and v {k_m.shape[2]}")
-    out = torch.empty(b, lq, c, dtype=qs.dtype, device=qs.device)
+    sm_ptr = _check_decode("flash_decode_paired", q_m, k_m, v_m, lk, num_heads,
+                           q_l2_scale_mul)
+    b, lq, _ = q_m.shape
+    c = k_m.shape[2]
+    out = torch.empty(b, lq, c, dtype=q_m.dtype, device=q_m.device)
     rc = build.lib().var_decode_attention_paired(
-        qs.data_ptr(), qs.stride(0), qs.stride(1), k_m.data_ptr(), v_m.data_ptr(),
-        k_m.stride(0), k_m.stride(1), out.data_ptr(), out.stride(0), out.stride(1), b, lq, lk,
-        num_heads, HEAD_DIM, build.dtype_code(qs.dtype), qs.device.index, build.stream_of(qs))
+        q_m.data_ptr(), q_m.stride(0), q_m.stride(1), k_m.data_ptr(), v_m.data_ptr(),
+        k_m.stride(0), k_m.stride(1), out.data_ptr(), out.stride(0), out.stride(1), sm_ptr, b,
+        lq, lk, num_heads, HEAD_DIM, float(scale), build.dtype_code(q_m.dtype),
+        q_m.device.index, build.stream_of(q_m))
     build.check(rc, "flash_decode_paired")
     flash_decode_paired.launches += 1
     return out
