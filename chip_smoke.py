@@ -129,10 +129,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Device time per call of ``fn``: the summed self time of every device
-    event it launches (kernels, copies), from ``torch.profiler``, so the host
-    time spent issuing back-to-back calls is not counted."""
+def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
+    """Device time per call of ``fn`` by device event name (kernels,
+    copies): their self time from ``torch.profiler``, so the host time spent
+    issuing back-to-back calls is not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,11 +143,17 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    if us <= 0:
+    by = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
+          if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+    if not by:
         raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    return by
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call of ``fn``: the summed self time of every device
+    event it launches."""
+    return sum(device_ms_by_name(fn, iters, warmup).values())
 
 
 def call_ms(fn, iters: int) -> float:
@@ -514,6 +520,19 @@ def _scale_ends():
     return tuple(c + n for c, n in zip(cums, lens))
 
 
+BWD_NOTE = ("ms is one backward call: the dQ kernel, which also computes delta = sum_d "
+            "do * out, then the dK/dV kernel; no other launch")
+
+
+def bwd_split(bwd, iters: int) -> dict:
+    """Device ms of one backward call of rows 5 or 6 by kernel, by name
+    from the profiler: the dQ kernel's (delta included) and the dK/dV
+    kernel's."""
+    by = device_ms_by_name(bwd, iters)
+    return {"dq_ms": sum(ms for k, ms in by.items() if "ptrain_dq" in k),
+            "dkv_ms": sum(ms for k, ms in by.items() if "ptrain_dkv" in k), "kernels": by}
+
+
 def ptrain_inputs(dev, dtype, batch: int, seed: int):
     """q, k, v, do at the d16 training shapes, as the model feeds them:
     per-head L2-normalised q times scale_mul 4 (exp(log 4), the init), L2-normalised k."""
@@ -606,7 +625,9 @@ def phase_kernel_ptrain(dev):
     esize, rows = 2, b * l * C
     flops = b * HEADS * d * useful
     bound_f, by_f = bound(4 * rows * esize + b * HEADS * l * 4, 4.0 * flops, BF16_TENSOR_FLOPS)
-    bound_b, by_b = bound(8 * rows * esize + 2 * b * HEADS * l * 4, 10.0 * flops,
+    # backward: reads q, k, v, out, do and the lse, writes dq, dk, dv (delta
+    # is computed inside the launch)
+    bound_b, by_b = bound(8 * rows * esize + b * HEADS * l * 4, 10.0 * flops,
                           BF16_TENSOR_FLOPS)
     common = {"tol": {"float32": f"{PTRAIN_F32_TOL[0]} + {PTRAIN_F32_TOL[1]} |want|",
                       "bfloat16": f"bf16 ulps of max|want| {PTRAIN_BF16_ULPS}, want in fp32 "
@@ -619,7 +640,8 @@ def phase_kernel_ptrain(dev):
     bwd_row = {"name": "paired_train_bwd",
                "max_abs_err": max(errs["bfloat16"][n] for n in ("dq", "dk", "dv")),
                "ms": ms_b, "call_ms": call_b, "plain_ms": plain_b, "bound_ms": bound_b,
-               "bound_by": by_b, "library_ms": lib_fb - lib_f, **common}
+               "bound_by": by_b, "library_ms": lib_fb - lib_f, "note": BWD_NOTE,
+               "split": bwd_split(bwd, 20), **common}
     return [fwd_row, bwd_row]
 
 
@@ -748,13 +770,12 @@ def _sdpa_ms(qs, k, v, do, ends):
 def _flash_bounds(b: int, lq: int, lk: int, ends):
     """Row 5's bounds in ms: forward reads q, k, v and writes out and the
     lse; backward reads q, k, v, out, do and the lse and writes dq, dk, dv
-    (delta, like row 6's, counted as one more (B, H, L) fp32 read);
-    operations 4 B H D pairs forward, 2.5 times that backward (five
-    products of the pairs instead of two)."""
+    (delta is computed inside the launch); operations 4 B H D pairs forward,
+    2.5 times that backward (five products of the pairs instead of two)."""
     flops = b * HEADS * (C // HEADS) * useful_pairs(lq, lk, ends)
     rows_q, rows_k, stats = b * lq * C * 2, b * lk * C * 2, b * HEADS * lq * 4
     fwd = bound(2 * rows_q + 2 * rows_k + stats, 4.0 * flops, BF16_TENSOR_FLOPS)
-    bwd = bound(4 * rows_q + 4 * rows_k + 2 * stats, 10.0 * flops, BF16_TENSOR_FLOPS)
+    bwd = bound(4 * rows_q + 4 * rows_k + stats, 10.0 * flops, BF16_TENSOR_FLOPS)
     return fwd, bwd
 
 
@@ -791,14 +812,17 @@ def phase_kernel_flash(dev):
              "plain_bwd_ms": device_ms(plain_b, 2, warmup=1),
              "fwd_bound_ms": bf, "fwd_bound_by": by_f, "bwd_bound_ms": bb, "bwd_bound_by": by_b,
              "library_fwd_ms": lib_f, "library_bwd_ms": lib_b,
-             "useful_pairs_per_head": useful_pairs(lq, lk, ends), "shape": [b, lq, HEADS, 64]}
+             "useful_pairs_per_head": useful_pairs(lq, lk, ends), "shape": [b, lq, HEADS, 64],
+             "bwd_split": bwd_split(bwd, 5)}
         if name == "512px":  # row 6 over the same bytes as merged (B, L, C)
             m = [x.reshape(b, lq, C) for x in (qs, k, v, out, do)]
             o6, lse6 = paired_train_fwd(m[0], m[1], m[2], HEADS, ends)
+            bwd6 = lambda: paired_train_bwd(m[0], m[1], m[2], o6, lse6, m[4], HEADS,  # noqa: E731
+                                            ends)
             t["row6_fwd_ms"] = device_ms(lambda: paired_train_fwd(m[0], m[1], m[2], HEADS, ends),
                                          10)
-            t["row6_bwd_ms"] = device_ms(
-                lambda: paired_train_bwd(m[0], m[1], m[2], o6, lse6, m[4], HEADS, ends), 5)
+            t["row6_bwd_ms"] = device_ms(bwd6, 5)
+            t["row6_bwd_split"] = bwd_split(bwd6, 5)
         times[name] = t
         del qs, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
@@ -808,7 +832,8 @@ def phase_kernel_flash(dev):
                                   "the plain version on the same bf16 inputs"},
               "errors": errs, "shape": t5["shape"], "dtype": "bfloat16",
               "useful_pairs_per_head": t5["useful_pairs_per_head"], "at_1024px": times["1024px"],
-              "row6_at_512px": {"fwd_ms": t5["row6_fwd_ms"], "bwd_ms": t5["row6_bwd_ms"]}}
+              "row6_at_512px": {"fwd_ms": t5["row6_fwd_ms"], "bwd_ms": t5["row6_bwd_ms"],
+                                "bwd_split": t5["row6_bwd_split"]}}
     bf16 = errs["512px"]["bfloat16"]
     fwd_row = {"name": "flash_attention_fwd", "max_abs_err": bf16["out"], "ms": t5["fwd_ms"],
                "call_ms": t5["fwd_call_ms"], "plain_ms": t5["plain_fwd_ms"],
@@ -818,7 +843,8 @@ def phase_kernel_flash(dev):
                "max_abs_err": max(bf16[n] for n in ("dq", "dk", "dv")), "ms": t5["bwd_ms"],
                "call_ms": t5["bwd_call_ms"], "plain_ms": t5["plain_bwd_ms"],
                "bound_ms": t5["bwd_bound_ms"], "bound_by": t5["bwd_bound_by"],
-               "library_ms": t5["library_bwd_ms"], **common}
+               "library_ms": t5["library_bwd_ms"], "note": BWD_NOTE, "split": t5["bwd_split"],
+               **common}
     return [fwd_row, bwd_row]
 
 

@@ -339,7 +339,7 @@ DECODE_MUTANTS = {
                     "wgmma_desc_sw128(sk + (kst + 1) % DEC_KSTAGES * DEC_TILE,"),
     # tensor maps one tile longer than the cache: rows >= lk come from the
     # buffer (NaN in the checks), not as zeros
-    "no_zero_fill": ("(cuuint64_t)Lk, (cuuint64_t)B}", "(cuuint64_t)Lk + DEC_BK, (cuuint64_t)B}"),
+    "no_zero_fill": ("kv_bs, kv_rs, B, Lk, H)", "kv_bs, kv_rs, B, Lk + DEC_BK, H)"),
 }
 
 
@@ -370,10 +370,24 @@ def test_cuda_flash_decode_matches_plain_at_the_stage_shapes(cuda, dtype):
 
 
 # planted faults: textual mutations of the training-attention source
+# (old text, new text, least count of the old text)
 MUTANTS = {
-    "skip_last_k_tile": ("k0 < kend;", "k0 + PT_T < kend;"),  # forward and dQ loops
-    "drop_delta": ("- dlt)", ")"),  # ds = p * dp in every backward kernel
+    # the forward loops (bf16 and fp32) and the fp32 dQ loop skip the last
+    # key tile
+    "skip_last_k_tile": ("k0 < kend;", "k0 + PT_T < kend;", 2),
+    # ds = p * dp in both fp32 backward kernels (delta unused)
+    "drop_delta": ("- dlt)", ")", 2),
+    # the bf16 dQ loop streams one key tile too few (none of the last)
+    "bf16_skip_last_k_tile": ("const int ntiles = (kend + PT_T - 1) / PT_T;",
+                              "const int ntiles = max(1, (kend - 1) / PT_T);", 1),
+    # the delta the bf16 dQ kernel computes in its launch is 0: ds = p * dp
+    # in both bf16 kernels
+    "bf16_drop_delta": ("dsum += __shfl_xor_sync(0xffffffffu, dsum, 4);", "dsum = 0.f;", 1),
 }
+# a planted fault of the bf16 backward's rings: S and dP (dQ) and S^T and
+# dP^T (dK/dV) read the tiles of the next stage, not of the one their tile
+# landed in (the barriers stay right: no hang)
+RING_MUTANT = ("= ring + 2 * st * BW_TILE;", "= ring + 2 * ((st + 1) % 3) * BW_TILE;")
 
 
 @pytest.mark.cuda
@@ -389,15 +403,71 @@ def test_planted_fault_fails_the_training_attention_check(cuda, tmp_path, mutant
 
 
 @pytest.mark.cuda
+def test_planted_fault_fails_both_training_attention_checks(cuda, tmp_path):
+    """A copy of the package whose bf16 backward reads the wrong stage of
+    its rings (RING_MUTANT, in the dQ and the dK/dV kernel), built in
+    tmp_path, must fail chip_smoke's checks of row 6 (check_ptrain) and of
+    row 5 (check_flash)."""
+    _planted_copy(tmp_path, "flash_attention_train.cu", *RING_MUTANT)
+    for check, name in (("check_ptrain", "flash_attention_paired_train"),
+                        ("check_flash", "flash_attention")):
+        rc, last = _run_check(tmp_path, check)
+        print(json.dumps({"mutant": "wrong_stage", "check": check, "rc": rc,
+                          "error": last[:3000]}))
+        assert rc != 0 and f"{name} differs from its plain version" in last
+
+
+@pytest.mark.cuda
 def test_planted_fault_fails_the_flash_attention_check(cuda, tmp_path):
     """A copy of the package whose row-5 instantiation alone skips the last
-    K tile of its forward and dQ loops, built in tmp_path, must fail
-    chip_smoke.check_flash."""
+    K tile of its forward loops and its fp32 dQ loop, built in tmp_path,
+    must fail chip_smoke.check_flash."""
     _planted_copy(tmp_path, "flash_attention_train.cu", "k0 < kend;",
                   "k0 + (kRow == 5 ? PT_T : 0) < kend;")
     rc, last = _run_check(tmp_path, "check_flash")
     print(json.dumps({"mutant": "flash_skip_last_k_tile", "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "flash_attention differs from its plain version" in last
+
+
+@pytest.mark.cuda
+def test_planted_fault_in_the_bf16_backward_fails_the_flash_attention_check(cuda, tmp_path):
+    """A copy of the package whose row-5 instantiation alone skips the last
+    K tile of its bf16 dQ loop, built in tmp_path, must fail
+    chip_smoke.check_flash."""
+    _planted_copy(tmp_path, "flash_attention_train.cu",
+                  "const int ntiles = (kend + PT_T - 1) / PT_T;",
+                  "const int ntiles = max(1, (kend - 1 + (kRow == 5 ? 0 : PT_T)) / PT_T);",
+                  min_count=1)
+    rc, last = _run_check(tmp_path, "check_flash")
+    print(json.dumps({"mutant": "flash_bf16_skip_last_k_tile", "rc": rc,
+                      "error": last[:3000]}))
+    assert rc != 0 and "flash_attention differs from its plain version" in last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [6, 5])
+def test_cuda_training_attention_backward_is_deterministic(cuda, row):
+    """Two bf16 backward calls on the same inputs give bit-identical dq, dk
+    and dv (two passes, no atomics): row 6 at the d16 256px batch-32 shape,
+    row 5 at the ragged L 1015 shape of chip_smoke.check_flash."""
+    cs = _chip_smoke()
+    if row == 6:
+        q, k, v, do = cs.ptrain_inputs(cuda, torch.bfloat16, cs.TRAIN_BATCH, 6)
+        ends = cs._scale_ends()
+        out, lse = paired_train_fwd(q, k, v, cs.HEADS, ends)
+        bwd = lambda: paired_train_bwd(q, k, v, out, lse, do, cs.HEADS, ends)  # noqa: E731
+    else:
+        name, b, lq, lk, ends, _ = cs.flash_shapes()[3]
+        assert name == "ragged"
+        q, k, v, do = cs.flash_inputs(cuda, torch.bfloat16, b, lq, lk, True, 7)
+        out, lse = flash_attention_fwd(q, k, v, ends)
+        bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do, ends)  # noqa: E731
+    first = bwd()
+    second = bwd()
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert torch.equal(a, b_), name
 
 
 @pytest.mark.cuda

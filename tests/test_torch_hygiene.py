@@ -122,6 +122,46 @@ def test_profile_train_raises_without_gpu():
         main(["--depth", "2"])
 
 
+# the training-attention kernels of rows 5 and 6 as the profiler
+# (demangled) and cuobjdump (mangled) name them, with the kind profile_train
+# groups them under; the fp32 path's delta kernel serves both rows
+KERNEL_KINDS = [
+    ("void ptrain_dq_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float*, "
+     "__nv_bfloat16*, int, int, int, Ends)", "paired_train_bwd"),
+    ("void ptrain_dkv_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, Ends)",
+     "paired_train_bwd"),
+    ("void ptrain_dq_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float*, "
+     "__nv_bfloat16*, int, int, int, Ends)", "flash_attention_bwd"),
+    ("void ptrain_dkv_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, Ends)",
+     "flash_attention_bwd"),
+    ("void ptrain_dq_f32_kernel<5>(float const*, float const*, float const*, float const*, "
+     "float const*, float const*, float*, int, int, int, Ends)", "flash_attention_bwd"),
+    ("_Z22ptrain_dq_wgmma_kernelILi6EEv14CUtensorMap_stS0_S0_S0_PK13__nv_bfloat16S3_PKfPfPS1_iii4Ends",
+     "paired_train_bwd"),
+    ("_Z23ptrain_dkv_wgmma_kernelILi5EEv14CUtensorMap_stS0_S0_S0_PKfP13__nv_bfloat16S4_iii4Ends",
+     "flash_attention_bwd"),
+    ("void train_delta_f32_kernel(float const*, float const*, float*, int, int)", "other"),
+    ("void ptrain_fwd_mma_kernel<5>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, Ends)", "flash_attention_fwd"),
+    ("void ptrain_fwd_mma_kernel<6>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, Ends)", "paired_train_fwd"),
+]
+
+
+@pytest.mark.parametrize("name,kind", KERNEL_KINDS)
+def test_profile_train_kind_groups_the_training_attention_kernels(name, kind):
+    """profile_train's ``_kind`` puts each backward kernel of rows 5 and 6
+    (and their forwards) under its row, by the kRow template argument; the
+    fp32 delta kernel, of neither row, under 'other'."""
+    from var_tpu_torch.apps.profile_train import _kind
+
+    assert _kind(name) == kind
+
+
 def test_build_vae_train_default_device_raises_without_gpu():
     _no_gpu()
     from var_tpu_torch.models import build_vae_train

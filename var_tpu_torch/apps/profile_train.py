@@ -28,8 +28,11 @@ import time
 
 
 def _kind(name: str) -> str:
+    """The kind a device kernel's time is grouped under, from its name as
+    the profiler (demangled) or ``cuobjdump`` (mangled) prints it."""
     n = name.lower()
-    row = "flash_attention" if "<5>" in n else "paired_train"  # the kernels' kRow
+    # the kernels' kRow: <5> demangled, ILi5E mangled
+    row = "flash_attention" if "<5>" in n or "ili5e" in n else "paired_train"
     if "ptrain_fwd" in n:
         return f"{row}_fwd"
     if "ptrain_dq" in n or "ptrain_dkv" in n:

@@ -109,7 +109,7 @@ def lib() -> ctypes.CDLL:
         cdll.var_decode_tensor_maps_us.restype = ctypes.c_double
         ENDS = ctypes.POINTER(ctypes.c_int)
         train_fwd = [P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
-        train_bwd = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
+        train_bwd = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, ENDS, I, I, I, P]
         cdll.var_ptrain_fwd.argtypes = cdll.var_flash_fwd.argtypes = train_fwd
         cdll.var_ptrain_bwd.argtypes = cdll.var_flash_bwd.argtypes = train_bwd
         cdll.var_gn_channel_stats.argtypes = [P, P, P, LL, LL, I, I, P]

@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA kernels (sm_90a, plain C interface).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,6 +154,23 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// One bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) of contiguous device memory at ``src`` into shared memory at
+// ``dst``, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Writes by this thread to shared memory (st.shared) become visible to the
 // async proxy, which wgmma reads operands through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -239,6 +257,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : VTT_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
+// so the library links against nothing beyond the CUDA runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, rows, H * 64) bf16 tensor (batch stride ``bs``, row stride ``rs``,
+// in elements) as a 3-D tensor map of 64 x 64 boxes (one head's 64 lanes x
+// 64 rows), 128-byte swizzled, with ``rows`` rows per batch: the boxes of
+// the last tile reach past it and get zeros there.
+static inline cudaError_t tile_tensor_map(CUtensorMap* map, const void* base, long long bs,
+                                          long long rs, int B, int rows, int H) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * 64, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};  // bytes
+  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace vtt

@@ -69,7 +69,6 @@
 //     the CUDA cores in full fp32, 16-query tiles, synchronous loads;
 //     tensor-core TF32 would round the logits.
 
-#include <cuda.h>
 #include <float.h>
 
 #include <chrono>
@@ -233,12 +232,6 @@ decode_attention_kernel(const float* __restrict__ q, long long q_bs, long long q
 // Q, the K ring, the V ring; + room to align the base, + the mbarriers
 #define DEC_SMEM ((1 + DEC_KSTAGES + DEC_VSTAGES) * DEC_TILE + 1024 + \
                   (DEC_KSTAGES + DEC_VSTAGES) * 8)
-
-__device__ __forceinline__ float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <bool kPaired>
 __global__ void __launch_bounds__(128)
@@ -466,43 +459,6 @@ decode_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
-// so the library links against nothing beyond the CUDA runtime.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The (B, rows, C) bf16 cache view as a 3-D tensor map of 64 x 64 boxes
-// (head_dim x keys), 128-byte swizzled, with ``Lk`` rows: the boxes of the
-// last tile reach past it and get zeros there.
-static cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long bs, long long rs,
-                                 int B, int Lk, int H) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)H * ATT_D, (cuuint64_t)Lk, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};  // bytes
-  const cuuint32_t box[3] = {ATT_D, DEC_BK, 1}, unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <bool kPaired>
 static int launch_decode_attention(const void* q, long long q_bs, long long q_rs, const void* k,
                                    const void* v, long long kv_bs, long long kv_rs, void* out,
@@ -522,8 +478,8 @@ static int launch_decode_attention(const void* q, long long q_bs, long long q_rs
     // 16-byte aligned q rows and K/V rows, strides in multiples of 16 bytes:
     // the wrapper checks them (TMA needs them too)
     CUtensorMap tm_k, tm_v;
-    if ((err = kv_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess ||
-        (err = kv_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess)
+    if ((err = tile_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H)) != cudaSuccess)
       return (int)err;
     static bool ready[64] = {};  // the shared-memory attribute, set once per device
     if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
@@ -551,8 +507,8 @@ extern "C" double var_decode_tensor_maps_us(const void* k, const void* v, long l
   CUtensorMap tm_k, tm_v;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < n; ++i)
-    if (kv_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H) != cudaSuccess ||
-        kv_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H) != cudaSuccess)
+    if (tile_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H) != cudaSuccess ||
+        tile_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H) != cudaSuccess)
       return -1.0;
   const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
   return n > 0 ? dt.count() / n : 0.0;

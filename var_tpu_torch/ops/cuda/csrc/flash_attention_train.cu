@@ -26,7 +26,8 @@
 // iff level(j) <= level(i), level(p) = #{e in ends : p >= e}; with no ends
 // every key is visible. Forward: out and the per-(row, head) log-sum-exp
 // lse (B, H, L) fp32. Backward (FlashAttention-2 style): p = exp(s - lse) is
-// recomputed, delta = sum_d do * o per (row, head) comes from the caller, then
+// recomputed, delta = sum_d do * o per (row, head) is computed in the
+// backward's first launch from the bf16 (or fp32) out and do, then
 //   dv = p^T do,   ds = p * (do v^T - delta),   dq = ds k,   dk = ds^T q.
 // Logits, softmax and every accumulator are fp32. With bf16 inputs p and ds
 // are rounded to bf16 before their products, as the TPU kernels feed bf16
@@ -39,24 +40,50 @@
 // useful work is sum_s n_s * e_s = 286434 of the L^2 = 462400 (query, key)
 // pairs (62%): forward 4 B H D sum n_s e_s = 37.5 GFLOP (38 us of tensor
 // cores) against 179.7 MB of q, k, v, out and lse (54 us); backward
-// 93.9 GFLOP (95 us) against 359 MB (107 us). At 512px (batch 8, L = 2240,
-// 65% of the pairs useful) and 1024px (batch 2, L = 9451) the tensor cores
-// bound it: forward 107 GFLOP (108 us) and 467 GFLOP (472 us).
-// Design, right first and simple:
+// 93.9 GFLOP for its five products (95 us) against 359 MB (107 us). At
+// 512px (batch 8, L = 2240, 65% of the pairs useful) and 1024px (batch 2,
+// L = 9451) the tensor cores bound it: backward 268 GFLOP (271 us) at
+// 512px. The backward below runs seven products per visible tile pair, not
+// five (S and dP are computed once per pass, so that neither pass needs
+// atomics): its tensor-core floor is 1.4x the bound, 133 us at 256px and
+// 379 us at 512px.
+//
+// Design:
 //  * the mask's structure bounds every loop: a query tile visits key tiles
 //    only up to ends[level(its last query)], a key tile visits query tiles
 //    only from the start of its first key's scale, so most pairs the mask
-//    kills are never loaded; the in-tile mask and the rows past L (the TPU
-//    kernels' qrow_ok / krow_ok) are evaluated per element;
-//  * bf16: four warps of 16 rows, every product on the tensor cores with
-//    mma.sync m16n8k16 (common.cuh). Forward and dQ: one block per (batch,
-//    head, 64-query tile) looping over key tiles; dK/dV: one block per
-//    (batch, head, 64-key tile) looping over query tiles -- deterministic,
-//    no atomics;
-//  * fp32: the same three passes on the CUDA cores, 16-row tiles, lanes
-//    over keys (or queries) and over head dims.
-// Loads are synchronous; cp.async/TMA pipelining and wgmma are left for a
-// tuning pass.
+//    kills are never loaded;
+//  * forward (bf16): four warps of 16 rows on mma.sync m16n8k16
+//    (common.cuh), synchronous loads, the in-tile mask per element; one
+//    block per (batch, head, 64-query tile);
+//  * backward (bf16), two passes, deterministic, no atomics: the dQ kernel
+//    (one warpgroup per 64-query tile of one head) and then, on the same
+//    stream, the dK/dV kernel (one warpgroup per 64-key tile; two
+//    warpgroups of 64 keys sharing one ring measured slower, PERF.md). Each
+//    loads its resident tiles (Q and dO, or K and V) once with TMA, and
+//    thread 0 streams the other operand's 64-row tiles (K and V, or Q, dO
+//    and the tile's 64 lse and delta values) into a 3-stage ring on
+//    mbarriers. The tensor maps have L rows per batch, so rows past Lq or Lk
+//    arrive as zeros. Tiles land 128-byte swizzled in their natural
+//    row-major (row, d) layout and every product is wgmma m64n64k16 with
+//    fp32 accumulators, reading them through descriptors: S = Q K^T and dP =
+//    dO V^T (dQ), S^T = K Q^T and dP^T = V dO^T (dK/dV) K-major; dQ += dS K,
+//    dV += P^T dO and dK += dS^T Q take dS, P^T, dS^T from the accumulator
+//    registers, rounded to bf16, as the A operand and K, dO, Q through the
+//    transpose bit -- no element is transposed in shared memory. Within a
+//    warpgroup, tile i's softmax-gradient arithmetic runs while the tensor
+//    cores still compute tile i-1's dQ (or dK and dV) products; a stage is
+//    refilled once every warp is past its last reader (one 128-thread
+//    barrier per tile). Only tiles on the mask's diagonal or past Lq/Lk
+//    test the mask per element; the rest run without a test. The dQ kernel
+//    computes delta from out and do in its prologue while its first copies
+//    fly and writes the lse and delta of its rows into a scratch the dK/dV
+//    kernel's ring reads: no PyTorch pass, five fewer launches. The warp
+//    index is broadcast with __shfl_sync so that ptxas sees every branch
+//    around wgmma as warp-uniform (else it serialises them);
+//  * fp32: the same passes on the CUDA cores, 16-row tiles, lanes over keys
+//    (or queries) and over head dims, synchronous loads; delta in a small
+//    kernel of its own before them.
 
 #include "common.cuh"
 
@@ -275,143 +302,390 @@ ptrain_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ: block = (64-query tile, head, batch), warp = 16 queries, the same
-// key tiles as the forward.
+// bf16 backward on Hopper (see the note at the top). Dynamic shared memory
+// from a 1024-byte aligned base; every tile is 64 rows of one head's 64
+// lanes (128 bytes), 128-byte swizzled, as TMA writes it and wgmma reads it.
 
-template <int kRow>
-__global__ void __launch_bounds__(128)
-ptrain_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int Lq, int Lk, int H, Ends ends) {
-  __shared__ __align__(16) bf16 ks[PT_T][PT_PAD];  // K [key][d]: B of s = q k^T
-  __shared__ __align__(16) bf16 vs[PT_T][PT_PAD];  // V [key][d]: B of dp = do v^T
-  __shared__ __align__(16) bf16 kt[PT_D][PT_PAD];  // K^T [d][key]: B of dq += ds k
+#define BW_TILE (PT_T * PT_D * 2)  // bytes of one swizzled 64 x 64 bf16 tile
+#define BW_KV_STAGES 3             // dQ: K+V tile pairs in the ring
+#define BW_QD_STAGES 3             // dK/dV: Q+dO tile pairs (+ lse, delta) in the ring
+#define BW_STAT (2 * PT_T * 4)     // bytes of a query tile's 64 lse and 64 delta values
+#define BW_LOG2E 1.4426950408889634f
+// Q, dO, the K/V ring; + room to align the base, + the mbarriers
+#define BW_DQ_SMEM ((2 + 2 * BW_KV_STAGES) * BW_TILE + 1024 + (1 + BW_KV_STAGES) * 8)
+// K, V, the Q/dO ring, the lse/delta ring; + alignment, + mbarriers
+#define BW_DKV_SMEM \
+  ((2 + 2 * BW_QD_STAGES) * BW_TILE + BW_QD_STAGES * BW_STAT + 1024 + (1 + BW_QD_STAGES) * 8)
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * PT_T;
-  const int C = H * PT_D;
-  const long long qoff = (long long)b * Lq * C + h * PT_D;
-  const bf16* kb = k + (long long)b * Lk * C + h * PT_D;
-  const bf16* vb = v + (long long)b * Lk * C + h * PT_D;
-  const float* lse_bh = lse + ((long long)b * H + h) * Lq;
-  const float* dlt_bh = delta + ((long long)b * H + h) * Lq;
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const int kend_a = key_end(ends, min(ra, Lq - 1), Lk);
-  const int kend_b = key_end(ends, min(rb, Lq - 1), Lk);
-  const int kend = key_end(ends, min(q0 + PT_T - 1, Lq - 1), Lk);
-  const float lse_a = ra < Lq ? lse_bh[ra] : 0.f, lse_b = rb < Lq ? lse_bh[rb] : 0.f;
-  const float dlt_a = ra < Lq ? dlt_bh[ra] : 0.f, dlt_b = rb < Lq ? dlt_bh[rb] : 0.f;
+// Query rows of the lse/delta scratch per (batch, head): Lq rounded up to
+// whole 64-row tiles, so that every tile's 64 values are one aligned bulk copy.
+__host__ __device__ __forceinline__ int stat_rows(int Lq) { return (Lq + PT_T - 1) / PT_T * PT_T; }
 
-  uint32_t qa[4][4], da[4][4];
-  load_a(q + qoff, C, ra, Lq, qa);
-  load_a(dout + qoff, C, ra, Lq, da);
-  float acc[8][4];
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < kend; k0 += PT_T) {
-    __syncthreads();
-    load_tile(kb, C, k0, Lk, ks, kt);
-    load_tile(vb, C, k0, Lk, vs, nullptr);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero_acc(s);
-    zero_acc(dp);
-    mma_acc(s, qa, ks);
-    mma_acc(dp, da, vs);
+// Accumulator (fp32, the wgmma m64n64 layout) rounded to bf16 as the A
+// operand of the next product: keys 16 kk .. 16 kk + 15 are the
+// accumulator's n8 tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void pack_frag(const float (&s)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool valid = col < (lo ? kend_a : kend_b);
-        const float p = valid ? expf(s[j][e] - (lo ? lse_a : lse_b)) : 0.f;
-        const float dlt = lo ? dlt_a : dlt_b;
-        s[j][e] = valid ? p * (dp[j][e] - dlt) : 0.f;  // ds
-      }
-    }
-    uint32_t dsa[4][4];
-    pack_a(s, dsa);
-    mma_acc(acc, dsa, kt);
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
-  store_rows(dq + qoff, C, ra, Lq, acc, 1.f, 1.f);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dK/dV: block = (64-key tile, head, batch), warp = 16 keys, looping
-// over the query tiles that can see the tile.
+// Rows r and r + 8 of a warpgroup's 64 x 64 accumulator (row r = 16 warp +
+// lane / 4) to a merged (L, C) bf16 matrix; rows at or past L are dropped.
+__device__ __forceinline__ void store_acc(bf16* __restrict__ dst, int C, int r, int L,
+                                          const float (&acc)[32]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r < L)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * C + col) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r + 8) * C + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
 
+// dQ: block = (64-query tile, head, batch), one warpgroup; warp w owns
+// queries 16 w .. 16 w + 15. Also writes the lse and delta of its 64 rows
+// into ``stats`` (B, H, 2, stat_rows(Lq)) fp32 for the dK/dV kernel.
 template <int kRow>
 __global__ void __launch_bounds__(128)
-ptrain_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Lq, int Lk, int H,
-                      Ends ends) {
-  __shared__ __align__(16) bf16 qs[PT_T][PT_PAD];   // Q [query][d]: B of s^T = k q^T
-  __shared__ __align__(16) bf16 qt[PT_D][PT_PAD];   // Q^T [d][query]: B of dk += ds^T q
-  __shared__ __align__(16) bf16 dos[PT_T][PT_PAD];  // dO [query][d]: B of dp^T = v do^T
-  __shared__ __align__(16) bf16 dot_t[PT_D][PT_PAD];  // dO^T [d][query]: B of dv += p^T do
-  __shared__ float lse_s[PT_T], dlt_s[PT_T];
-  __shared__ int kend_s[PT_T];  // keys visible from each query of the tile (0 past Lq)
+ptrain_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ out,
+                       const bf16* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ stats, bf16* __restrict__ dq, int Lq, int Lk, int H,
+                       Ends ends) {
+  extern __shared__ uint8_t bw_smem[];
+  __shared__ float dlt_s[PT_T];
+  const uint32_t base = (smem_u32(bw_smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp index, broadcast from lane 0 so that the compiler sees it (and
+  // every branch on it) as warp-uniform; else ptxas serialises the wgmma
+  const int wq = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * PT_T;
+  const int C = H * PT_D, Lp = stat_rows(Lq);
+  const uint32_t sq = base, sdo = base + BW_TILE, ring = base + 2 * BW_TILE;
+  const uint32_t res_full = ring + 2 * BW_KV_STAGES * BW_TILE;  // Q and dO landed
+  const uint32_t kv_full = res_full + 8;  // + 8 s: the K and V tiles of stage s landed
+  // key tiles [0, kend) hold every key any query of the block sees; below
+  // kall, every query of the block sees every key
+  const int kend = key_end(ends, min(q0 + PT_T - 1, Lq - 1), Lk);
+  const int kall = key_end(ends, q0, Lk);
+  const int ntiles = (kend + PT_T - 1) / PT_T;
+  // thread 0 copies key tile t of K and V into stage t % BW_KV_STAGES;
+  // rows >= Lk lie outside the tensor maps and arrive as zeros
+  auto load_kv = [&](int t) {
+    const int st = t % BW_KV_STAGES;
+    const uint32_t dst = ring + 2 * st * BW_TILE, bar = kv_full + 8 * st;
+    mbar_arrive_expect_tx(bar, 2 * BW_TILE);
+    tma_load_3d(dst, &tm_k, bar, h * PT_D, t * PT_T, b);
+    tma_load_3d(dst + BW_TILE, &tm_v, bar, h * PT_D, t * PT_T, b);
+  };
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < BW_KV_STAGES; ++s) mbar_init(kv_full + 8 * s, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(res_full, 2 * BW_TILE);
+    tma_load_3d(sq, &tm_q, res_full, h * PT_D, q0, b);
+    tma_load_3d(sdo, &tm_do, res_full, h * PT_D, q0, b);
+    for (int t = 0; t < BW_KV_STAGES && t < ntiles; ++t) load_kv(t);
+  }
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * PT_T;
-  const int C = H * PT_D;
-  const bf16* qb = q + (long long)b * Lq * C + h * PT_D;
-  const bf16* dob = dout + (long long)b * Lq * C + h * PT_D;
-  const long long koff = (long long)b * Lk * C + h * PT_D;
-  const float* lse_bh = lse + ((long long)b * H + h) * Lq;
-  const float* dlt_bh = delta + ((long long)b * H + h) * Lq;
-  const int ra = k0 + warp * 16 + g, rb = ra + 8;  // this thread's key rows
-
-  uint32_t ka[4][4], va[4][4];
-  load_a(k + koff, C, ra, Lk, ka);
-  load_a(v + koff, C, ra, Lk, va);
-  float dk_acc[8][4], dv_acc[8][4];
-  zero_acc(dk_acc);
-  zero_acc(dv_acc);
-
-  for (int q0 = query_begin(ends, k0) / PT_T * PT_T; q0 < Lq; q0 += PT_T) {
-    __syncthreads();
-    load_tile(qb, C, q0, Lq, qs, qt);
-    load_tile(dob, C, q0, Lq, dos, dot_t);
-    if (threadIdx.x < PT_T) {
-      const int i = q0 + threadIdx.x;
-      const bool ok = i < Lq;
-      lse_s[threadIdx.x] = ok ? lse_bh[i] : 0.f;
-      dlt_s[threadIdx.x] = ok ? dlt_bh[i] : 0.f;
-      kend_s[threadIdx.x] = ok ? key_end(ends, i, Lk) : 0;
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero_acc(s);
-    zero_acc(dp);
-    mma_acc(s, ka, qs);
-    mma_acc(dp, va, dos);
+  // delta = sum_d do * out in fp32 from the bf16 tensors, while the copies
+  // fly: 16-byte loads, 8 lanes per row, each warp its own 16 rows; the lse
+  // and delta of every row of the tile (0 past Lq) go to the scratch
+  {
+    const int sub = lane >> 3, c = lane & 7;
+    const long long off = (long long)b * Lq * C + h * PT_D + c * 8;
+    const float* lse_bh = lse + ((long long)b * H + h) * Lq;
+    float* st_bh = stats + ((long long)b * H + h) * 2 * Lp;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < 4; ++i) {
+      const int r = wq * 16 + i * 4 + sub, qi = q0 + r;
+      float dsum = 0.f;
+      if (qi < Lq) {
+        const uint4 o4 = *reinterpret_cast<const uint4*>(out + off + (long long)qi * C);
+        const uint4 d4 = *reinterpret_cast<const uint4*>(dout + off + (long long)qi * C);
+        const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&o4);
+        const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(&d4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const bool valid = (e < 2 ? ra : rb) < kend_s[c];
-        const float p = valid ? expf(s[j][e] - lse_s[c]) : 0.f;
-        const float dlt = dlt_s[c];
-        s[j][e] = p;
-        dp[j][e] = valid ? p * (dp[j][e] - dlt) : 0.f;  // ds
+        for (int e = 0; e < 4; ++e) {
+          const float2 fo = __bfloat1622float2(po[e]), fd = __bfloat1622float2(pd[e]);
+          dsum = fmaf(fd.x, fo.x, dsum);
+          dsum = fmaf(fd.y, fo.y, dsum);
+        }
+      }
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 4);
+      if (c == 0) {
+        dlt_s[r] = dsum;
+        st_bh[q0 + r] = qi < Lq ? lse_bh[qi] : 0.f;
+        st_bh[Lp + q0 + r] = dsum;
       }
     }
-    uint32_t a[4][4];
-    pack_a(s, a);
-    mma_acc(dv_acc, a, dot_t);
-    pack_a(dp, a);
-    mma_acc(dk_acc, a, qt);
   }
-  store_rows(dk + koff, C, ra, Lk, dk_acc, 1.f, 1.f);
-  store_rows(dv + koff, C, ra, Lk, dv_acc, 1.f, 1.f);
+  __syncthreads();  // the barriers are initialised, delta is in dlt_s
+
+  // this thread's rows ra and rb: -lse in log2 units, delta, visible keys
+  const int ra = q0 + wq * 16 + g, rb = ra + 8;
+  const float* lse_bh = lse + ((long long)b * H + h) * Lq;
+  const float nla = ra < Lq ? -lse_bh[ra] * BW_LOG2E : 0.f;
+  const float nlb = rb < Lq ? -lse_bh[rb] * BW_LOG2E : 0.f;
+  const float dla = dlt_s[wq * 16 + g], dlb = dlt_s[wq * 16 + g + 8];
+  const int kend_a = key_end(ends, min(ra, Lq - 1), Lk);
+  const int kend_b = key_end(ends, min(rb, Lq - 1), Lk);
+
+  // Q and dO: A of S = Q K^T and dP = dO V^T, K-major; 16 of d per step
+  const uint64_t dsc_q = wgmma_desc_sw128(sq, 16, 1024);
+  const uint64_t dsc_do = wgmma_desc_sw128(sdo, 16, 1024);
+  float acc[32], s[32], dp[32];
+  uint32_t dsa[4][4];  // dS of the previous tile in bf16, the A operand of dQ += dS K
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  // dQ += dS K over key tile t: B = K stored [key][d] = [k][n], MN-major
+  // (the transpose bit); 16 keys (2048 bytes) per step
+  auto issue_dq = [&](int t) {
+    const uint64_t dsc_kt =
+        wgmma_desc_sw128(ring + 2 * (t % BW_KV_STAGES) * BW_TILE, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_tb(acc, dsa[kk], dsc_kt + 128 * kk);
+    wgmma_commit();
+  };
+
+  // Iteration it: S and dP of tile it are issued once it has landed, then
+  // dQ += dS_{it-1} K_{it-1}; dS of tile it is computed while the tensor
+  // cores still run that product. When it is done, the stage of tile it-1
+  // is free and thread 0 refills it with tile it-1+BW_KV_STAGES.
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % BW_KV_STAGES;
+    mbar_wait(kv_full + 8 * st, (it / BW_KV_STAGES) & 1);
+    const uint32_t sk = ring + 2 * st * BW_TILE;
+    const uint64_t dsc_k = wgmma_desc_sw128(sk, 16, 1024);
+    const uint64_t dsc_v = wgmma_desc_sw128(sk + BW_TILE, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(s, dsc_q + 2 * kk, dsc_k + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(dp, dsc_do + 2 * kk, dsc_v + 2 * kk, kk > 0);
+    wgmma_commit();
+    if (it > 0) {
+      issue_dq(it - 1);
+      wgmma_wait<1>();  // S and dP are done; dQ may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(dp);
+    // ds = p (dp - delta), p = exp(s - lse); the mask only on tiles that
+    // reach past kall (the diagonal of the block-causal mask, or Lk)
+    const int k0 = it * PT_T;
+    if (k0 + PT_T <= kall) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool lo = (i & 2) == 0;
+        const float p = fast_exp2(fmaf(s[i], BW_LOG2E, lo ? nla : nlb));
+        s[i] = p * (dp[i] - (lo ? dla : dlb));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool lo = (i & 2) == 0;
+        const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+        const float p = fast_exp2(fmaf(s[i], BW_LOG2E, lo ? nla : nlb));
+        s[i] = col < (lo ? kend_a : kend_b) ? p * (dp[i] - (lo ? dla : dlb)) : 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    named_barrier(1, 128);  // every warp is past K_{it-1}
+    if (tid == 0 && it > 0 && it - 1 + BW_KV_STAGES < ntiles) load_kv(it - 1 + BW_KV_STAGES);
+    pack_frag(s, dsa);
+  }
+  wgmma_fence();
+  issue_dq(ntiles - 1);
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  store_acc(dq + (long long)b * Lq * C + h * PT_D, C, ra, Lq, acc);
+}
+
+// dK/dV's gradients of one tile in place: s (S^T) becomes p = exp(s - lse)
+// and dp (dP^T) becomes ds = p (dp - delta), column (query) q0 + 8 j + 2 t +
+// (i & 1) for s[i], i = 4 j + e, t = lane % 4; lse and delta from the stage
+// at ``sl`` (this thread's first column), one pair of 8-byte reads per 4
+// values. kMasked: zero where the key row (qbeg_a for e < 2, else qbeg_b)
+// is not seen from the column, or the column is at or past Lq.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_tile_grads(float (&s)[32], float (&dp)[32], uint32_t sl,
+                                               int q0, int qbeg_a, int qbeg_b, int Lq) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float l0, l1, d0, d1;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(l0), "=f"(l1) : "r"(sl + 32 * j));
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(d0), "=f"(d1)
+                 : "r"(sl + PT_T * 4 + 32 * j));
+    l0 *= -BW_LOG2E;
+    l1 *= -BW_LOG2E;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float p = fast_exp2(fmaf(s[i], BW_LOG2E, (e & 1) ? l1 : l0));
+      const float ds = p * (dp[i] - ((e & 1) ? d1 : d0));
+      if (kMasked) {
+        const int col = q0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = col >= (e < 2 ? qbeg_a : qbeg_b) && col < Lq;
+        s[i] = ok ? p : 0.f;
+        dp[i] = ok ? ds : 0.f;
+      } else {
+        s[i] = p;
+        dp[i] = ds;
+      }
+    }
+  }
+}
+
+// dK/dV: block = (64 keys, head, batch), one warpgroup; warp w owns keys
+// 16 w .. 16 w + 15. The products run transposed (S^T = K Q^T, dP^T = V
+// dO^T), so P^T and dS^T come out of the accumulators in the A-operand
+// layout of dV += P^T dO and dK += dS^T Q.
+template <int kRow>
+__global__ void __launch_bounds__(128)
+ptrain_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const float* __restrict__ stats, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int Lq, int Lk, int H, Ends ends) {
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t base = (smem_u32(bw_smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform, as in dQ
+  const int g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * PT_T;  // the block's keys
+  const int C = H * PT_D, Lp = stat_rows(Lq);
+  const uint32_t sk = base, sv = base + BW_TILE;
+  const uint32_t ring = base + 2 * BW_TILE;                  // stage s: Q, then dO
+  const uint32_t sstat = ring + 2 * BW_QD_STAGES * BW_TILE;  // stage s: 64 lse, 64 delta
+  const uint32_t res_full = sstat + BW_QD_STAGES * BW_STAT;  // K and V landed
+  const uint32_t qd_full = res_full + 8;  // + 8 s: the tiles of stage s landed
+  const float* st_bh = stats + ((long long)b * H + h) * 2 * Lp;
+  // query tiles from qb0 on hold every query that sees a key of the block;
+  // every key of the block is seen from qall on
+  const int qb0 = query_begin(ends, min(k0, Lk - 1)) / PT_T * PT_T;
+  const int qall = query_begin(ends, min(k0 + PT_T - 1, Lk - 1));
+  const int ntiles = (Lq - qb0 + PT_T - 1) / PT_T;
+  // thread 0 copies query tile t of Q and dO (rows >= Lq arrive as zeros)
+  // and its lse and delta into stage t % BW_QD_STAGES
+  auto load_qd = [&](int t) {
+    const int st = t % BW_QD_STAGES, q0 = qb0 + t * PT_T;
+    const uint32_t dst = ring + 2 * st * BW_TILE, bar = qd_full + 8 * st;
+    mbar_arrive_expect_tx(bar, 2 * BW_TILE + BW_STAT);
+    tma_load_3d(dst, &tm_q, bar, h * PT_D, q0, b);
+    tma_load_3d(dst + BW_TILE, &tm_do, bar, h * PT_D, q0, b);
+    bulk_load(sstat + st * BW_STAT, st_bh + q0, PT_T * 4, bar);
+    bulk_load(sstat + st * BW_STAT + PT_T * 4, st_bh + Lp + q0, PT_T * 4, bar);
+  };
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < BW_QD_STAGES; ++s) mbar_init(qd_full + 8 * s, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(res_full, 2 * BW_TILE);
+    tma_load_3d(sk, &tm_k, res_full, h * PT_D, k0, b);
+    tma_load_3d(sv, &tm_v, res_full, h * PT_D, k0, b);
+    for (int t = 0; t < BW_QD_STAGES && t < ntiles; ++t) load_qd(t);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // this thread's keys ra and rb are seen from queries qbeg_a and qbeg_b on
+  const int ra = k0 + warp * 16 + g, rb = ra + 8;
+  const int qbeg_a = query_begin(ends, min(ra, Lk - 1));
+  const int qbeg_b = query_begin(ends, min(rb, Lk - 1));
+  // K and V: A of S^T = K Q^T and dP^T = V dO^T, K-major
+  const uint64_t dsc_k = wgmma_desc_sw128(sk, 16, 1024);
+  const uint64_t dsc_v = wgmma_desc_sw128(sv, 16, 1024);
+  float dk_acc[32], dv_acc[32], s[32], dp[32];
+  uint32_t pa[4][4], dsa[4][4];  // P^T and dS^T of the previous tile in bf16
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  // dV += P^T dO and dK += dS^T Q over query tile t: B = dO or Q stored
+  // [query][d] = [k][n], MN-major (the transpose bit); 16 queries per step
+  auto issue_dkv = [&](int t) {
+    const uint32_t sq = ring + 2 * (t % BW_QD_STAGES) * BW_TILE;
+    const uint64_t dsc_qt = wgmma_desc_sw128(sq, 1024, 1024);
+    const uint64_t dsc_dot = wgmma_desc_sw128(sq + BW_TILE, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_tb(dv_acc, pa[kk], dsc_dot + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_tb(dk_acc, dsa[kk], dsc_qt + 128 * kk);
+    wgmma_commit();
+  };
+
+  // Iteration it, as in dQ: S^T and dP^T of tile it, then the dK/dV
+  // products of tile it-1; P^T and dS^T of tile it meanwhile; then the
+  // stage of tile it-1 is refilled. Every warpgroup runs every tile of the
+  // block (one whose queries see none of its keys comes out masked to 0):
+  // wgmma groups that depend on the path make ptxas serialise them.
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % BW_QD_STAGES, q0 = qb0 + it * PT_T;
+    mbar_wait(qd_full + 8 * st, (it / BW_QD_STAGES) & 1);
+    const uint32_t sq = ring + 2 * st * BW_TILE;
+    const uint64_t dsc_q = wgmma_desc_sw128(sq, 16, 1024);
+    const uint64_t dsc_do = wgmma_desc_sw128(sq + BW_TILE, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(s, dsc_k + 2 * kk, dsc_q + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(dp, dsc_v + 2 * kk, dsc_do + 2 * kk, kk > 0);
+    wgmma_commit();
+    if (it > 0) {
+      issue_dkv(it - 1);
+      wgmma_wait<1>();  // S^T and dP^T are done; dK/dV may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(dp);
+    // p and ds; the mask only on tiles before qall (the diagonal of the
+    // block-causal mask) or past Lq
+    const uint32_t sl = sstat + st * BW_STAT + (2 * tq) * 4;
+    if (q0 >= qall && q0 + PT_T <= Lq)
+      dkv_tile_grads<false>(s, dp, sl, q0, qbeg_a, qbeg_b, Lq);
+    else
+      dkv_tile_grads<true>(s, dp, sl, q0, qbeg_a, qbeg_b, Lq);
+    wgmma_wait<0>();
+    wgmma_fence_regs(dk_acc);
+    wgmma_fence_regs(dv_acc);
+    named_barrier(1, 128);  // every warp is past Q_{it-1} and dO_{it-1}
+    if (tid == 0 && it > 0 && it - 1 + BW_QD_STAGES < ntiles) load_qd(it - 1 + BW_QD_STAGES);
+    pack_frag(s, pa);
+    pack_frag(dp, dsa);
+  }
+  wgmma_fence();
+  issue_dkv(ntiles - 1);
+  wgmma_wait<0>();
+  wgmma_fence_regs(dk_acc);
+  wgmma_fence_regs(dv_acc);
+  const long long koff = (long long)b * Lk * C + h * PT_D;
+  store_acc(dk + koff, C, ra, Lk, dk_acc);
+  store_acc(dv + koff, C, ra, Lk, dv_acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -732,12 +1006,28 @@ ptrain_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// fp32 delta = sum_d do * out per (row, head) into (B, H, Lq): a warp per
+// row, four rows per block (the fp32 dQ and dK/dV kernels read it).
+__global__ void __launch_bounds__(128)
+train_delta_f32_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+                       float* __restrict__ delta, int Lq, int H) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int h = blockIdx.y, b = blockIdx.z, i = blockIdx.x * 4 + warp;
+  if (i >= Lq) return;
+  const long long off = ((long long)b * Lq + i) * H * PT_D + h * PT_D;
+  const float s = warp_sum(fmaf(dout[off + lane], out[off + lane],
+                                dout[off + lane + 32] * out[off + lane + 32]));
+  if (lane == 0) delta[((long long)b * H + h) * Lq + i] = s;
+}
+
 // ---------------------------------------------------------------------------
 // C interface. Every tensor is contiguous: q, out, dout, dq (B, Lq, H * 64);
-// k, v, dk, dv (B, Lk, H * 64); lse, delta (B, H, Lq) fp32. ``ends`` holds
-// n_ends ascending scale ends (none: no mask). Returns cudaGetLastError().
-// var_ptrain_* launch the kRow = 6 instantiation (row 6), var_flash_* the
-// kRow = 5 one (row 5).
+// k, v, dk, dv (B, Lk, H * 64); lse (B, H, Lq) fp32. The backward's
+// ``scratch`` holds 2 B H stat_rows(Lq) fp32 (the wrapper allocates it):
+// the bf16 path's lse and delta per (batch, head), (B, H, 2, stat_rows(Lq));
+// the fp32 path's delta, (B, H, Lq). ``ends`` holds n_ends ascending scale
+// ends (none: no mask). Returns cudaGetLastError(). var_ptrain_* launch the
+// kRow = 6 instantiation (row 6), var_flash_* the kRow = 5 one (row 5).
 
 static int make_ends(const int* ends, int n_ends, Ends* out) {
   if (n_ends < 0 || n_ends > PT_MAX_ENDS || (n_ends > 0 && ends == nullptr)) return 1;
@@ -772,11 +1062,22 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* out, vo
   return (int)cudaGetLastError();
 }
 
+// The shared-memory attribute of one kernel, set once per device.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, int bytes, bool* ready, int device) {
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (ready[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) ready[device] = true;
+  return err;
+}
+
 template <int kRow>
-static int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-                      int Lq, int Lk, int H, int D, const int* ends, int n_ends, int dtype,
-                      int device, void* stream) {
+static int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+                      const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+                      void* dv, int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
+                      int dtype, int device, void* stream) {
   Ends e;
   if (D != PT_D || B < 1 || Lq < 1 || Lk < 1 || H < 1 || make_ends(ends, n_ends, &e))
     return (int)cudaErrorInvalidValue;
@@ -784,8 +1085,12 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* d
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const float* ls = (const float*)lse;
-  const float* dl = (const float*)delta;
   if (dtype == kF32) {
+    float* dl = (float*)scratch;
+    const dim3 gd((unsigned)((Lq + 3) / 4), (unsigned)H, (unsigned)B);
+    train_delta_f32_kernel<<<gd, 128, 0, st>>>((const float*)out, (const float*)dout, dl, Lq, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     const dim3 gq((unsigned)((Lq + PT_FROWS - 1) / PT_FROWS), (unsigned)H, (unsigned)B);
     ptrain_dq_f32_kernel<kRow><<<gq, 128, 0, st>>>((const float*)q, (const float*)k,
                                                    (const float*)v, (const float*)dout, ls, dl,
@@ -797,16 +1102,32 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* d
                                                     (const float*)v, (const float*)dout, ls, dl,
                                                     (float*)dk, (float*)dv, Lq, Lk, H, e);
   } else if (dtype == kBF16) {
+    // merged (B, L, H * 64) tensors, rows of C elements; the wrapper checks
+    // 16-byte alignment (TMA needs it)
+    const long long C = (long long)H * PT_D;
+    CUtensorMap tm_q, tm_do, tm_k, tm_v;
+    if ((err = tile_tensor_map(&tm_q, q, Lq * C, C, B, Lq, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_do, dout, Lq * C, C, B, Lq, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_k, k, Lk * C, C, B, Lk, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_v, v, Lk * C, C, B, Lk, H)) != cudaSuccess)
+      return (int)err;
+    static bool ready_dq[64] = {}, ready_dkv[64] = {};
+    if ((err = allow_smem(ptrain_dq_wgmma_kernel<kRow>, BW_DQ_SMEM, ready_dq, device)) !=
+            cudaSuccess ||
+        (err = allow_smem(ptrain_dkv_wgmma_kernel<kRow>, BW_DKV_SMEM, ready_dkv, device)) !=
+            cudaSuccess)
+      return (int)err;
+    float* stats = (float*)scratch;
     const dim3 gq((unsigned)((Lq + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_dq_mma_kernel<kRow><<<gq, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
-                                                   (const bf16*)v, (const bf16*)dout, ls, dl,
-                                                   (bf16*)dq, Lq, Lk, H, e);
+    ptrain_dq_wgmma_kernel<kRow><<<gq, 128, BW_DQ_SMEM, st>>>(
+        tm_q, tm_do, tm_k, tm_v, (const bf16*)out, (const bf16*)dout, ls, stats, (bf16*)dq, Lq,
+        Lk, H, e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    // after dQ on the same stream: it reads the lse and delta dQ wrote
     const dim3 gk((unsigned)((Lk + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_dkv_mma_kernel<kRow><<<gk, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
-                                                    (const bf16*)v, (const bf16*)dout, ls, dl,
-                                                    (bf16*)dk, (bf16*)dv, Lq, Lk, H, e);
+    ptrain_dkv_wgmma_kernel<kRow><<<gk, 128, BW_DKV_SMEM, st>>>(
+        tm_q, tm_do, tm_k, tm_v, stats, (bf16*)dk, (bf16*)dv, Lq, Lk, H, e);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -819,12 +1140,12 @@ extern "C" int var_ptrain_fwd(const void* q, const void* k, const void* v, void*
   return launch_fwd<6>(q, k, v, out, lse, B, Lq, Lk, H, D, ends, n_ends, dtype, device, stream);
 }
 
-extern "C" int var_ptrain_bwd(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                              int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
-                              int dtype, int device, void* stream) {
-  return launch_bwd<6>(q, k, v, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, D, ends, n_ends,
-                       dtype, device, stream);
+extern "C" int var_ptrain_bwd(const void* q, const void* k, const void* v, const void* out,
+                              const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+                              void* dv, int B, int Lq, int Lk, int H, int D, const int* ends,
+                              int n_ends, int dtype, int device, void* stream) {
+  return launch_bwd<6>(q, k, v, out, dout, lse, scratch, dq, dk, dv, B, Lq, Lk, H, D, ends,
+                       n_ends, dtype, device, stream);
 }
 
 extern "C" int var_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -833,10 +1154,10 @@ extern "C" int var_flash_fwd(const void* q, const void* k, const void* v, void* 
   return launch_fwd<5>(q, k, v, out, lse, B, Lq, Lk, H, D, ends, n_ends, dtype, device, stream);
 }
 
-extern "C" int var_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                             int B, int Lq, int Lk, int H, int D, const int* ends, int n_ends,
-                             int dtype, int device, void* stream) {
-  return launch_bwd<5>(q, k, v, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, D, ends, n_ends,
-                       dtype, device, stream);
+extern "C" int var_flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+                             void* dv, int B, int Lq, int Lk, int H, int D, const int* ends,
+                             int n_ends, int dtype, int device, void* stream) {
+  return launch_bwd<5>(q, k, v, out, dout, lse, scratch, dq, dk, dv, B, Lq, Lk, H, D, ends,
+                       n_ends, dtype, device, stream);
 }

@@ -29,7 +29,8 @@ Row 5: streaming flash attention over BLHD tensors, forward and backward
 ``flash_attention.py::flash_attention`` (:375) and its VJP:
 :func:`flash_attention` folds the scale into q, then runs
 :func:`flash_attention_fwd` (out and the (B, H, Lq) fp32 log-sum-exp) and,
-in backward, :func:`flash_attention_bwd` (dq, dk, dv from the lse and delta).
+in backward, :func:`flash_attention_bwd` (dq, dk, dv from out and the lse;
+on the card delta = sum_d do * out is computed in the dQ kernel's launch).
 It serves the ``pallas`` and ``hybrid`` training impls and the eval of the
 512px and 1024px presets; unmasked, Lq may differ from Lk. Fewer than 8
 queries or keys take JAX's dense branch (``:398-406``), no kernel.
@@ -300,30 +301,43 @@ def paired_train_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
 
 
 def paired_train_delta(out: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, H, L) float32 delta = sum_d do * o within each head, the layout of lse."""
+    """(B, H, L) float32 delta = sum_d do * o within each head, the layout of
+    lse: the plain path's helper and the oracle of the delta the backward
+    kernels compute in their launch."""
     b, l, c = out.shape
     delta = (do.float() * out.float()).reshape(b, l, num_heads, c // num_heads).sum(-1)
     return delta.transpose(1, 2).contiguous()
 
 
+def _bwd_scratch(b: int, num_heads: int, lq: int, device) -> torch.Tensor:
+    """The fp32 scratch a backward launch fills and reads: the bf16 dQ
+    kernel writes the lse and delta of every query row, (B, H, 2, Lq
+    rounded up to 64 rows), for the dK/dV kernel; the fp32 path its delta."""
+    rows = -(-lq // 64) * 64
+    return torch.empty(b * num_heads * 2 * rows, dtype=torch.float32, device=device)
+
+
 def paired_train_bwd(qs, k, v, out, lse, do, num_heads: int,
                      ends: Optional[Tuple[int, ...]]):
     """Backward of :func:`flash_attention_paired_train`: (dq, dk, dv), dq
-    with respect to the pre-scaled q. delta = sum_d do * o per (row, head)
-    is one elementwise pass here, as the JAX package computes it outside
-    its kernels (``flash_attention.py:1047-1052``). CPU tensors take the
-    plain version; CUDA tensors launch the dQ and the dK/dV kernel."""
-    delta = paired_train_delta(out, do, num_heads)
+    with respect to the pre-scaled q. delta = sum_d do * o per (row, head),
+    which the JAX package computes outside its kernels
+    (``flash_attention.py:1047-1052``), is one elementwise pass on the CPU
+    (:func:`paired_train_delta`) and part of the dQ kernel's launch on the
+    card. CPU tensors take the plain version; CUDA tensors launch the dQ and
+    the dK/dV kernel."""
     if qs.device.type == "cpu":
-        return paired_train_bwd_plain(qs, k, v, do, lse, delta, num_heads, ends)
-    _check_train("paired_train_bwd", num_heads, (qs, do), (k, v), lse)
+        return paired_train_bwd_plain(qs, k, v, do, lse, paired_train_delta(out, do, num_heads),
+                                      num_heads, ends)
+    _check_train("paired_train_bwd", num_heads, (qs, out, do), (k, v), lse)
     b, lq, _ = qs.shape
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    scratch = _bwd_scratch(b, num_heads, lq, qs.device)
     arr, n = _ends_arg(ends)
     rc = build.lib().var_ptrain_bwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1],
-        num_heads, HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index,
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
+        k.shape[1], num_heads, HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index,
         build.stream_of(qs))
     build.check(rc, "paired_train_bwd")
     paired_train_bwd.launches += 1
@@ -419,22 +433,25 @@ def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(qs, k, v, out, lse, do, ends: Optional[Tuple[int, ...]]):
     """Backward of :func:`flash_attention`: (dq, dk, dv), dq with respect to
     the pre-scaled q. delta = sum_d do * out per (row, head), in float32 from
-    the rounded output, is one elementwise pass here, outside the kernels, as
-    in the JAX package (``flash_attention.py:303``). CPU tensors take the
-    plain version; CUDA tensors launch the dQ and the dK/dV kernel."""
+    the rounded output, which the JAX package computes outside its kernels
+    (``flash_attention.py:303``), is one elementwise pass on the CPU and part
+    of the dQ kernel's launch on the card. CPU tensors take the plain
+    version; CUDA tensors launch the dQ and the dK/dV kernel."""
     h = qs.shape[2]
-    delta = paired_train_delta(_merged(out), _merged(do), h)
     if qs.device.type == "cpu":
+        delta = paired_train_delta(_merged(out), _merged(do), h)
         return flash_attention_bwd_plain(qs, k, v, do, lse, delta, ends)
     b, lq = qs.shape[:2]
-    _check_train("flash_attention_bwd", h, (_merged(qs), _merged(do)), (_merged(k), _merged(v)),
-                 lse)
+    _check_train("flash_attention_bwd", h, (_merged(qs), _merged(out), _merged(do)),
+                 (_merged(k), _merged(v)), lse)
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    scratch = _bwd_scratch(b, h, lq, qs.device)
     arr, n = _ends_arg(ends)
     rc = build.lib().var_flash_bwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], h,
-        HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index, build.stream_of(qs))
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
+        k.shape[1], h, HEAD_DIM, arr, n, build.dtype_code(qs.dtype), qs.device.index,
+        build.stream_of(qs))
     build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
