@@ -372,8 +372,7 @@ def test_cuda_flash_decode_matches_plain_at_the_stage_shapes(cuda, dtype):
 # planted faults: textual mutations of the training-attention source
 # (old text, new text, least count of the old text)
 MUTANTS = {
-    # the forward loops (bf16 and fp32) and the fp32 dQ loop skip the last
-    # key tile
+    # the fp32 forward loop and the fp32 dQ loop skip the last key tile
     "skip_last_k_tile": ("k0 < kend;", "k0 + PT_T < kend;", 2),
     # ds = p * dp in both fp32 backward kernels (delta unused)
     "drop_delta": ("- dlt)", ")", 2),
@@ -383,11 +382,18 @@ MUTANTS = {
     # the delta the bf16 dQ kernel computes in its launch is 0: ds = p * dp
     # in both bf16 kernels
     "bf16_drop_delta": ("dsum += __shfl_xor_sync(0xffffffffu, dsum, 4);", "dsum = 0.f;", 1),
+    # the bf16 forward streams one key tile too few (none of the last)
+    "bf16_fwd_skip_last_k_tile": ("const int nkt = (kend + PT_T - 1) / PT_T;",
+                                  "const int nkt = max(1, (kend - 1) / PT_T);", 1),
 }
 # a planted fault of the bf16 backward's rings: S and dP (dQ) and S^T and
 # dP^T (dK/dV) read the tiles of the next stage, not of the one their tile
 # landed in (the barriers stay right: no hang)
 RING_MUTANT = ("= ring + 2 * st * BW_TILE;", "= ring + 2 * ((st + 1) % 3) * BW_TILE;")
+# a planted fault of the bf16 forward's K ring: S reads the K tile of the
+# next stage, not of the one tile ``it`` landed in (the barriers stay right)
+FWD_RING_MUTANT = ("wgmma_desc_sw128(sk + kst * BW_TILE,",
+                   "wgmma_desc_sw128(sk + (kst + 1) % FW_KSTAGES * BW_TILE,")
 
 
 @pytest.mark.cuda
@@ -418,10 +424,24 @@ def test_planted_fault_fails_both_training_attention_checks(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_planted_fault_in_the_forward_ring_fails_both_training_attention_checks(cuda, tmp_path):
+    """A copy of the package whose bf16 forward reads the wrong stage of its
+    K ring (FWD_RING_MUTANT), built in tmp_path, must fail chip_smoke's
+    checks of row 6 (check_ptrain) and of row 5 (check_flash)."""
+    _planted_copy(tmp_path, "flash_attention_train.cu", *FWD_RING_MUTANT, min_count=1)
+    for check, name in (("check_ptrain", "flash_attention_paired_train"),
+                        ("check_flash", "flash_attention")):
+        rc, last = _run_check(tmp_path, check)
+        print(json.dumps({"mutant": "fwd_wrong_stage", "check": check, "rc": rc,
+                          "error": last[:3000]}))
+        assert rc != 0 and f"{name} differs from its plain version" in last
+
+
+@pytest.mark.cuda
 def test_planted_fault_fails_the_flash_attention_check(cuda, tmp_path):
     """A copy of the package whose row-5 instantiation alone skips the last
-    K tile of its forward loops and its fp32 dQ loop, built in tmp_path,
-    must fail chip_smoke.check_flash."""
+    K tile of its fp32 forward loop and its fp32 dQ loop, built in
+    tmp_path, must fail chip_smoke.check_flash."""
     _planted_copy(tmp_path, "flash_attention_train.cu", "k0 < kend;",
                   "k0 + (kRow == 5 ? PT_T : 0) < kend;")
     rc, last = _run_check(tmp_path, "check_flash")
@@ -442,6 +462,90 @@ def test_planted_fault_in_the_bf16_backward_fails_the_flash_attention_check(cuda
     print(json.dumps({"mutant": "flash_bf16_skip_last_k_tile", "rc": rc,
                       "error": last[:3000]}))
     assert rc != 0 and "flash_attention differs from its plain version" in last
+
+
+@pytest.mark.cuda
+def test_planted_fault_in_the_bf16_forward_fails_the_flash_attention_check(cuda, tmp_path):
+    """A copy of the package whose row-5 instantiation alone streams one key
+    tile too few in its bf16 forward, built in tmp_path, must fail
+    chip_smoke.check_flash."""
+    _planted_copy(tmp_path, "flash_attention_train.cu",
+                  "const int nkt = (kend + PT_T - 1) / PT_T;",
+                  "const int nkt = max(1, (kend - 1 + (kRow == 5 ? 0 : PT_T)) / PT_T);",
+                  min_count=1)
+    rc, last = _run_check(tmp_path, "check_flash")
+    print(json.dumps({"mutant": "flash_bf16_fwd_skip_last_k_tile", "rc": rc,
+                      "error": last[:3000]}))
+    assert rc != 0 and "flash_attention differs from its plain version" in last
+
+
+# (name, Lq, Lk, ends) the main-path shapes do not reach: one 64-row TMA box
+# not filled (L 14, --pn 1_2_3), one row, one key past a tile, and an
+# unmasked Lq 64 / Lk 65
+EDGE_SHAPES = [("l14", 14, 14, (1, 5, 14)), ("l1", 1, 1, (1,)),
+               ("l65", 65, 65, (1, 5, 14, 30, 65)), ("unmasked", 64, 65, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [6, 5])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=[s[0] for s in EDGE_SHAPES])
+def test_cuda_training_attention_bf16_at_the_forward_edges(cuda, row, shape):
+    """Both rows' bf16 forward and backward kernels against their plain
+    versions on the same bf16 inputs (the backward of both fed the kernel's
+    out and lse), with chip_smoke's tolerances: out within 3 bf16 ulps of
+    max|want|, lse within 1e-4 + 1e-4 |want|; dq, dk, dv within 3 bf16 ulps
+    of max(max|want|, 1) -- at L 1 dq and dk are 0 but for fp32 rounding in
+    dp - delta, so the ulp is taken at no less than 1, the inputs' scale."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd_plain,
+                                                        flash_attention_fwd_plain,
+                                                        paired_train_bwd_plain,
+                                                        paired_train_delta,
+                                                        paired_train_fwd_plain)
+
+    cs = _chip_smoke()
+    _, lq, lk, ends = shape
+    b, h = 2, 4
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, do = (torch.randn(b, lq, 64 * h, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(b, lk, 64 * h, generator=g, device=cuda) for _ in range(2))
+    if ends is not None:
+        q, k = cs.l2_heads(q, h) * 4.0, cs.l2_heads(k, h)
+    else:
+        q = q * 0.125
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    if row == 6:
+        f0, b0 = paired_train_fwd.launches, paired_train_bwd.launches
+        out, lse = paired_train_fwd(q, k, v, h, ends)
+        grads = paired_train_bwd(q, k, v, out, lse, do, h, ends)
+        want_out, want_lse = paired_train_fwd_plain(q, k, v, h, ends)
+        want_grads = paired_train_bwd_plain(q, k, v, do, lse, paired_train_delta(out, do, h), h,
+                                            ends)
+        launches = (paired_train_fwd.launches - f0, paired_train_bwd.launches - b0)
+    else:
+        q4, k4, v4, do4 = (t.reshape(b, t.shape[1], h, 64) for t in (q, k, v, do))
+        f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        out, lse = flash_attention_fwd(q4, k4, v4, ends)
+        grads = flash_attention_bwd(q4, k4, v4, out, lse, do4, ends)
+        want_out, want_lse = flash_attention_fwd_plain(q4, k4, v4, ends)
+        delta = paired_train_delta(out.reshape(b, lq, -1), do, h)
+        want_grads = flash_attention_bwd_plain(q4, k4, v4, do4, lse, delta, ends)
+        launches = (flash_attention_fwd.launches - f0, flash_attention_bwd.launches - b0)
+    torch.cuda.synchronize()
+    assert launches == (1, 1)
+    errs = {}
+    for name, got, want in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads),
+                               (want_out, want_lse, *want_grads)):
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        if name == "lse":
+            atol, rtol = cs.FLASH_F32_TOL
+            ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        else:
+            scale = float(want.abs().max()) if name == "out" else max(float(want.abs().max()), 1.0)
+            ok = err <= cs.FLASH_TRAIN_BF16_ULPS * cs.bf16_ulp(scale)
+        errs[name] = err
+        assert ok, (name, errs)  # NaN fails too
+    print(json.dumps({"row": row, "shape": shape[0], "errors": errs}))
 
 
 @pytest.mark.cuda

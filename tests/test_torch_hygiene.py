@@ -145,10 +145,12 @@ KERNEL_KINDS = [
     ("_Z23ptrain_dkv_wgmma_kernelILi5EEv14CUtensorMap_stS0_S0_S0_PKfP13__nv_bfloat16S4_iii4Ends",
      "flash_attention_bwd"),
     ("void train_delta_f32_kernel(float const*, float const*, float*, int, int)", "other"),
-    ("void ptrain_fwd_mma_kernel<5>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
-     "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, Ends)", "flash_attention_fwd"),
-    ("void ptrain_fwd_mma_kernel<6>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
-     "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, Ends)", "paired_train_fwd"),
+    ("void ptrain_fwd_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, float*, int, int, int, Ends)", "flash_attention_fwd"),
+    ("void ptrain_fwd_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, float*, int, int, int, Ends)", "paired_train_fwd"),
+    ("_Z23ptrain_fwd_wgmma_kernelILi5EEv14CUtensorMap_stS0_S0_P13__nv_bfloat16Pfiii4Ends",
+     "flash_attention_fwd"),
 ]
 
 

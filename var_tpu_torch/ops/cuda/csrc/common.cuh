@@ -78,30 +78,11 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return red[32];
 }
 
-// Tensor-core building blocks (mma.sync m16n8k16, bf16 in, fp32 accumulate).
-// Fragment layout, with g = lane / 4 and t = lane % 4: the A operand (16 x 16,
-// row-major) holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9;
-// the B operand (16 x 8) holds, for column n = g, rows 2t, 2t + 1 and
-// 2t + 8, 2t + 9, so B is read from shared memory stored [n][k]; the
-// accumulator (16 x 8) holds rows g and g + 8, columns 2t, 2t + 1 -- which is
-// the A layout of two neighbouring accumulator tiles, so a product's fp32
-// result feeds the next product as A after rounding to bf16.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// Two floats rounded to bf16 and packed into one 32-bit register (lo in the
+// low half): one register of a wgmma A fragment.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,8 +214,8 @@ __device__ __forceinline__ void wgmma_fence_regs(float (&d)[32]) {
 // D (64 x 64, fp32) = A B (+ D if ``accumulate``), A (64 x 16) and B (16 x 64)
 // bf16 in shared memory, both K-major (A row-major, B stored [n][k]). The
 // accumulator layout, with w = warp % 4, g = lane / 4, t = lane % 4: d[4j + e]
-// is row 16w + g + 8 (e / 2), column 8j + 2t + e % 2 -- per warp the
-// mma.sync m16n8k16 accumulator layout of eight n8 tiles.
+// is row 16w + g + 8 (e / 2), column 8j + 2t + e % 2: per warp, eight
+// 16 x 8 tiles, each holding rows g and g + 8, columns 2t and 2t + 1.
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                    int accumulate) {
   asm volatile(
@@ -245,10 +226,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D += A B with A (64 x 16) bf16 in registers -- per warp the mma.sync
-// m16n8k16 A fragment of its 16 rows, which is the accumulator layout of two
-// neighbouring n8 tiles -- and B (16 x 64) in shared memory stored MN-major
-// ([k][n], n contiguous: the transpose bit).
+// D += A B with A (64 x 16) bf16 in registers -- per warp its 16 rows as
+// a[0] (row g, columns 2t, 2t + 1), a[1] (row g + 8, the same), a[2] and
+// a[3] (columns 2t + 8, 2t + 9), which is the accumulator layout of two
+// neighbouring 16 x 8 tiles -- and B (16 x 64) in shared memory stored
+// MN-major ([k][n], n contiguous: the transpose bit).
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
                                                       uint64_t db) {
   asm volatile(

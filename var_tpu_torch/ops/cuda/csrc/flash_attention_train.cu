@@ -53,9 +53,20 @@
 //    only up to ends[level(its last query)], a key tile visits query tiles
 //    only from the start of its first key's scale, so most pairs the mask
 //    kills are never loaded;
-//  * forward (bf16): four warps of 16 rows on mma.sync m16n8k16
-//    (common.cuh), synchronous loads, the in-tile mask per element; one
-//    block per (batch, head, 64-query tile);
+//  * forward (bf16): one warpgroup per (64-query tile, head, batch), the
+//    dQ kernel's grid, the last query tile of a (head, batch) first. Q
+//    lands once by TMA; thread 0 streams the K and V tiles of [0, kend)
+//    into a 2-stage K ring and a 3-stage V ring on mbarriers. S = Q K^T
+//    (K-major) and O += P V (V through the transpose bit, P from the
+//    accumulators rounded to bf16 as the register A operand) are wgmma
+//    m64n64k16 with fp32 accumulators. The online softmax works in log2
+//    units (one fma and one ex2 per logit), and runs on tile i while the
+//    tensor cores still compute tile i-1's P V; O is rescaled once that
+//    product is done. Shared with the dQ kernel: the tensor maps and
+//    their zero fill past Lq and Lk, the swizzled tiles and descriptors,
+//    the kend/kall bounds (the mask only on the diagonal or past Lk), the
+//    one 128-thread barrier per tile before a stage is refilled, and the
+//    broadcast warp index (below);
 //  * backward (bf16), two passes, deterministic, no atomics: the dQ kernel
 //    (one warpgroup per 64-query tile of one head) and then, on the same
 //    stream, the dK/dV kernel (one warpgroup per 64-key tile; two
@@ -93,7 +104,6 @@ typedef __nv_bfloat16 bf16;
 
 #define PT_D 64          // head dim served
 #define PT_T 64          // rows per tile of the bf16 kernels, keys per tile everywhere
-#define PT_PAD 72        // bf16 shared row stride: 144 bytes, 16-byte aligned
 #define PT_FROWS 16      // rows per block of the fp32 kernels (4 per warp)
 #define PT_FRPW 4
 #define PT_MAX_ENDS 32
@@ -122,187 +132,7 @@ __device__ __forceinline__ int query_begin(const Ends& s, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 helpers (fragment layout in common.cuh)
-
-__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// Rows [r0, r0 + 64) of one head (src points at lane 64h of row 0) of a
-// merged (L, C) matrix into shared memory, row-major dst[row][d] and/or
-// transposed dst_t[d][row]. Rows at or past L load as zeros.
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int C, int r0, int L,
-                                          bf16 (*dst)[PT_PAD], bf16 (*dst_t)[PT_PAD]) {
-  for (int idx = threadIdx.x; idx < PT_T * (PT_D / 8); idx += blockDim.x) {
-    const int j = idx >> 3, c8 = (idx & 7) * 8, r = r0 + j;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < L) val = *reinterpret_cast<const uint4*>(src + (long long)r * C + c8);
-    if (dst != nullptr) *reinterpret_cast<uint4*>(&dst[j][c8]) = val;
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) dst_t[c8 + u][j] = e[u];
-    }
-  }
-}
-
-// A-operand fragments of this thread's rows r and r + 8, all 64 head dims,
-// straight from device memory; rows at or past L are 0.
-__device__ __forceinline__ void load_a(const bf16* __restrict__ src, int C, int r, int L,
-                                       uint32_t (&a)[4][4]) {
-  const int t = threadIdx.x & 3;
-  const bool ok0 = r < L, ok1 = r + 8 < L;
-  const bf16* p0 = src + (long long)r * C;
-  const bf16* p1 = src + (long long)(r + 8) * C;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = ok0 ? ld32(p0 + c) : 0u;
-    a[kk][1] = ok1 ? ld32(p1 + c) : 0u;
-    a[kk][2] = ok0 ? ld32(p0 + c + 8) : 0u;
-    a[kk][3] = ok1 ? ld32(p1 + c + 8) : 0u;
-  }
-}
-
-// Accumulator tiles of one product rounded to bf16 as the A operand of the next.
-__device__ __forceinline__ void pack_a(const float (&s)[8][4], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-// acc (16 x 64) += A (16 x 64) * B (64 x 64), B stored bs[n][k].
-__device__ __forceinline__ void mma_acc(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16 (*bs)[PT_PAD]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t b[2] = {ld32(&bs[j * 8 + g][kk * 16 + 2 * t]),
-                             ld32(&bs[j * 8 + g][kk * 16 + 8 + 2 * t])};
-      mma_bf16_16816(acc[j], a[kk], b);
-    }
-  }
-}
-
-// Rows r and r + 8 of a 16 x 64 accumulator to a merged (L, C) bf16 matrix.
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, int C, int r, int L,
-                                           const float (&acc)[8][4], float s0, float s1) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int jd = 0; jd < 8; ++jd) {
-    const int col = jd * 8 + 2 * t;
-    if (r < L)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * C + col) =
-          __floats2bfloat162_rn(acc[jd][0] * s0, acc[jd][1] * s0);
-    if (r + 8 < L)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r + 8) * C + col) =
-          __floats2bfloat162_rn(acc[jd][2] * s1, acc[jd][3] * s1);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward: block = (64-query tile, head, batch), warp = 16 queries.
-
-template <int kRow>
-__global__ void __launch_bounds__(128)
-ptrain_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                      int Lq, int Lk, int H, Ends ends) {
-  __shared__ __align__(16) bf16 ks[PT_T][PT_PAD];  // K [key][d]: B of s = q k^T
-  __shared__ __align__(16) bf16 vt[PT_D][PT_PAD];  // V^T [d][key]: B of o += p v
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * PT_T;
-  const int C = H * PT_D;
-  const bf16* qb = q + (long long)b * Lq * C + h * PT_D;
-  const bf16* kb = k + (long long)b * Lk * C + h * PT_D;
-  const bf16* vb = v + (long long)b * Lk * C + h * PT_D;
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const int kend_a = key_end(ends, min(ra, Lq - 1), Lk);
-  const int kend_b = key_end(ends, min(rb, Lq - 1), Lk);
-  const int kend = key_end(ends, min(q0 + PT_T - 1, Lq - 1), Lk);
-
-  uint32_t qa[4][4];
-  load_a(qb, C, ra, Lq, qa);
-  float o[8][4];
-  zero_acc(o);
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += PT_T) {
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile(kb, C, k0, Lk, ks, nullptr);
-    load_tile(vb, C, k0, Lk, nullptr, vt);
-    __syncthreads();
-
-    float s[8][4];
-    zero_acc(s);
-    mma_acc(s, qa, ks);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < (e < 2 ? kend_a : kend_b) ? s[j][e] : -INFINITY;
-        s[j][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // key 0 is visible from every query, so m is finite after the first tile
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 0 on the first tile
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - (e < 2 ? mn0 : mn1));
-        s[j][e] = p;
-        if (e < 2) sum0 += p; else sum1 += p;
-      }
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int jd = 0; jd < 8; ++jd) {
-      o[jd][0] *= alpha0;
-      o[jd][1] *= alpha0;
-      o[jd][2] *= alpha1;
-      o[jd][3] *= alpha1;
-    }
-    uint32_t pa[4][4];
-    pack_a(s, pa);
-    mma_acc(o, pa, vt);
-  }
-
-  const float la = l0 > 0.f ? l0 : 1.f, lb = l1 > 0.f ? l1 : 1.f;
-  store_rows(out + (long long)b * Lq * C + h * PT_D, C, ra, Lq, o, 1.f / la, 1.f / lb);
-  if (t == 0) {
-    float* lse_bh = lse + ((long long)b * H + h) * Lq;
-    if (ra < Lq) lse_bh[ra] = m0 + logf(la);
-    if (rb < Lq) lse_bh[rb] = m1 + logf(lb);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward on Hopper (see the note at the top). Dynamic shared memory
+// bf16 kernels on Hopper (see the note at the top). Dynamic shared memory
 // from a 1024-byte aligned base; every tile is 64 rows of one head's 64
 // lanes (128 bytes), 128-byte swizzled, as TMA writes it and wgmma reads it.
 
@@ -311,11 +141,17 @@ ptrain_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #define BW_QD_STAGES 3             // dK/dV: Q+dO tile pairs (+ lse, delta) in the ring
 #define BW_STAT (2 * PT_T * 4)     // bytes of a query tile's 64 lse and 64 delta values
 #define BW_LOG2E 1.4426950408889634f
+#define BW_LN2 0.6931471805599453f
 // Q, dO, the K/V ring; + room to align the base, + the mbarriers
 #define BW_DQ_SMEM ((2 + 2 * BW_KV_STAGES) * BW_TILE + 1024 + (1 + BW_KV_STAGES) * 8)
 // K, V, the Q/dO ring, the lse/delta ring; + alignment, + mbarriers
 #define BW_DKV_SMEM \
   ((2 + 2 * BW_QD_STAGES) * BW_TILE + BW_QD_STAGES * BW_STAT + 1024 + (1 + BW_QD_STAGES) * 8)
+#define FW_KSTAGES 2  // forward: K tiles in their ring
+#define FW_VSTAGES 3  // forward: V tiles in theirs
+// forward: Q, the K ring, the V ring; + alignment, + the mbarriers
+#define FW_SMEM \
+  ((1 + FW_KSTAGES + FW_VSTAGES) * BW_TILE + 1024 + (1 + FW_KSTAGES + FW_VSTAGES) * 8)
 
 // Query rows of the lse/delta scratch per (batch, head): Lq rounded up to
 // whole 64-row tiles, so that every tile's 64 values are one aligned bulk copy.
@@ -348,6 +184,181 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, int C, int r, 
     if (r + 8 < L)
       *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r + 8) * C + col) =
           __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// bf16 forward: block = (64-query tile, head, batch), one warpgroup; warp
+// w owns queries 16 w .. 16 w + 15. Thread 0 streams the K and V tiles of
+// [0, kend) into their rings; the warpgroup computes S = Q K^T and O += P V
+// over each of them with wgmma. The blocks of a (head, batch) start with
+// the last query tile, whose key range is longest, so the short tiles fill
+// the tail of the grid. (Two warpgroups sharing the rings over 128 queries,
+// and one 3-stage K+V pair ring as in dQ, measured slower: PERF.md.)
+template <int kRow>
+__global__ void __launch_bounds__(128)
+ptrain_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                        float* __restrict__ lse, int Lq, int Lk, int H, Ends ends) {
+  extern __shared__ uint8_t bw_smem[];
+  const uint32_t base = (smem_u32(bw_smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wq = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform, as in dQ
+  const int g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * PT_T;
+  const int C = H * PT_D;
+  const uint32_t sq = base, sk = base + BW_TILE;  // Q, then the K ring
+  const uint32_t sv = sk + FW_KSTAGES * BW_TILE;    // the V ring
+  const uint32_t q_full = sv + FW_VSTAGES * BW_TILE;  // Q landed
+  const uint32_t kfull = q_full + 8;                  // + 8 s: K tile of stage s landed
+  const uint32_t vfull = kfull + 8 * FW_KSTAGES;      // + 8 s: V tile of stage s landed
+  // key tiles [0, kend) hold every key a query of the block sees; below
+  // kall, every query of the block sees every key
+  const int kend = key_end(ends, min(q0 + PT_T - 1, Lq - 1), Lk);
+  const int kall = key_end(ends, q0, Lk);
+  const int nkt = (kend + PT_T - 1) / PT_T;
+  // thread 0 copies key tile t of K or V into its stage; rows >= Lk lie
+  // outside the tensor maps and arrive as zeros
+  auto load_k = [&](int t) {
+    const int st = t % FW_KSTAGES;
+    mbar_arrive_expect_tx(kfull + 8 * st, BW_TILE);
+    tma_load_3d(sk + st * BW_TILE, &tm_k, kfull + 8 * st, h * PT_D, t * PT_T, b);
+  };
+  auto load_v = [&](int t) {
+    const int st = t % FW_VSTAGES;
+    mbar_arrive_expect_tx(vfull + 8 * st, BW_TILE);
+    tma_load_3d(sv + st * BW_TILE, &tm_v, vfull + 8 * st, h * PT_D, t * PT_T, b);
+  };
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FW_KSTAGES + FW_VSTAGES; ++s) mbar_init(kfull + 8 * s, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(q_full, BW_TILE);  // rows >= Lq arrive as zeros
+    tma_load_3d(sq, &tm_q, q_full, h * PT_D, q0, b);
+    for (int t = 0; t < FW_KSTAGES && t < nkt; ++t) load_k(t);
+    load_v(0);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // this thread's rows ra and rb see keys [0, kend_a) and [0, kend_b)
+  const int ra = q0 + wq * 16 + g, rb = ra + 8;
+  const int kend_a = key_end(ends, min(ra, Lq - 1), Lk);
+  const int kend_b = key_end(ends, min(rb, Lq - 1), Lk);
+  // Q: A of S = Q K^T, K-major; 16 of d (32 bytes of the swizzled row) per step
+  const uint64_t dsc_q = wgmma_desc_sw128(sq, 16, 1024);
+  float o[32], s[32];
+  uint32_t pa[4][4];  // P of the previous tile in bf16, the A operand of O += P V
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // running max of rows ra and rb in log2 units, this thread's share of
+  // their sums, and the factor O takes before the next P V
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, alpha0 = 1.f, alpha1 = 1.f;
+
+  // Online softmax of S (tile it) in place: s becomes p = 2^(s log2e - m)
+  // in fp32 (one fma and one ex2 per logit). Only a tile that reaches past
+  // kall (the block-causal diagonal, or a ragged last tile at Lk) is masked
+  // per element, to -inf: a zero-filled key row past Lk has s = 0.
+  auto softmax = [&](int it) {
+    const int k0 = it * PT_T;
+    if (k0 + PT_T > kall) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+        if (col >= ((i & 2) ? kend_b : kend_a)) s[i] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // key 0 is visible from every query, so m is finite after the first tile
+    const float mn0 = fmaxf(m0, mx0 * BW_LOG2E), mn1 = fmaxf(m1, mx1 * BW_LOG2E);
+    alpha0 = fast_exp2(m0 - mn0);  // 0 on the first tile (m = -inf)
+    alpha1 = fast_exp2(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = fast_exp2(fmaf(s[i], BW_LOG2E, (i & 2) ? -mn1 : -mn0));
+      s[i] = p;
+      if (i & 2) sum1 += p;
+      else sum0 += p;
+    }
+    l0 = l0 * alpha0 + sum0;  // l sums the fp32 p, before P rounds to bf16
+    l1 = l1 * alpha1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  };
+  // O += P V over V tile t, once it has landed: B stored [key][d] = [k][n],
+  // MN-major (the transpose bit); 16 keys (2048 bytes) per step
+  auto issue_pv = [&](int t) {
+    const int st = t % FW_VSTAGES;
+    mbar_wait(vfull + 8 * st, (t / FW_VSTAGES) & 1);
+    const uint64_t dsc_v = wgmma_desc_sw128(sv + st * BW_TILE, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_tb(o, pa[kk], dsc_v + 128 * kk);
+    wgmma_commit();
+  };
+  mbar_wait(q_full, 0);
+
+  // Iteration it: S = Q K_it^T is issued once K_it has landed, then O +=
+  // P_{it-1} V_{it-1}. When S is done, K_it's stage and V_{it-2}'s are free:
+  // thread 0 refills them with K_{it+2} and V_{it+1}. The softmax of S runs
+  // while the tensor cores still work on P V; O is rescaled once P V is done.
+  for (int it = 0; it < nkt; ++it) {
+    const int kst = it % FW_KSTAGES;
+    mbar_wait(kfull + 8 * kst, (it / FW_KSTAGES) & 1);
+    // K tile: B of S = Q K^T stored [key][d], K-major
+    const uint64_t dsc_k = wgmma_desc_sw128(sk + kst * BW_TILE, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(s, dsc_q + 2 * kk, dsc_k + 2 * kk, kk > 0);
+    wgmma_commit();
+    if (it > 0) {
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S is done; P V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    wgmma_fence_regs(s);
+    named_barrier(1, 128);  // every warp is past S_it and P_{it-2} V_{it-2}
+    if (tid == 0) {
+      if (it + FW_KSTAGES < nkt) load_k(it + FW_KSTAGES);
+      if (it + 1 < nkt) load_v(it + 1);
+    }
+    softmax(it);
+    wgmma_wait<0>();
+    wgmma_fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? alpha1 : alpha0;
+    pack_frag(s, pa);
+  }
+  wgmma_fence();
+  issue_pv(nkt - 1);
+  wgmma_wait<0>();
+  wgmma_fence_regs(o);
+
+  // out = o / l_safe in bf16 (l_safe = 1 where l = 0), lse = m + log l_safe
+  // in natural-log units, as the backward reads it
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float la = l0 > 0.f ? l0 : 1.f, lb = l1 > 0.f ? l1 : 1.f;
+  const float ia = 1.f / la, ib = 1.f / lb;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? ib : ia;
+  store_acc(out + (long long)b * Lq * C + h * PT_D, C, ra, Lq, o);
+  if (tq == 0) {
+    float* lse_bh = lse + ((long long)b * H + h) * Lq;
+    if (ra < Lq) lse_bh[ra] = m0 * BW_LN2 + logf(la);
+    if (rb < Lq) lse_bh[rb] = m1 * BW_LN2 + logf(lb);
   }
 }
 
@@ -1036,6 +1047,17 @@ static int make_ends(const int* ends, int n_ends, Ends* out) {
   return 0;
 }
 
+// The shared-memory attribute of one kernel, set once per device.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, int bytes, bool* ready, int device) {
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (ready[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) ready[device] = true;
+  return err;
+}
+
 template <int kRow>
 static int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                       int Lq, int Lk, int H, int D, const int* ends, int n_ends, int dtype,
@@ -1052,25 +1074,24 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* out, vo
                                                       (const float*)v, (float*)out, (float*)lse,
                                                       Lq, Lk, H, e);
   } else if (dtype == kBF16) {
+    // merged (B, L, H * 64) tensors, rows of C elements; the wrapper checks
+    // 16-byte alignment (TMA needs it)
+    const long long C = (long long)H * PT_D;
+    CUtensorMap tm_q, tm_k, tm_v;
+    if ((err = tile_tensor_map(&tm_q, q, Lq * C, C, B, Lq, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_k, k, Lk * C, C, B, Lk, H)) != cudaSuccess ||
+        (err = tile_tensor_map(&tm_v, v, Lk * C, C, B, Lk, H)) != cudaSuccess)
+      return (int)err;
+    static bool ready[64] = {};
+    if ((err = allow_smem(ptrain_fwd_wgmma_kernel<kRow>, FW_SMEM, ready, device)) != cudaSuccess)
+      return (int)err;
     const dim3 grid((unsigned)((Lq + PT_T - 1) / PT_T), (unsigned)H, (unsigned)B);
-    ptrain_fwd_mma_kernel<kRow><<<grid, 128, 0, st>>>((const bf16*)q, (const bf16*)k,
-                                                      (const bf16*)v, (bf16*)out, (float*)lse,
-                                                      Lq, Lk, H, e);
+    ptrain_fwd_wgmma_kernel<kRow><<<grid, 128, FW_SMEM, st>>>(tm_q, tm_k, tm_v, (bf16*)out,
+                                                             (float*)lse, Lq, Lk, H, e);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// The shared-memory attribute of one kernel, set once per device.
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, int bytes, bool* ready, int device) {
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (ready[device]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) ready[device] = true;
-  return err;
 }
 
 template <int kRow>

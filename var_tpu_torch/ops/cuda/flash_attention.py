@@ -283,7 +283,8 @@ def paired_train_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
                      ends: Optional[Tuple[int, ...]]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of :func:`flash_attention_paired_train` on pre-scaled q:
     (out, lse). CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel: in bf16 the wgmma kernel, which reads q, k and v by TMA (hence
+    contiguous, 16-byte aligned tensors), in fp32 the CUDA-core one."""
     if qs.device.type == "cpu":
         return paired_train_fwd_plain(qs, k, v, num_heads, ends)
     _check_train("paired_train_fwd", num_heads, (qs,), (k, v))
@@ -413,7 +414,8 @@ def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ends: Optional[Tuple[int, ...]]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of :func:`flash_attention` on pre-scaled contiguous BLHD q, k,
     v: (out, lse). CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel: in bf16 the wgmma kernel, which reads q, k and v by TMA
+    (hence contiguous, 16-byte aligned tensors), in fp32 the CUDA-core one."""
     if qs.device.type == "cpu":
         return flash_attention_fwd_plain(qs, k, v, ends)
     b, lq, h, _ = qs.shape
