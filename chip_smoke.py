@@ -45,6 +45,14 @@ just after:
   for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
   with each.
 
+Rows 1 and 3 (modulated LayerNorm, top-k/top-p bound) are held against
+their plain versions and timed at every stage shape of the d16 CFG decode
+(``stage_ms``; ``per_batch_ms`` sums the launches a sampling batch makes:
+2 x depth per stage for row 1, one for row 3), row 3 at k 1, 900 and V on
+rows with real ties, two launches bit-identical; beside each, the nearest
+single library call (not the same function): ``F.layer_norm`` without
+affine, ``torch.topk``.
+
 Rows 2 and 4 (decode attention) are held at every stage shape of the
 chunked, prealloc and ``kv_window=2`` decodes over cache buffers whose rows
 from the cache length on are NaN, row 4 also on the raw fused qkv with its
@@ -218,6 +226,12 @@ def _stage_lens():
 
 
 def phase_kernel_ln(dev):
+    """Row 1 at every stage shape of the d16 CFG decode, (2B, pn^2, C) with
+    strided modulation rows as on the main path: held against the plain
+    version in fp32 and bf16, timed in bf16 at each stage; ``per_batch_ms``
+    sums 2 x depth launches per stage; ``ms`` is the last stage's."""
+    import torch.nn.functional as F
+
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -225,7 +239,7 @@ def phase_kernel_ln(dev):
     p6 = torch.randn(b2, 6, C, generator=g, device=dev) * 0.3
     scale, shift = p6[:, 2], p6[:, 4]  # strided rows, as on the main path
     lens, _ = _stage_lens()
-    errs = {}
+    errs, stage_ms, stage_bound_ms = {}, [], []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[("modulated_layernorm", dtype)]
         worst = 0.0
@@ -236,53 +250,102 @@ def phase_kernel_ln(dev):
             if not ok:
                 raise AssertionError(f"modulated_layernorm {dtype} l={l}: max err {err}")
             worst = max(worst, err)
+            if dtype == torch.bfloat16:
+                stage_ms.append(device_ms(lambda: modulated_layernorm(x, scale, shift), 50))
+                nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
+                stage_bound_ms.append(bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0])
         errs[str(dtype)] = worst
-    x = (torch.randn(b2, lens[-1], C, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
-    ms = device_ms(lambda: modulated_layernorm(x, scale, shift), 50)
     wall = call_ms(lambda: modulated_layernorm(x, scale, shift), 50)
     plain_ms = device_ms(lambda: modulated_layernorm_plain(x, scale, shift), 20)
+    # the library yardstick (never used by the port): the nearest single call
+    library_ms = device_ms(lambda: F.layer_norm(x, (C,), eps=1e-6), 50)
     nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
     bound_ms, bound_by = bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)
+    per_stage = 2 * DEPTH
     return {"name": "modulated_layernorm", "max_abs_err": errs[str(torch.bfloat16)],
             "max_abs_err_fp32": errs[str(torch.float32)],
-            "tol": tolerances("modulated_layernorm"), "ms": ms, "call_ms": wall,
+            "tol": tolerances("modulated_layernorm"), "ms": stage_ms[-1], "call_ms": wall,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": [b2, lens[-1], C], "dtype": "bfloat16"}
+            "library_ms": library_ms,
+            "library": "F.layer_norm(x, (C,)) without affine: the nearest single call, "
+                       "not the same function",
+            "stage_rows": [b2 * l for l in lens], "stage_ms": stage_ms,
+            "stage_bound_ms": stage_bound_ms, "launches_per_stage": per_stage,
+            "per_batch_ms": per_stage * sum(stage_ms),
+            "per_batch_bound_ms": per_stage * sum(stage_bound_ms),
+            "shape": [b2, lens[-1], C], "dtype": "bfloat16"}
+
+
+def select_logits(g, rows: int, dev) -> torch.Tensor:
+    """(rows, V) fp32 logits: by row, in turn, N(0, 9) in fp32, the same
+    rounded to bf16 (a bf16 head's output: real ties) and a coarse grid
+    (N(0, 4) rounded to halves, through fp16: about 13 distinct values, so
+    the k-th value and the top-p threshold fall inside tie groups)."""
+    logits = torch.randn(rows, V, generator=g, device=dev) * 3
+    logits[1::3] = logits[1::3].bfloat16().float()
+    grid = torch.round(torch.randn(rows, V, generator=g, device=dev) * 2) / 2
+    logits[2::3] = grid[2::3].half().float()
+    return logits
 
 
 def phase_kernel_select(dev):
+    """Row 3 at every stage shape of the d16 CFG decode, (B pn^2, V) rows
+    with real ties: top-k bounds equal to the plain version's at k 1, 900
+    and V; top-p bounds at p 0.96 within the mass-gap rule; two launches on
+    the same logits bit-identical. Timed at each stage at the main path's
+    (k 900, p 0.96) and at inpainting's k 1; ``per_batch_ms`` sums one
+    launch per stage; ``ms`` is the last stage's."""
     from var_tpu_torch.ops.cuda.select import (bound_mass_gap, topk_topp_bound,
                                                topk_topp_bound_plain)
 
     g = torch.Generator(device=dev).manual_seed(2)
     lens, _ = _stage_lens()
-    worst, disputed, rows_total = 0.0, 0, 0
+    worst, disputed, rows_total, checks = 0.0, 0, 0, 0
+    stage_ms, stage_bound_ms, stage_k1_ms = [], [], []
     for l in lens:
-        logits = torch.randn(BATCH, l, V, generator=g, device=dev) * 3
-        tk = topk_topp_bound(logits, TOP_K, 0.0)
-        if not torch.equal(tk, topk_topp_bound_plain(logits, TOP_K, 0.0)):
-            raise AssertionError(f"topk_topp_bound top-k only, l={l}: bounds differ")
-        got = topk_topp_bound(logits, TOP_K, TOP_P)
-        want = topk_topp_bound_plain(logits, TOP_K, TOP_P)
-        err, n = bound_mass_gap(logits, tk, got, want, TOP_P)
-        if err > SELECT_MASS_TOL:
-            raise AssertionError(f"topk_topp_bound l={l}: {n} rows differ, mass gap {err}")
-        worst, disputed, rows_total = max(worst, err), disputed + n, rows_total + got.numel()
-    logits = torch.randn(BATCH, lens[-1], V, generator=g, device=dev) * 3
-    ms = device_ms(lambda: topk_topp_bound(logits, TOP_K, TOP_P), 20)
+        logits = select_logits(g, BATCH * l, dev)
+        for k in (1, TOP_K, 0):  # 0: no top-k, k = V
+            tk = topk_topp_bound(logits, k, 0.0)
+            if not torch.equal(tk, topk_topp_bound_plain(logits, k, 0.0)):
+                raise AssertionError(f"topk_topp_bound top-k only, k={k} l={l}: bounds differ")
+            got = topk_topp_bound(logits, k, TOP_P)
+            again = topk_topp_bound(logits, k, TOP_P)
+            if not (torch.equal(got, again) and torch.equal(tk, topk_topp_bound(logits, k, 0.0))):
+                raise AssertionError(f"topk_topp_bound k={k} l={l}: two launches differ")
+            want = topk_topp_bound_plain(logits, k, TOP_P)
+            err, n = bound_mass_gap(logits, tk, got, want, TOP_P)
+            if err > SELECT_MASS_TOL:
+                raise AssertionError(f"topk_topp_bound k={k} l={l}: {n} rows differ, "
+                                     f"mass gap {err}")
+            worst, disputed = max(worst, err), disputed + n
+            rows_total, checks = rows_total + got.numel(), checks + 1
+        # timed on N(0, 9) logits (ties only by chance), as the kernel table has been
+        logits = torch.randn(BATCH * l, V, generator=g, device=dev) * 3
+        stage_ms.append(device_ms(lambda: topk_topp_bound(logits, TOP_K, TOP_P), 20))
+        stage_k1_ms.append(device_ms(lambda: topk_topp_bound(logits, 1, TOP_P), 20))
+        # the function reads each logit once and writes one int32 per row; a
+        # minimal selection does per logit a key, an exp, a mass add and one
+        # histogram count in each of 2 x 4 radix-256 passes
+        stage_bound_ms.append(bound(logits.numel() * 4 + logits.shape[0] * 4,
+                                    logits.numel() * (3 + 2 * 4), FP32_FLOPS)[0])
     wall = call_ms(lambda: topk_topp_bound(logits, TOP_K, TOP_P), 20)
     plain_ms = device_ms(lambda: topk_topp_bound_plain(logits, TOP_K, TOP_P), 3, warmup=1)
-    # the function reads each logit once and writes one int32 per row; a
-    # minimal selection does per logit a key, an exp, a mass add and one
-    # histogram count in each of 2 x 4 radix-256 passes (the kernel's 2 x 32
-    # binary descent steps are its own choice, not the function's work)
-    bound_ms, bound_by = bound(logits.numel() * 4 + logits.numel() // V * 4,
+    # the library yardstick (never used by the port): the nearest single call
+    library_ms = device_ms(lambda: torch.topk(logits, TOP_K), 20)
+    bound_ms, bound_by = bound(logits.numel() * 4 + logits.shape[0] * 4,
                                logits.numel() * (3 + 2 * 4), FP32_FLOPS)
     return {"name": "topk_topp_bound", "max_abs_err": worst, "rows_differ": disputed,
-            "rows": rows_total,
-            "tol": f"top-k bounds equal; top-p mass gap <= {SELECT_MASS_TOL}",
-            "ms": ms, "call_ms": wall, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": [BATCH, lens[-1], V],
+            "rows": rows_total, "checks": checks,
+            "tol": f"top-k bounds equal; top-p mass gap <= {SELECT_MASS_TOL}; "
+                   "two launches equal",
+            "ms": stage_ms[-1], "call_ms": wall, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": f"torch.topk(logits, {TOP_K}): the nearest single call, not the same "
+                       "function",
+            "stage_rows": [BATCH * l for l in lens], "stage_ms": stage_ms,
+            "stage_bound_ms": stage_bound_ms, "stage_k1_ms": stage_k1_ms,
+            "launches_per_stage": 1, "per_batch_ms": sum(stage_ms),
+            "per_batch_bound_ms": sum(stage_bound_ms), "shape": [BATCH * lens[-1], V],
             "dtype": "float32"}
 
 

@@ -62,6 +62,74 @@ def test_cuda_modulated_layernorm_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 1280, 1536, 1920, 2304, 1000])
+@pytest.mark.parametrize("l", [1, 256])
+def test_cuda_modulated_layernorm_every_width(cuda, dtype, c, l):
+    """Each published width C = 64 * depth has its own instantiation (chunks
+    per lane); C 1000 takes the generic one, its last chunks masked. 16 rows
+    (the first stage, 2B x 1) and 4096 (the last, 2B x 256), with the
+    modulation as strided rows of the (B, 6, C) AdaLN table."""
+    x, scale, shift = (torch.from_numpy(a).to(cuda) for a in _ln_inputs((16, l, c), c + l))
+    p6 = torch.stack([scale, scale, scale, shift, shift, shift], 1)
+    x = x.to(dtype)
+    got = modulated_layernorm(x, p6[:, 2], p6[:, 4])
+    torch.cuda.synchronize()
+    want = modulated_layernorm_plain(x, p6[:, 2], p6[:, 4])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_modulated_layernorm_unaligned_modulation_rows(cuda, dtype):
+    """Modulation rows that do not start on 16-byte boundaries (row stride
+    C + 1) take the kernel's one-by-one loads."""
+    x, scale, shift = (torch.from_numpy(a).to(cuda) for a in _ln_inputs((3, 20, 1024), 9))
+    wide = torch.zeros(3, 2, 1025, device=cuda)
+    wide[:, 0, 1:], wide[:, 1, 1:] = scale, shift
+    sc, sh = wide[:, 0, 1:], wide[:, 1, 1:]
+    x = x.to(dtype)
+    got = modulated_layernorm(x, sc, sh)
+    torch.cuda.synchronize()
+    want = modulated_layernorm_plain(x, sc, sh)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _select_rows(rows, v, seed, cuda):
+    """Half N(0, 16) rows, half the fp16-grid rows of test_torch_kernels.py
+    (about 13 distinct values: real ties at the k-th value and at the top-p
+    threshold)."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((rows, v)) * 4).astype(np.float32)
+    grid = (np.round(rng.standard_normal((rows, v)) * 2.0) / 2.0).astype(np.float16)
+    logits[1::2] = grid[1::2].astype(np.float32)
+    return torch.from_numpy(logits).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [4096, 1000])
+@pytest.mark.parametrize("rows", [8, 2048])
+@pytest.mark.parametrize("k", [1, 900, 0])
+def test_cuda_topk_topp_bound_stage_shapes(cuda, v, rows, k):
+    """The first and last decode stage's row counts (each with its own
+    threads per row), V 4096 and 1000 (no multiple of 16 bytes x 32: the
+    scalar loads), k 1, 900 and V (``top_k`` 0), on tie-heavy rows: top-k
+    bounds equal to the plain version's, top-p (0.96) bounds within the
+    mass-gap rule, and two launches bit-identical."""
+    logits = _select_rows(rows, v, rows + v + k, cuda)
+    tk = topk_topp_bound(logits, k, 0.0)
+    got = topk_topp_bound(logits, k, 0.96)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(tk, topk_topp_bound_plain(logits, k, 0.0), rtol=0, atol=0)
+    assert torch.equal(topk_topp_bound(logits, k, 0.0), tk)
+    assert torch.equal(topk_topp_bound(logits, k, 0.96), got)
+    gap, _ = bound_mass_gap(logits, tk, got, topk_topp_bound_plain(logits, k, 0.96), 0.96)
+    assert gap <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,p", [(900, 0.96), (1, 0.0), (0, 0.5)])
 def test_cuda_topk_topp_bound_matches_plain(cuda, k, p):
     """Top-k bounds are exact counts and must be equal; top-p bounds may

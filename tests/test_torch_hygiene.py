@@ -164,6 +164,41 @@ def test_profile_train_kind_groups_the_training_attention_kernels(name, kind):
     assert _kind(name) == kind
 
 
+DECODE_KERNEL_KINDS = [
+    ("void (anonymous namespace)::topk_topp_bound_kernel<1024>(float const*, int*, int, int, "
+     "float)", "topk_topp_bound"),
+    ("void (anonymous namespace)::topk_topp_bound_kernel<256>(float const*, int*, int, int, "
+     "float)", "topk_topp_bound"),
+    ("_ZN41_GLOBAL__N__1190a843_9_select_cu_3d17efc422topk_topp_bound_kernelILi512EEEvPKfPiiif",
+     "topk_topp_bound"),
+    ("void (anonymous namespace)::modulated_ln_kernel<__nv_bfloat16, 4>(__nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, long long, int, int, long long, long long, "
+     "float, bool)", "modulated_ln"),
+    ("void (anonymous namespace)::modulated_ln_kernel<float, 18>(float const*, float const*, "
+     "float const*, float*, long long, int, int, long long, long long, float, bool)",
+     "modulated_ln"),
+    ("_ZN44_GLOBAL__N__bf3534bb_11_fused_ln_cu_87a5bffb19modulated_ln_kernel"
+     "I13__nv_bfloat16Li4EEEvPKT_PKfS6_PS2_xiixxfb", "modulated_ln"),
+]
+
+
+@pytest.mark.parametrize("name,kind", DECODE_KERNEL_KINDS)
+def test_profile_decode_kind_groups_rows_1_and_3(name, kind):
+    """profile_decode's ``_kind`` puts every instantiation of the row 1 and
+    row 3 kernels under its row, by demangled and by mangled name."""
+    from var_tpu_torch.apps.profile_decode import _kind
+
+    assert _kind(name) == kind
+
+
+def test_stage_kernels_raises_without_gpu():
+    _no_gpu()
+    from var_tpu_torch.apps.stage_kernels import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--iters", "1"])
+
+
 def test_build_vae_train_default_device_raises_without_gpu():
     _no_gpu()
     from var_tpu_torch.models import build_vae_train

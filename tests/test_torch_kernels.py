@@ -32,7 +32,7 @@ def _ln_inputs(shape, seed):
     return x, scale, shift
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 128), (2, 9, 256)])
+@pytest.mark.parametrize("shape", [(3, 37, 128), (2, 9, 256), (2, 5, 1280), (1, 3, 2304)])
 def test_modulated_layernorm_matches_jax(shape):
     x, scale, shift = _ln_inputs(shape, sum(shape))
     want = np.asarray(jax_modulated_layernorm(jnp.asarray(x), jnp.asarray(scale),
@@ -77,15 +77,19 @@ def _logits(kind, seed):
     rng = np.random.default_rng(seed)
     if kind == "normal":
         return (rng.standard_normal((3, 7, 1024)) * 4).astype(np.float32)
+    if kind == "v1000":  # V no multiple of 4 x 32: the kernel's scalar-load path
+        return (rng.standard_normal((5, 1000)) * 4).astype(np.float32)
     # fp16-rounded coarse grid: real ties at the k-th value
     grid = np.round(rng.standard_normal((4, 512)) * 2.0) / 2.0
     return grid.astype(np.float16).astype(np.float32)
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties"])
-@pytest.mark.parametrize("k,p", [(10, 0.0), (50, 0.9), (0, 0.8), (900, 0.96), (100, 0.0)])
+@pytest.mark.parametrize("kind", ["normal", "ties", "v1000"])
+@pytest.mark.parametrize("k,p", [(10, 0.0), (50, 0.9), (0, 0.8), (900, 0.96), (100, 0.0),
+                                 (1, 0.0), (1, 0.96), (0, 0.96)])
 def test_topk_topp_bound_matches_jax(kind, k, p):
-    """The (k, p) grid of test_select_kernel.py plus tie-heavy rows: the
+    """The (k, p) grid of test_select_kernel.py plus tie-heavy rows, V 1000,
+    k 1 (inpainting's greedy top-k) and k = V (``top_k`` 0) with top-p: the
     int32 bounds are equal, not just the candidate sets."""
     logits = _logits(kind, k + int(p * 10))
     k = min(k, logits.shape[-1])
@@ -151,6 +155,25 @@ def test_block_causal_attention_matches_jax():
     got = attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 0.25,
                     scale_ends=ends)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_wrappers_name_their_width_limits():
+    """The kernels hold a row in one warp's registers (row 1) or one block's
+    shared memory (row 3); wider rows are refused before any device is
+    touched, with the limit in the message."""
+    from var_tpu_torch.ops.cuda.fused_ln import _LN_MAX_ROW_BYTES
+    from var_tpu_torch.ops.cuda.select import _SEL_MAX_V
+
+    c = _LN_MAX_ROW_BYTES // 2 + 8  # bf16, 16-byte rows
+    x = torch.empty(1, 2, c, dtype=torch.bfloat16, device="meta")
+    s = torch.empty(1, c, device="meta")
+    with pytest.raises(ValueError, match=f"exceed {_LN_MAX_ROW_BYTES} bytes"):
+        modulated_layernorm(x, s, s)
+    with pytest.raises(ValueError, match=f"outside \\[1, {_SEL_MAX_V}\\]"):
+        topk_topp_bound(torch.empty(2, _SEL_MAX_V + 1, device="meta"), 5, 0.5)
+    # within the limits, a meta tensor reaches the device check
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        topk_topp_bound(torch.empty(2, _SEL_MAX_V, device="meta"), 5, 0.5)
 
 
 def test_wrappers_refuse_other_devices():

@@ -5,7 +5,9 @@ Replaces ``var_tpu/ops/pallas/fused_ln.py::modulated_layernorm``:
 ``LN(x) * (scale + 1) + shift`` over the last dim of (B, L, C) with
 per-sample (B, C) modulation, fp32 statistics in E[x^2] - mu^2 form and the
 normalise/affine steps in the input dtype (``models/var.py::_ln``). Memory
-bound on the H100; see the source note in the .cu file for the design.
+bound on the H100; one warp per row, the row held in registers, so rows
+of at most ``_LN_MAX_ROW_BYTES`` (bf16 C <= 8192, fp32 C <= 4096); see the
+source note in the .cu file for the design.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from __future__ import annotations
 import torch
 
 from var_tpu_torch.ops.cuda import build
+
+# 32 lanes x 32 chunks of 16 bytes: the widest instantiation of the kernel
+_LN_MAX_ROW_BYTES = 32 * 32 * 16
 
 
 def modulated_layernorm_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -34,16 +39,19 @@ def modulated_layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
     the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return modulated_layernorm_plain(x, scale, shift, eps)
-    build.require_cuda("modulated_layernorm", x, scale, shift)
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("modulated_layernorm: x must be a contiguous (B, L, C) tensor")
     b, l, c = x.shape
     if (c * x.element_size()) % 16 or x.data_ptr() % 16:  # 16-byte row loads
         raise ValueError(f"modulated_layernorm: rows of {c} {x.dtype} are not 16-byte aligned")
+    if c * x.element_size() > _LN_MAX_ROW_BYTES:  # the row lives in one warp's registers
+        raise ValueError(f"modulated_layernorm: rows of {c} {x.dtype} exceed "
+                         f"{_LN_MAX_ROW_BYTES} bytes")
     for name, t in (("scale", scale), ("shift", shift)):
         if t.dtype != torch.float32 or tuple(t.shape) != (b, c) or t.stride(1) != 1:
             raise ValueError(f"modulated_layernorm: {name} must be float32 (B, C) with unit "
                              f"last stride, got {t.dtype} {tuple(t.shape)} {t.stride()}")
+    build.require_cuda("modulated_layernorm", x, scale, shift)
     out = torch.empty_like(x)
     rc = build.lib().var_modulated_layernorm(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b * l, l, c,

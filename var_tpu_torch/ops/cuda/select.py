@@ -4,9 +4,11 @@
 Replaces ``var_tpu/ops/pallas/select.py::topk_topp_bound`` and carries its
 ``float_key``. Per row of fp32 logits the bound is one int32 key; position
 v is a candidate iff ``float_key(l_v) >= bound``. Top-k finds the exact
-k-th largest key by a 32-step MSB descent (ties at the k-th value kept);
-top-p runs the same descent, strict, over the candidates' softmax mass;
-``bound = max(tk, tq + 1)``. No sort anywhere.
+k-th largest key (ties at the k-th value kept); top-p the largest T with
+mass(key > T) >= p * M over the candidates' softmax mass; ``bound =
+max(tk, tq + 1)``. No sort anywhere: the plain version descends bit by bit
+(32 steps), the kernel runs a radix select of 4 byte-wide passes, the
+masses summed in fixed point so the bound does not depend on their order.
 """
 
 from __future__ import annotations
@@ -16,9 +18,12 @@ import torch
 from var_tpu_torch.ops.cuda import build
 
 INT32_MIN = -(2 ** 31)
-# 8 bytes of dynamic shared memory per logit, next to the kernel's 264 static
-# bytes (two 33-word reduction arrays), within the 232,448-byte opt-in limit
-_SEL_MAX_V = (232_448 - 2 * 33 * 4) // 8
+# dynamic shared memory: the kernel's 8336-byte head (its histograms, the
+# select state, per-warp maxima; select.cu's SelHead) and 8 bytes per logit
+# (its key and mass), within the 232,448-byte opt-in limit (and below 2^15
+# keys, so that no 32-bit part of a mass histogram can overflow)
+_SEL_HEAD_BYTES = 8336
+_SEL_MAX_V = (232_448 - _SEL_HEAD_BYTES) // 8
 
 
 def float_key(l: torch.Tensor) -> torch.Tensor:
@@ -85,12 +90,13 @@ def topk_topp_bound(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Ten
     means no top-k (k = V); ``top_p <= 0`` disables the mass threshold."""
     if logits.device.type == "cpu":
         return topk_topp_bound_plain(logits, top_k, top_p)
-    build.require_cuda("topk_topp_bound", logits)
     *lead, v = logits.shape
     if logits.dtype != torch.float32 or not logits.is_contiguous():
         raise ValueError("topk_topp_bound: logits must be contiguous float32")
     if not 1 <= v <= _SEL_MAX_V:
-        raise ValueError(f"topk_topp_bound: V={v} outside [1, {_SEL_MAX_V}]")
+        raise ValueError(f"topk_topp_bound: V={v} outside [1, {_SEL_MAX_V}]: a row's keys "
+                         "and masses live in one block's shared memory")
+    build.require_cuda("topk_topp_bound", logits)
     rows = logits.numel() // v
     bound = torch.empty(rows, dtype=torch.int32, device=logits.device)
     k = top_k if top_k > 0 else v
