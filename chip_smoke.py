@@ -5,12 +5,14 @@
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
 each against its plain PyTorch version at the d16 main-path shapes (rows
 1-7 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
-an unmasked Lq != Lk shape and a ragged L), then drives the port's five
+an unmasked Lq != Lk shape and a ragged L), then drives the port's six
 paths, each run with the launch counters set to 0 just before it and read
 just after:
 
 * sampling: a greedy fp32 decode through the kernels against the reference
-  fixture ``tests/fixtures/var_prod.npz``, then 256px class-conditional CFG
+  fixture ``tests/fixtures/var_prod.npz`` (the modules loaded by name, then
+  built again by ``models.from_pretrained_dict`` from a hub config and a
+  bundled state dict), then 256px class-conditional CFG
   sampling at d16 (depth 16, C = 1024, V = 4096, the 10-scale pyramid, the
   ch160 VQVAE decoder) with seeded random weights, bf16, cfg 1.5, top_k 900,
   top_p 0.96, 8 requests;
@@ -19,6 +21,15 @@ just after:
   equal the same step on the CPU, then d16 teacher-forced training (batch
   32, bf16 compute with fp32 parameters, remat 2, tclip 2, seeded random
   images and labels), one warm-up step and ten timed steps;
+* the ImageNet training CLI's loop (``apps/train.py``): the tokenizer from
+  a seeded ch160 ``.pth`` named by ``VAR_TPU_VAE_CKPT``, the d16 VAR, the
+  CLI's sampler and prefetching loader over 96 train and 32 val synthetic
+  256px images (numpy, from the loader's per-sample streams), 2 epochs of 3
+  steps at the same settings with eval every epoch and a checkpoint every 2
+  steps, exact launch counts; then, at depth 2 and the d16 width under
+  deterministic algorithms, a run stopped after its first mid-epoch
+  checkpoint and resumed through ``auto_resume`` must end with the
+  uninterrupted run's parameters and AdamW state, bit for bit;
 * zero-shot sampling: at the var_prod.npz geometry in fp32, the
   ``cache_impl="prealloc"`` greedy decode through ``flash_decode_paired``
   must reproduce ``dec_tokens``, and greedy inpainting, box editing,
@@ -147,15 +158,18 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
-          if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
-    if not by:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return by
+    # a session may come back without device events (it happened on row 3's
+    # 2 us launches at k 1): take up to three before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+        if by:
+            return by
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
 
 
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1015,15 +1029,12 @@ def _prod_models(root):
     return data, var.eval().requires_grad_(False), vae.eval().requires_grad_(False)
 
 
-def phase_parity(dev, root):
-    """Greedy fp32 decode through the kernels at the var_prod.npz geometry
-    (d16 width, depth 2, full pyramid, synthesized weights), TF32 off."""
+def _parity_decode(var, vae, data, dev):
+    """The greedy fp32 decode of var_prod.npz's labels, TF32 off, counted:
+    (tokens equal, tokens, f_hat max abs err, launches)."""
     from var_tpu_torch.device import fp32_exact
     from var_tpu_torch.engine.sampler import decode_tokens_cfg
 
-    data, var, vae = _prod_models(root)
-    var, vae = var.to(dev), vae.to(dev)
-    depth, sn = var.cfg.depth, len(var.cfg.patch_nums)
     kernels = _all_kernels()
     _zero_counts(kernels)
     with torch.inference_mode(), fp32_exact():
@@ -1032,19 +1043,44 @@ def phase_parity(dev, root):
             torch.Generator(device=dev).manual_seed(0), cfg_scale=CFG, top_k=1, top_p=0.0,
             dtype=torch.float32)
     torch.cuda.synchronize()
-    through = _counts(kernels)
-    want = {**_decode_want(depth, sn), "flash_decode": depth * sn}
-    if through != want:
-        raise AssertionError(f"parity decode launches {through}, want {want}")
+    launches = _counts(kernels)
     got = tokens.cpu().numpy()
-    equal = int((got == data["dec_tokens"]).sum())
     fhat_err = float(np.abs(f_hat.cpu().numpy()
                             - np.transpose(data["dec_fhat"], (0, 2, 3, 1))).max())
-    emit({"phase": "parity", "tokens_equal": equal, "tokens": int(got.size),
-          "fhat_max_abs_err": fhat_err, "launches": through})
-    if equal != got.size or fhat_err > 1e-4:
-        raise AssertionError(f"greedy fp32 decode differs from dec_tokens: {equal}/{got.size} "
-                             f"equal, f_hat err {fhat_err}")
+    return int((got == data["dec_tokens"]).sum()), int(got.size), fhat_err, launches
+
+
+def phase_parity(dev, root):
+    """Greedy fp32 decode through the kernels at the var_prod.npz geometry
+    (d16 width, depth 2, full pyramid, synthesized weights), TF32 off: once
+    with the modules loaded by name, once built by ``from_pretrained_dict``
+    from a hub config and a bundled state dict (the VQVAE under
+    ``vae_local.``, derived buffers included, which it drops)."""
+    from var_tpu_torch.models import from_pretrained_dict
+
+    data, var, vae = _prod_models(root)
+    depth, sn = var.cfg.depth, len(var.cfg.patch_nums)
+    want = {**_decode_want(depth, sn), "flash_decode": depth * sn}
+    pns = list(var.cfg.patch_nums)
+    config = dict(depth=depth, embed_dim=var.cfg.embed_dim, num_heads=var.cfg.num_heads,
+                  num_classes=var.cfg.num_classes, attn_l2_norm=True, patch_nums=pns,
+                  vae_kwargs=dict(vocab_size=V, z_channels=32, ch=160, v_patch_nums=pns))
+    # the same weights as one reference-named dict, with a derived buffer to drop
+    bundled = {**var.state_dict(), **{"vae_local." + k: t for k, t in vae.state_dict().items()},
+               "vae_local.quantize.ema_vocab_hit_SV": torch.zeros(len(pns), V)}
+    var, vae = var.to(dev), vae.to(dev)
+    for built in ("load_state_dict", "from_pretrained_dict"):
+        if built == "from_pretrained_dict":
+            del var, vae
+            _, _, vae, var = from_pretrained_dict(config, bundled, device=dev)
+        equal, total, fhat_err, through = _parity_decode(var, vae, data, dev)
+        emit({"phase": "parity", "built_by": built, "tokens_equal": equal, "tokens": total,
+              "fhat_max_abs_err": fhat_err, "launches": through})
+        if through != want:
+            raise AssertionError(f"parity decode ({built}) launches {through}, want {want}")
+        if equal != total or fhat_err > 1e-4:
+            raise AssertionError(f"greedy fp32 decode ({built}) differs from dec_tokens: "
+                                 f"{equal}/{total} equal, f_hat err {fhat_err}")
 
 
 def phase_main_path(dev):
@@ -1249,6 +1285,205 @@ def phase_train_main_path(dev):
           "first_step_s": first_s, "step_s": times, "step_s_median": median_s,
           "img_per_s": TRAIN_BATCH / median_s, "loss": losses, "grad_norm": gnorms,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, median_s
+
+
+IMAGENET_TRAIN, IMAGENET_VAL = 96, 32  # synthetic images: 3 steps an epoch, 1 eval batch
+RESUME_DEPTH = 2  # run B's depth at the d16 width: a d16 checkpoint is ~3.7 GB
+
+
+class _SynthImages:
+    """A dataset for ``data.imagenet.DataLoader`` with no image files:
+    ``samples[i]`` is (i, a seeded label), and :func:`_synth_image` makes the
+    image from the loader's per-sample stream ``sample_rng(seed, epoch, i)``."""
+
+    def __init__(self, n: int, seed: int):
+        labels = np.random.default_rng([seed, n]).integers(0, 1000, n)
+        self.samples = [(i, int(lbl)) for i, lbl in enumerate(labels)]
+
+    def __len__(self):
+        return len(self.samples)
+
+
+def _synth_image(item, rng: np.random.Generator) -> np.ndarray:
+    reso = 16 * PATCH_NUMS[-1]
+    return rng.random((reso, reso, 3), dtype=np.float32) * 2 - 1
+
+
+class _Killed(RuntimeError):
+    pass
+
+
+def _killed_after(batches, n: int):
+    """``batches``' first ``n`` items, then it takes one more and raises: a
+    run stopped in the data fetch of the step after its checkpoint."""
+    for i, item in enumerate(batches):
+        if i == n:
+            raise _Killed(f"stopped after {n} batches")
+        yield item
+
+
+def _imagenet_args(out_dir: str, depth: int, val_freq_ep: int = 1):
+    from var_tpu_torch.config import TrainArgs
+
+    return TrainArgs(depth=depth, bs=TRAIN_BATCH, ac=1, ep=2, fp16=1, tclip=2.0, remat=2, seed=0,
+                     val_freq_ep=val_freq_ep, ckpt_iters=2, attn="auto",
+                     pn="_".join(map(str, PATCH_NUMS)),
+                     local_out_dir_path=out_dir).finalize(world_size=1)
+
+
+def _imagenet_run(train_app, args, dev, vae, var, kill_after=None):
+    """One call of the CLI's loop on the synthetic datasets, resuming from
+    the newest checkpoint in ``args.local_out_dir_path`` as ``main`` does."""
+    from var_tpu_torch.config import resolve_attn
+
+    resume_path, start_ep, start_it, best = train_app.resume_point(args)
+    train_iter, iters, val_batches = train_app.make_loaders(
+        args, _SynthImages(IMAGENET_TRAIN, 0), _SynthImages(IMAGENET_VAL, 1), start_ep,
+        start_it, _synth_image, _synth_image)
+    if kill_after is not None:
+        train_iter = _killed_after(train_iter, kill_after)
+    return train_app.train(args, dev, resolve_attn(args.attn, dev), vae, var, train_iter, iters,
+                           val_batches, resume_path, start_ep, start_it, best)
+
+
+def _resume_var(dev, args):
+    """Run B's VAR: the d16 width (C 1024, 16 heads) at RESUME_DEPTH, seeded."""
+    from var_tpu_torch.config import VARConfig
+    from var_tpu_torch.models import var as var_mod
+
+    cfg = VARConfig(depth=RESUME_DEPTH, embed_dim=C, num_heads=HEADS, attn_l2_norm=args.anorm,
+                    drop_path_rate=0.1 * RESUME_DEPTH / 24, patch_nums=PATCH_NUMS)
+    var = var_mod.init_var_params(var_mod.VAR(cfg).to(dev), torch.Generator(dev).manual_seed(3),
+                                  init_std=args.ini, init_head=args.hd, init_adaln=args.aln,
+                                  init_adaln_gamma=args.alng)
+    return var.train().requires_grad_(True)
+
+
+def phase_imagenet_train_main_path(dev, train_main_step_s: float):
+    """The ImageNet training CLI's path on the card (``apps/train.py``):
+    the tokenizer from a ``.pth`` named by ``VAR_TPU_VAE_CKPT`` (the ch160
+    VQVAE, seeded weights written here), the d16 VAR, the CLI's sampler and
+    prefetching loader over 96 train and 32 val synthetic 256px images, and
+    its epoch loop: bs 32, fp16=1, remat 2, tclip 2, ``--attn auto``, 2
+    epochs of 3 steps, eval every epoch, a checkpoint every 2 steps (run A,
+    counted). Then run A' (RESUME_DEPTH, uninterrupted) and run B (the same,
+    stopped in the data fetch after its first mid-epoch checkpoint, then
+    resumed by a fresh call through ``auto_resume``), both under
+    ``torch.use_deterministic_algorithms``: B's final parameters and AdamW
+    state must equal A''s bit for bit. Everything is written to a temporary
+    directory that is removed."""
+    import shutil
+    import tempfile
+
+    from var_tpu_torch.apps import train as train_app
+    from var_tpu_torch.config import VAEConfig, resolve_attn
+    from var_tpu_torch.engine import checkpoint as ckpt
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import vae as vae_mod
+
+    tmp = tempfile.mkdtemp(prefix="var_imagenet_")
+    env_before = {k: os.environ.get(k) for k in ("VAR_TPU_VAE_CKPT", "CUBLAS_WORKSPACE_CONFIG")}
+    try:
+        t0 = time.perf_counter()
+        vae_path = os.path.join(tmp, "vae_ch160v4096z32.pth")
+        vae_src = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(v_patch_nums=PATCH_NUMS)).to(dev),
+                                          torch.Generator(dev).manual_seed(0))
+        torch.save({k: v.cpu() for k, v in vae_src.state_dict().items()}, vae_path)
+        del vae_src
+        os.environ["VAR_TPU_VAE_CKPT"] = vae_path
+        args = _imagenet_args(os.path.join(tmp, "runA"), DEPTH)
+        vae, var = train_app.build_models(args, dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels = _all_kernels()
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        state, times = _imagenet_run(train_app, args, dev, vae, var)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _counts(kernels)
+        n_steps = len(times["step_t"])
+        n_eval = sum(nb for _, nb in times["eval_s"])
+        eval_attn = tr.pick_eval_attn(resolve_attn(args.attn, dev), var.cfg.seq_len)
+        want = {k: n_steps * v for k, v in _train_want(DEPTH).items()}
+        if eval_attn == "pallas":  # the 256px eval keeps the dense path (L 680)
+            want["flash_attention_fwd"] += DEPTH * n_eval
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finite = all(bool(torch.isfinite(p).all()) for p in state.var.parameters())
+        with open(args.log_txt_path) as f:
+            epoch_lines = f.read().splitlines()[1:]
+        ckpt_gb = os.path.getsize(args.last_ckpt_path) / 1e9
+        meta = ckpt.load_meta(args.last_ckpt_path)
+        steady = times["step_t"][1:]  # the first step is the warm-up
+        share = [d / s for d, s in zip(times["data_t"][1:], steady)]
+        eval_ms = [1e3 * sec / nb for sec, nb in times["eval_s"]]
+        del state, var
+        torch.cuda.empty_cache()
+
+        # resume equality at RESUME_DEPTH, deterministic algorithms
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            # eval at the last epoch only: fewer checkpoints to write
+            args_a = _imagenet_args(os.path.join(tmp, "runA2"), RESUME_DEPTH, val_freq_ep=2)
+            state_a, _ = _imagenet_run(train_app, args_a, dev, vae, _resume_var(dev, args_a))
+            args_b = _imagenet_args(os.path.join(tmp, "runB"), RESUME_DEPTH, val_freq_ep=2)
+            try:
+                _imagenet_run(train_app, args_b, dev, vae, _resume_var(dev, args_b),
+                              kill_after=args_b.ckpt_iters * args_b.ac)
+                raise AssertionError("run B was not stopped")
+            except _Killed:
+                pass
+            stopped_at = ckpt.load_meta(args_b.last_ckpt_path)
+            state_b, times_b = _imagenet_run(train_app, args_b, dev, vae, _resume_var(dev, args_b))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        sa, sb = state_a.var.state_dict(), state_b.var.state_dict()
+        diverged = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        oa, ob = state_a.opt.opt.state_dict()["state"], state_b.opt.opt.state_dict()["state"]
+        diverged += [f"opt.{i}.{k}" for i in oa for k in oa[i]
+                     if not torch.equal(oa[i][k], ob[i][k])]
+        resume = {"depth": RESUME_DEPTH, "deterministic": True,
+                  "stopped_at": [stopped_at.get("epoch"), stopped_at.get("iter")],
+                  "resumed_steps": len(times_b["step_t"]), "steps_a": state_a.step,
+                  "steps_b": state_b.step, "tensors": len(sa) + sum(len(v) for v in oa.values()),
+                  "diverged": diverged[:8]}
+        del state_a, state_b
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    median_s = float(np.median(steady))
+    emit({"phase": "imagenet_train_main_path", "depth": DEPTH, "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "remat": args.remat, "tclip": args.tclip, "fp16": args.fp16,
+          "attn": "auto", "eval_attn": eval_attn, "train_images": IMAGENET_TRAIN,
+          "val_images": IMAGENET_VAL, "steps": n_steps, "eval_batches": n_eval,
+          "launches": launches, "want": want, "setup_s": setup_s, "run_s": run_s,
+          "step_s": times["step_t"], "step_s_median": median_s,
+          "img_per_s": TRAIN_BATCH / median_s,
+          "train_main_path_step_s_median": train_main_step_s,
+          "train_main_path_img_per_s": TRAIN_BATCH / train_main_step_s,
+          "data_t_s": times["data_t"], "data_share_median": float(np.median(share)),
+          "eval_ms_per_batch": eval_ms, "ckpt_save_s": times["save_s"],
+          "ckpt_gb": ckpt_gb, "ckpt_saves": len(times["save_s"]), "peak_mem_gb": peak_gb,
+          "epoch_lines": epoch_lines, "final_meta": [meta["epoch"], meta["iter"]],
+          "resume": resume})
+    if launches != want:
+        raise AssertionError(f"imagenet main path launches {launches}, want {want}")
+    if not finite or len(epoch_lines) != 2 or meta["epoch"] != 2 or n_steps != 6:
+        raise AssertionError(f"imagenet run incomplete: finite {finite}, log.txt "
+                             f"{epoch_lines}, meta {meta}, steps {n_steps}")
+    if resume["stopped_at"] != [0, 2] or resume["resumed_steps"] != 4 or diverged \
+            or not resume["steps_a"] == resume["steps_b"] == 6:
+        raise AssertionError(f"resumed run differs from the uninterrupted one: {resume}")
     return launches
 
 
@@ -1839,7 +2074,9 @@ def main() -> None:
     phase_parity(dev, root)
     launches = phase_main_path(dev)
     phase_train_parity(dev, root)
-    launches.update({k: v for k, v in phase_train_main_path(dev).items()
+    _, train_step_s = phase_train_main_path(dev)
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_imagenet_train_main_path(dev, train_step_s).items()
                      if k.startswith("paired_train")})
     phase_zeroshot_parity(dev, root)
     zeroshot = phase_zeroshot_main_path(dev)

@@ -225,11 +225,16 @@ def test_build_vae_train_keeps_fp32_trainable_params():
     assert hasattr(vae, "encoder") and hasattr(vae, "decoder")
 
 
-def test_train_app_without_local_debug_names_the_data_slice():
+def test_train_app_without_local_debug_names_the_data_slice(tmp_path, monkeypatch):
+    """Without --local_debug the CLI trains on --data_path's folders and
+    names the one it cannot read."""
     from var_tpu_torch.apps.train import main
 
-    with pytest.raises(NotImplementedError, match="data"):
-        main(["--device", "cpu"])
+    monkeypatch.setenv("VAR_TPU_VAE_CKPT", str(tmp_path / "absent.pth"))
+    with pytest.raises(FileNotFoundError, match="absent_data"):
+        main(["--device", "cpu", "--depth=2", "--pn=1_2_3", "--allow_random_vae=1",
+              f"--data_path={tmp_path / 'absent_data'}",
+              f"--local_out_dir_path={tmp_path / 'out'}"])
 
 
 def test_build_vae_var_train_keeps_fp32_trainable_params():

@@ -30,6 +30,13 @@ from var_tpu_torch.models.quantizer import num_phi
 DERIVED_BUFFERS = ("ema_vocab_hit_SV", "lvl_1L", "attn_bias_for_masking", "zero_k_bias")
 
 
+def learned_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of a reference-named state dict whose values are
+    tensors or arrays, without the derived buffers."""
+    return {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+            for k, v in sd.items() if not any(b in k for b in DERIVED_BUFFERS)}
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference ``.pth`` (or a training checkpoint around one) into
     {name: tensor}, without the derived buffers."""
@@ -38,8 +45,7 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
         obj = obj["trainer"]["var_wo_ddp"]
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
-    return {k: v for k, v in obj.items()
-            if torch.is_tensor(v) and not any(b in k for b in DERIVED_BUFFERS)}
+    return learned_state_dict({k: v for k, v in obj.items() if torch.is_tensor(v)})
 
 
 def _t(a) -> torch.Tensor:

@@ -8,7 +8,8 @@ dtype the sampler will decode in. ``build_vae_var_train`` builds the same
 pair for training: float32 VAR parameters that require grad, in train mode
 (the forward casts them at each use), and the frozen VQVAE in eval mode.
 ``build_vae_train`` builds the VQVAE alone for tokenizer training, float32
-and trainable. ``from_pretrained_dict`` is not ported yet.
+and trainable. ``from_pretrained_dict`` builds the pair from a hub-style
+config dict and a reference-named state dict (the reference's ``VARHF``).
 """
 
 from __future__ import annotations
@@ -131,3 +132,67 @@ def build_vae_train(device="cuda", seed: int = 0, cfg: VAEConfig = VAEConfig(),
     else:
         vae_mod.init_vae_params(vae, torch.Generator(device=dev).manual_seed(seed))
     return vae.train().requires_grad_(True)
+
+
+def from_pretrained_dict(config: dict, state_dict, device="cuda",
+                         dtype: Optional[torch.dtype] = None):
+    """Configs and modules from a hub-style config dict and a state dict,
+    the ``VARHF(PyTorchModelHubMixin)`` equivalent (reference
+    ``models/var.py:633-653``; ``var_tpu/models/__init__.py:88``).
+
+    ``config`` holds the VARHF constructor kwargs (``depth, embed_dim,
+    num_heads, shared_aln, attn_l2_norm, patch_nums, num_classes, ...``) and
+    a nested ``vae_kwargs``; ``state_dict`` holds reference-named tensors or
+    arrays, with the VQVAE's under ``vae_local.`` when the checkpoint bundles
+    the tokenizer. Missing keys take the JAX package's defaults. Loading is
+    ``_build``'s: the derived buffers are dropped, and with a ``dtype`` the
+    blocks' matmul weights are stored in that compute dtype (as
+    ``build_vae_var``'s). Returns (vae_cfg, var_cfg, vae or None, var), the
+    modules in eval mode without grad on ``device`` (``"cuda"`` unless the
+    caller passes ``"cpu"``)."""
+    from var_tpu_torch.engine.convert import learned_state_dict
+
+    dev = resolve_device(device)
+    vk = dict(config.get("vae_kwargs") or {})
+    patch_nums = tuple(config.get("patch_nums", vk.get("v_patch_nums",
+                                                       (1, 2, 3, 4, 5, 6, 8, 10, 13, 16))))
+    vae_cfg = VAEConfig(
+        vocab_size=vk.get("vocab_size", 4096),
+        z_channels=vk.get("z_channels", 32),
+        ch=vk.get("ch", 160),
+        share_quant_resi=vk.get("share_quant_resi", 4),
+        using_znorm=vk.get("using_znorm", False),
+        beta=vk.get("beta", 0.25),
+        v_patch_nums=patch_nums,
+    )
+    depth = config.get("depth", 16)
+    var_cfg = VARConfig(
+        num_classes=config.get("num_classes", 1000),
+        depth=depth,
+        embed_dim=config.get("embed_dim", depth * 64),
+        num_heads=config.get("num_heads", depth),
+        mlp_ratio=config.get("mlp_ratio", 4.0),
+        drop_path_rate=config.get("drop_path_rate", 0.0),
+        norm_eps=config.get("norm_eps", 1e-6),
+        shared_aln=config.get("shared_aln", False),
+        cond_drop_rate=config.get("cond_drop_rate", 0.1),
+        attn_l2_norm=config.get("attn_l2_norm", False),
+        patch_nums=patch_nums,
+        vocab_size=vae_cfg.vocab_size,
+        z_channels=vae_cfg.z_channels,
+    )
+    sd = learned_state_dict(state_dict)
+    vae_sd = {k[len("vae_local."):]: v for k, v in sd.items() if k.startswith("vae_local.")}
+    var_sd = {k: v for k, v in sd.items() if not k.startswith("vae_local.")}
+    with torch.device("meta"):
+        vae = vae_mod.VQVAE(vae_cfg) if vae_sd else None
+        var = var_mod.VAR(var_cfg)
+    if vae is not None:
+        vae = vae.to_empty(device=dev)
+        vae.load_state_dict(vae_sd)
+        vae = vae.eval().requires_grad_(False)
+    var = var.to_empty(device=dev)
+    var.load_state_dict(var_sd)
+    if dtype is not None:
+        var_mod.cast_block_matmul_params(var, dtype)
+    return vae_cfg, var_cfg, vae, var.eval().requires_grad_(False)

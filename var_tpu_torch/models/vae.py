@@ -10,6 +10,8 @@ run in the compute dtype. Public tensors are NHWC: ``img_to_idxBl`` takes an
 image (B, H, W, 3) in [-1, 1] and returns the token pyramid; ``fhat_to_img``
 takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3);
 ``img_to_fhat`` and ``idxBl_to_img`` are the classifier's round trips;
+``embed_to_img`` decodes per-scale embeddings and
+``img_to_reconstructed_img`` is the tokenize-and-decode round trip;
 ``vae_train_forward`` is the tokenizer-training forward. ``gn_impl`` picks
 the GroupNorm formulation of every function that runs the networks
 (:func:`group_norm`): "dot" by default, "pallas" through row 7's kernel.
@@ -345,6 +347,29 @@ def idxBl_to_img(vae: VQVAE, ms_idx_bl: List[torch.Tensor], same_shape: bool = T
     if last_one:
         return fhat_to_img(vae, fh)
     return [fhat_to_img(vae, f) for f in fh]
+
+
+def embed_to_img(vae: VQVAE, ms_h_bhwc: List[torch.Tensor], all_to_max_scale: bool = True,
+                 last_one: bool = True):
+    """Per-scale (B, pn, pn, Cvae) embeddings -> image(s) in [-1, 1]
+    (``vqvae.py:86-90``): the last f_hat's image, or one per scale."""
+    with fp32_exact():
+        fh = q.embed_to_fhat(vae.quantize, vae.cfg, ms_h_bhwc,
+                             all_to_max_scale=all_to_max_scale, last_one=last_one)
+    if last_one:
+        return fhat_to_img(vae, fh)
+    return [fhat_to_img(vae, f) for f in fh]
+
+
+def img_to_reconstructed_img(vae: VQVAE, img: torch.Tensor,
+                             v_patch_nums: Optional[Sequence[int]] = None,
+                             last_one: bool = True):
+    """Tokenize-and-decode round trip (``vqvae.py:92-98``): image (B, H, W, 3)
+    -> the reconstruction from the last f_hat, or one per scale."""
+    fhats = img_to_fhat(vae, img, v_patch_nums)
+    if last_one:
+        return fhat_to_img(vae, fhats[-1])
+    return [fhat_to_img(vae, f) for f in fhats]
 
 
 class VAETrainOutput(NamedTuple):
