@@ -54,7 +54,16 @@ just after:
   pyramid; seeded random weights and images, fp32, batch 8, lr 3e-4, tclip
   2) trains one counted warm-up step and five timed steps for ``"dot"`` and
   for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
-  with each.
+  with each;
+* multi-GPU (``parallel/``), on the one card: two ranks joined by gloo
+  over CUDA tensors (NCCL refuses two ranks on one device) through
+  ``apps/dryrun_multigpu.py``, the d16 width (C 1024, 16 heads, V 4096) at
+  depth 4, 256px, fp32 with TF32 off: one training step at (dp, mp) =
+  (2, 1) and (1, 2), row 6 at 8 heads under mp 2, and greedy CFG decodes
+  (chunked and prealloc, rows 1-4 at 8 heads) at both, each against the
+  same call in one process on the card at the JAX dry run's tolerances,
+  with each rank's launch counts. Gloo through host memory is no
+  throughput figure, so none is printed.
 
 Rows 1 and 3 (modulated LayerNorm, top-k/top-p bound) are held against
 their plain versions and timed at every stage shape of the d16 CFG decode
@@ -1484,7 +1493,103 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
     if resume["stopped_at"] != [0, 2] or resume["resumed_steps"] != 4 or diverged \
             or not resume["steps_a"] == resume["steps_b"] == 6:
         raise AssertionError(f"resumed run differs from the uninterrupted one: {resume}")
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        raise AssertionError("the one-process CLI run created a process group")
     return launches
+
+
+MULTIGPU_DEPTH, MULTIGPU_BATCH = 4, 4  # the d16 width; 2 rows a data rank at dp 2
+MULTIGPU_TIMEOUT = 300
+
+
+def _multigpu_spec() -> dict:
+    """``apps/dryrun_multigpu.py``'s spec of the phase: the d16 width at
+    MULTIGPU_DEPTH with the ch160 tokenizer, fp32, ``--attn paired``."""
+    import dataclasses
+
+    from var_tpu_torch.config import VAEConfig
+
+    vae = {k: list(v) if isinstance(v, tuple) else v
+           for k, v in dataclasses.asdict(VAEConfig(v_patch_nums=PATCH_NUMS)).items()}
+    return {
+        "device": "cuda", "backend": "gloo", "seed": 0, "batch": MULTIGPU_BATCH,
+        "attn": "paired", "dtype": "float32", "threads": 4, "vae": vae,
+        "var": dict(num_classes=1000, depth=MULTIGPU_DEPTH, embed_dim=C, num_heads=HEADS,
+                    patch_nums=list(PATCH_NUMS), vocab_size=V, z_channels=32,
+                    attn_l2_norm=True, cond_drop_rate=0.0, drop_path_rate=0.0),
+        "args": dict(depth=MULTIGPU_DEPTH, ep=2, pn="_".join(map(str, PATCH_NUMS))),
+        "meshes": [[2, 1], [1, 2]],
+        "train": [{"name": "drop", "cond_drop_rate": 0.1, "drop_path_rate": 0.1, "ac": 1}],
+        "decode": {"cache_impls": ["chunked", "prealloc"], "cfg_scale": CFG, "top_k": 1},
+        "plant": False, "cli": False, "save": False,
+    }
+
+
+def _multigpu_want(case: str) -> dict:
+    """Launches of one case on one rank: a remat-0 step runs row 6 once
+    forward and once backward a block; a decode of the ten scales runs row
+    1 twice a block a scale, its attention row once, row 3 once a scale."""
+    want = dict.fromkeys(_decode_want(MULTIGPU_DEPTH, 0), 0)
+    want.pop("gn_channel_stats")
+    sn = len(PATCH_NUMS)
+    if case.startswith("train"):
+        want.update(paired_train_fwd=MULTIGPU_DEPTH, paired_train_bwd=MULTIGPU_DEPTH)
+    else:
+        row = "flash_decode" if case == "decode_chunked" else "flash_decode_paired"
+        want.update({"modulated_layernorm": 2 * MULTIGPU_DEPTH * sn, row: MULTIGPU_DEPTH * sn,
+                     "topk_topp_bound": sn})
+    return want
+
+
+def phase_multigpu_parity(dev):
+    """Two ranks on the one card (``LOCAL_RANK`` 0 both), gloo over CUDA
+    tensors: the all-reduce, all-gather and broadcast of ``parallel/`` (no
+    reduce-scatter), each rank holding its (2, 1) and (1, 2) steps and
+    decodes against the same calls in one process, which it runs first on
+    the card (``apps/dryrun_multigpu.py``; this process only launches the
+    ranks and reads their reports). Fails on any case off its tolerance,
+    any launch count off, or a head count other than 8 under mp 2."""
+    import shutil
+    import tempfile
+
+    from var_tpu_torch.apps import dryrun_multigpu as dry
+
+    del dev  # the ranks pick the card themselves
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="var_multigpu_")
+    try:
+        reports, _ = dry.launch(_multigpu_spec(), 2, tmp, timeout=MULTIGPU_TIMEOUT,
+                                local_ranks=[0, 0]).wait()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    bad = dry.failures(reports)
+    summary = {}
+    for rep in sorted(reports, key=lambda r: r["rank"]):
+        emit({"phase": "multigpu_launches", "rank": rep["rank"],
+              "launches": {f"{m}/{c}": v["launches"] for m, cases in rep["meshes"].items()
+                           for c, v in cases.items()}})
+        for mesh, cases in rep["meshes"].items():
+            for case, v in cases.items():
+                if v["launches"] != _multigpu_want(case):
+                    bad.append(f"rank {rep['rank']} {mesh} {case}: launches {v['launches']}, "
+                               f"want {_multigpu_want(case)}")
+                if case.startswith("train") and v["heads_local"] != HEADS // int(mesh[-1]):
+                    bad.append(f"rank {rep['rank']} {mesh}: {v['heads_local']} heads a rank")
+                summary[f"rank{rep['rank']}/{mesh}/{case}"] = {
+                    k: v[k] for k in ("loss_rel_err", "grad_norm_rel_err", "param_max_abs_err",
+                                      "grad_rel_err_max", "grad_rel_err_param", "heads_local",
+                                      "tokens_differ", "tokens", "f_hat_max_abs_err", "ok")
+                    if k in v}
+    emit({"phase": "multigpu_parity", "ranks": len(reports), "backend": "gloo",
+          "collectives": reports[0]["collectives"],
+          "depth": MULTIGPU_DEPTH, "width": C, "heads": HEADS, "vocab": V,
+          "batch": MULTIGPU_BATCH, "dtype": "float32", "tf32": False,
+          "tol": {"loss_rel": dry.LOSS_RTOL, "param_abs": dry.PARAM_ATOL,
+                  "grad_rel_of_max": dry.GRAD_RTOL, "tokens": "equal"},
+          "cases": summary, "seconds": seconds})
+    if bad:
+        raise AssertionError("multigpu parity failed:\n" + "\n".join(bad))
 
 
 ZEROSHOT_RTOL = 1e-4  # card vs CPU log-likelihoods and classifier scores
@@ -2090,6 +2195,8 @@ def main() -> None:
     phase_vae_train_parity(dev, root)
     launches["gn_channel_stats"] = phase_vae_train_main_path(dev)["train_pallas"][
         "gn_channel_stats"]
+    torch.cuda.empty_cache()
+    phase_multigpu_parity(dev)
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),

@@ -747,3 +747,26 @@ def test_planted_fault_fails_the_gn_stats_check(cuda, tmp_path):
     rc, last = _run_check(tmp_path, "check_gn_stats")
     print(json.dumps({"mutant": "gn_stats_drop_tail", "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "gn_channel_stats differs from its plain version" in last
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_decode_at_mp2_equals_one_process(cuda, tmp_path):
+    """Two ranks on the one card (gloo over CUDA tensors), heads split over
+    ``model``: the greedy CFG decode through rows 1-4 at 2 heads a rank
+    (C 256, 4 heads of 64) is token-equal to the same decode in one process
+    on the card, chunked (row 2) and prealloc (row 4) alike."""
+    from var_tpu_torch.apps import dryrun_multigpu as dry
+
+    spec = dry.tiny_spec(2, "cuda", "gloo")
+    spec.update(meshes=[[1, 2]], train=[], plant=False, cli=False,
+                decode=dict(spec["decode"], cache_impls=["chunked", "prealloc"]))
+    reports, _ = dry.launch(spec, 2, str(tmp_path), timeout=600, local_ranks=[0, 0]).wait()
+    assert dry.failures(reports) == []
+    for rep in reports:
+        for impl, row in (("chunked", "flash_decode"), ("prealloc", "flash_decode_paired")):
+            case = rep["meshes"]["1x2"][f"decode_{impl}"]
+            print(json.dumps({"rank": rep["rank"], "impl": impl, **case}))
+            assert case["tokens_differ"] == 0
+            launches = case["launches"]
+            assert launches[row] == 2 * 3 and launches["modulated_layernorm"] == 2 * 2 * 3
+            assert launches["topk_topp_bound"] == 3

@@ -263,3 +263,24 @@ def test_decode_host_cost_raises_without_gpu():
 
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--iters", "1"])
+
+
+_IMPORT_PARALLEL = """
+import sys
+import torch.distributed as dist
+import var_tpu_torch.parallel.mesh, var_tpu_torch.parallel.shard_attn
+import var_tpu_torch.apps.dryrun_multigpu
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'var_tpu' or m.startswith('var_tpu.'))
+assert not bad, bad
+assert not dist.is_initialized()  # importing joins no process group
+"""
+
+
+def test_parallel_modules_import_no_jax_and_no_process_group():
+    """The multi-GPU modules (``parallel/mesh.py``, ``parallel/shard_attn.py``
+    and the dry run) import neither JAX nor the JAX package, and importing
+    them starts no process group."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,7 +1,18 @@
-"""VAR training CLI on one device (counterpart of the repository's ``train.py``):
+"""VAR training CLI (counterpart of the repository's ``train.py``), on one GPU
+or data-parallel over several under torchrun:
 
     python -m var_tpu_torch.apps.train --data_path=/path/to/imagenet --depth=16 \\
         --bs=768 --ep=200 --fp16=1 --alng=1e-3 --wpe=0.1
+    torchrun --nproc_per_node 8 -m var_tpu_torch.apps.train --data_path=... --bs=768
+
+``--bs`` is the global batch; each of the dp ranks loads its contiguous
+slice of every epoch and steps on bs / dp rows, the gradients averaged
+over the ranks (``parallel/mesh.py``, JAX ``train.py:42-47``, ``:118-184``:
+pure data parallelism, ``make_mesh()``). Eval splits the val set into
+contiguous per-rank parts, every rank runs the same number of padded
+batches and the sums are reduced over the ranks. Only rank 0 writes
+checkpoints, ``log.txt``, tensorboard and the tee; every rank resumes from
+the same file.
 
 Flags are the reference recipes' (``config.TrainArgs``), plus ``--device``
 (default ``cuda``; without a GPU the default raises, ``--device cpu`` runs
@@ -43,6 +54,7 @@ from var_tpu_torch.engine import checkpoint as ckpt
 from var_tpu_torch.engine import trainer as tr
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
+from var_tpu_torch.parallel import mesh as pm
 from var_tpu_torch.utils.logging import (MetricLogger, ProfilerHooks, TensorboardLogger,
                                          dump_log_line, log, tee_output)
 
@@ -66,7 +78,9 @@ def prog_si_at(args, g_it: int, max_it: float, wp_it: float) -> int:
 
 def step_generator(dev, seed: int, g_it: int) -> torch.Generator:
     """Per-step random stream keyed by (seed, g_it): a resumed run draws the
-    cond-drop and drop-path masks the uninterrupted run would have drawn."""
+    cond-drop and drop-path masks the uninterrupted run would have drawn,
+    and every rank the same stream (the masks are drawn for the global
+    batch, ``models/var.py::cond_drop``), so the draws do not depend on dp."""
     return torch.Generator(device=dev).manual_seed((seed << 32) + g_it)
 
 
@@ -125,27 +139,34 @@ def resume_point(args: TrainArgs) -> Tuple[Optional[str], int, int, float]:
 
 
 def make_loaders(args: TrainArgs, train_ds, val_ds, start_ep: int, start_it: int,
-                 train_tf: Callable, val_tf: Callable, batch_tf: Optional[Callable] = None):
-    """(train iterator, iterations per epoch, val-batch factory) over two
-    datasets (``train.py:138-184``): the resumable shuffled sampler with
-    per-sample streams keyed by (seed, epoch, index), and the contiguous
-    no-pad val split in batches of ``batch_size``."""
+                 train_tf: Callable, val_tf: Callable, batch_tf: Optional[Callable] = None,
+                 world_size: int = 1, rank: int = 0):
+    """(train iterator, iterations per epoch, val-batch factory) of data rank
+    ``rank`` of ``world_size`` over two datasets (``train.py:118-184``): the
+    resumable shuffled sampler's contiguous rank slice of each epoch, with
+    per-sample streams keyed by (seed, epoch, index), and the rank's part of
+    the contiguous no-pad val split in batches of ``batch_size``. Every
+    rank's val factory yields the same number of items, None past its part
+    (``train.py:346-349``)."""
     from var_tpu_torch.data.imagenet import DataLoader, DistInfiniteBatchSampler, eval_split_indices
 
     seed = args.seed or 0
     threads = args.workers or 16
     sampler = DistInfiniteBatchSampler(
-        world_size=1, rank=0, dataset_len=len(train_ds), glb_batch_size=args.batch_size,
-        fill_last=True, shuffle=True, same_seed_for_all_ranks=seed, start_ep=start_ep,
-        start_it=start_it)
+        world_size=world_size, rank=rank, dataset_len=len(train_ds),
+        glb_batch_size=args.batch_size * world_size, fill_last=True, shuffle=True,
+        same_seed_for_all_ranks=seed, start_ep=start_ep, start_it=start_it)
     train_iter = iter(DataLoader(train_ds, sampler, train_tf, num_threads=threads, seed=seed,
                                  batch_transform=batch_tf))
+    vbs = max(1, args.batch_size)
+    nb = -(-(-(-len(val_ds) // world_size)) // vbs)  # identical on every rank
 
     def val_batches() -> Iterator:
-        idxs = list(eval_split_indices(len(val_ds), 1, 0))
-        vbs = max(1, args.batch_size)
+        idxs = list(eval_split_indices(len(val_ds), world_size, rank))
         batches = [idxs[i:i + vbs] for i in range(0, len(idxs), vbs)]
-        return iter(DataLoader(val_ds, iter(batches), val_tf, num_threads=threads))
+        yield from DataLoader(val_ds, iter(batches), val_tf, num_threads=threads)
+        for _ in range(nb - len(batches)):
+            yield None
 
     return train_iter, len(sampler), val_batches
 
@@ -153,42 +174,51 @@ def make_loaders(args: TrainArgs, train_ds, val_ds, start_ep: int, start_it: int
 def train(args: TrainArgs, dev: torch.device, attn: str, vae: vae_mod.VQVAE,
           var: var_mod.VAR, train_iter: Iterator, iters_train: int,
           val_batches: Callable[[], Iterator], resume_path: Optional[str] = None,
-          start_ep: int = 0, start_it: int = 0, best_val_lt: float = 1e9):
+          start_ep: int = 0, start_it: int = 0, best_val_lt: float = 1e9,
+          mesh: Optional[pm.Mesh] = None):
     """The epoch loop of ``train.py:186-395``: steps over ``train_iter``'s
     (imgs (B, H, W, 3) float32, labels (B,) int) numpy batches, meters and
     tensorboard scalars, the mid-epoch checkpoint every ``ckpt_iters`` steps,
     eval over ``val_batches()`` (batches padded to ``batch_size`` rows with
-    a valid mask), the ``last`` and ``-best`` checkpoints and ``log.txt``. ``var`` is restored from ``resume_path`` when given.
+    a valid mask; None: a batch of padding), the ``last`` and ``-best``
+    checkpoints and ``log.txt``. ``var`` is restored from ``resume_path``
+    when given. ``mesh``: the batches are this data rank's; the step
+    averages the gradients and the eval sums over the ranks, and only rank
+    0 writes (a barrier follows each save).
 
     Returns (TrainState, times): per step ``step_t`` and ``data_t`` (host
     seconds; a step ends when its metrics reach the host), per eval
-    ``eval_s`` (seconds, batches), per checkpoint ``save_s``."""
+    ``eval_s`` (seconds, batches) and ``val`` (vL_mean, vL_tail,
+    vacc_mean, vacc_tail, n), per checkpoint ``save_s`` (rank 0)."""
     var_cfg, vae_cfg = var.cfg, vae.cfg
     dtype = torch.bfloat16 if args.fp16 else torch.float32
     seed = args.seed or 0
     init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
-                                       attn_impl=attn)
+                                       attn_impl=attn, mesh=mesh)
     steps = {}
 
     def step_for(prog_si: int):
         if prog_si not in steps:
             steps[prog_si] = tr.make_train_step(var_cfg, vae_cfg, args, iters_train,
-                                                prog_si=prog_si, dtype=dtype, attn_impl=attn)[1]
+                                                prog_si=prog_si, dtype=dtype, attn_impl=attn,
+                                                mesh=mesh)[1]
         return steps[prog_si]
 
     eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype,
-                                  attn_impl=tr.pick_eval_attn(attn, var_cfg.seq_len))
+                                  attn_impl=tr.pick_eval_attn(attn, var_cfg.seq_len), mesh=mesh)
     state = init_state(var)
     if resume_path:
         state = ckpt.load_checkpoint(resume_path, state)
         log(f"restored checkpoint state from {resume_path}")
 
-    times = {"step_t": [], "data_t": [], "eval_s": [], "save_s": []}
+    times = {"step_t": [], "data_t": [], "eval_s": [], "val": [], "save_s": []}
 
     def save(path: str, meta: dict) -> None:
-        t0 = time.perf_counter()
-        ckpt.save_checkpoint(path, state, meta)
-        times["save_s"].append(time.perf_counter() - t0)
+        if pm.process_is_master():
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(path, state, meta)
+            times["save_s"].append(time.perf_counter() - t0)
+        pm.barrier()
 
     tb = TensorboardLogger(args.tb_log_dir_path)
     profiler = ProfilerHooks()  # active only with VAR_TPU_PROFILE_DIR set
@@ -261,7 +291,10 @@ def train(args: TrainArgs, dev: torch.device, attn: str, vae: vae_mod.VQVAE,
             vbs = max(1, args.batch_size)
             nb = 0
             stats = torch.zeros(5, dtype=torch.float64, device=dev)
-            for vimgs, vlabels in val_batches():
+            reso = args.patch_nums[-1] * vae_cfg.downsample
+            for batch in val_batches():
+                vimgs, vlabels = batch if batch is not None else (
+                    np.zeros((0, reso, reso, 3), np.float32), np.zeros((0,), np.int32))
                 n_local = vimgs.shape[0]
                 valid = np.zeros((vbs,), np.float32)
                 valid[:n_local] = 1.0
@@ -277,6 +310,7 @@ def train(args: TrainArgs, dev: torch.device, attn: str, vae: vae_mod.VQVAE,
             times["eval_s"].append((time.perf_counter() - t_eval, nb))
             tot = stats[-1]
             vL_mean, vL_tail, vacc_mean, vacc_tail = (stats[:4] / max(tot, 1)).tolist()
+            times["val"].append((vL_mean, vL_tail, vacc_mean, vacc_tail, int(tot)))
             log(f"[ep {ep}] val: L_mean {vL_mean:.4f} L_tail {vL_tail:.4f} "
                 f"acc_mean {vacc_mean:.2f} acc_tail {vacc_tail:.2f} (n={int(tot)})")
             tb.update(head="AR_ep_loss", step=ep, vL_mean=vL_mean, vL_tail=vL_tail,
@@ -302,13 +336,15 @@ def train(args: TrainArgs, dev: torch.device, attn: str, vae: vae_mod.VQVAE,
     return state, times
 
 
-def train_imagenet(args: TrainArgs, dev: torch.device, attn: str) -> None:
+def train_imagenet(args: TrainArgs, dev: torch.device, attn: str,
+                   mesh: Optional[pm.Mesh] = None) -> None:
     """The ImageNet-folder flow of ``train.py``, in its order: tokenizer and
     VAR, resume point, datasets and loaders, then :func:`train`."""
     from var_tpu_torch.data import native_loader
     from var_tpu_torch.data.imagenet import FolderDataset, make_transform
 
-    log(f"devices=1 ({dev.type}), args bs={args.bs} batch/dev={args.batch_size} "
+    dp, rank = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
+    log(f"devices={dp} ({dev.type}), args bs={args.bs} batch/dev={args.batch_size} "
         f"tlr={args.tlr:g} pn={args.patch_nums} attn={attn}")
     vae, var = build_models(args, dev)
     resume_path, start_ep, start_it, best_val_lt = resume_point(args)
@@ -324,14 +360,16 @@ def train_imagenet(args: TrainArgs, dev: torch.device, attn: str) -> None:
     train_iter, iters_train, val_batches = make_loaders(
         args, train_ds, val_ds, start_ep, start_it,
         make_transform(args.data_load_reso, args.mid_reso, train=True, hflip=args.hflip),
-        make_transform(args.data_load_reso, args.mid_reso, train=False), batch_tf)
+        make_transform(args.data_load_reso, args.mid_reso, train=False), batch_tf, dp, rank)
     train(args, dev, attn, vae, var, train_iter, iters_train, val_batches, resume_path,
-          start_ep, start_it, best_val_lt)
+          start_ep, start_it, best_val_lt, mesh)
 
 
-def local_debug(args: TrainArgs, dev: torch.device, attn: str) -> None:
+def local_debug(args: TrainArgs, dev: torch.device, attn: str,
+                mesh: Optional[pm.Mesh] = None) -> None:
     """Two steps on seeded random images at a tiny configuration, float32,
-    an eval of the last batch, then a checkpoint round trip."""
+    an eval of the last batch, then a checkpoint round trip (rank 0).
+    ``mesh``: each data rank steps on its rows of the seeded global batch."""
     seed = args.seed or 0
     vae_cfg = VAEConfig(vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1),
                         v_patch_nums=args.patch_nums)
@@ -347,31 +385,32 @@ def local_debug(args: TrainArgs, dev: torch.device, attn: str) -> None:
                                   init_adaln_gamma=args.alng).train()
     n_params = sum(p.numel() for p in var.parameters())
     eval_attn = tr.pick_eval_attn(attn, var_cfg.seq_len)
-    print(f"[train] device={dev} bs={args.bs} tlr={args.tlr:g} pn={args.patch_nums} "
-          f"attn={attn} eval_attn={eval_attn} VAR params {n_params / 1e6:.2f}M", flush=True)
+    log(f"[train] device={dev} bs={args.bs} tlr={args.tlr:g} pn={args.patch_nums} "
+        f"attn={attn} eval_attn={eval_attn} VAR params {n_params / 1e6:.2f}M")
 
     iters_train = 2
     reso = args.patch_nums[-1] * vae_cfg.downsample
     data_gen = torch.Generator(device=dev).manual_seed(7)
+    row0, glb = pm.data_rows(mesh, args.batch_size)
 
     def next_batch():
-        imgs = torch.rand(args.ac, args.batch_size, reso, reso, 3, generator=data_gen,
-                          device=dev) * 2 - 1
-        labels = torch.randint(0, var_cfg.num_classes, (args.ac, args.batch_size),
-                               generator=data_gen, device=dev)
-        return imgs, labels
+        imgs = torch.rand(args.ac, glb, reso, reso, 3, generator=data_gen, device=dev) * 2 - 1
+        labels = torch.randint(0, var_cfg.num_classes, (args.ac, glb), generator=data_gen,
+                               device=dev)
+        return imgs[:, row0:row0 + args.batch_size], labels[:, row0:row0 + args.batch_size]
 
     init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
-                                       attn_impl=attn)
+                                       attn_impl=attn, mesh=mesh)
     steps = {}
 
     def step_for(prog_si: int):
         if prog_si not in steps:
             steps[prog_si] = tr.make_train_step(var_cfg, vae_cfg, args, iters_train,
-                                                prog_si=prog_si, dtype=dtype, attn_impl=attn)[1]
+                                                prog_si=prog_si, dtype=dtype, attn_impl=attn,
+                                                mesh=mesh)[1]
         return steps[prog_si]
 
-    eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype, attn_impl=eval_attn)
+    eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype, attn_impl=eval_attn, mesh=mesh)
 
     state = init_state(var)
     max_it, wp_it = args.ep * iters_train, args.wp * iters_train
@@ -392,18 +431,22 @@ def local_debug(args: TrainArgs, dev: torch.device, attn: str) -> None:
                                               0.01)
         state, m = step_for(prog_si)(state, vae, imgs, labels,
                                      step_generator(dev, seed, g_it), g_it, prog_wp)
-        print(f"[ep {ep}/{args.ep}] [{opt_it}/{opt_steps}] prog_si {prog_si} "
-              f"loss {float(m.loss):.4f} Lm {float(m.Lm):.4f} Lt {float(m.Lt):.4f} "
-              f"Accm {float(m.accm):.2f} tnm {float(m.grad_norm):.4f} tlr {m.lr:.3g} "
-              f"wd {m.wd:.3g} step_t {time.perf_counter() - t0:.3f}s", flush=True)
+        log(f"[ep {ep}/{args.ep}] [{opt_it}/{opt_steps}] prog_si {prog_si} "
+            f"loss {float(m.loss):.4f} Lm {float(m.Lm):.4f} Lt {float(m.Lt):.4f} "
+            f"Accm {float(m.accm):.2f} tnm {float(m.grad_norm):.4f} tlr {m.lr:.3g} "
+            f"wd {m.wd:.3g} step_t {time.perf_counter() - t0:.3f}s")
 
     # local_debug has no val split (the JAX trainer runs no eval there,
     # train.py:331): the eval step runs once on the last smoke batch
     sums = eval_step(state.var, vae, imgs[0], labels[0], torch.ones(args.batch_size, device=dev))
-    print(f"[local_debug] eval ({eval_attn}) L_mean {float(sums[0] / sums[4]):.4f} "
-          f"acc_mean {float(sums[2] / sums[4]):.2f}", flush=True)
+    log(f"[local_debug] eval ({eval_attn}) L_mean {float(sums[0] / sums[4]):.4f} "
+        f"acc_mean {float(sums[2] / sums[4]):.2f}")
+    if not pm.process_is_master():
+        return
 
     # checkpoint round trip (reference train.py:150-160)
+    init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
+                                       attn_impl=attn)
     meta = dict(epoch=ep + 1, iter=0, args=args.state_dict())
     ckpt.save_checkpoint(args.last_ckpt_path, state, meta)
     fresh = init_state(var_mod.VAR(var_cfg).to(dev))
@@ -418,20 +461,30 @@ def local_debug(args: TrainArgs, dev: torch.device, attn: str) -> None:
 
 
 def main(argv=None) -> None:
-    args = parse_cli(argv).finalize(world_size=1)
+    """The CLI: under torchrun (``WORLD_SIZE`` set) every process joins the
+    group (nccl, or gloo with ``--device cpu``) and the mesh is pure data
+    parallelism over all of them."""
+    args = parse_cli(argv)
+    joined = not torch.distributed.is_initialized()
+    pm.initialize_distributed("gloo" if args.device == "cpu" else None)
+    mesh = pm.make_mesh()
+    args = args.finalize(world_size=mesh.dp)
     dev = resolve_device(args.device)
     attn = resolve_attn(args.attn, dev)
     if args.dbg_nan:  # the reference's anomaly detection (train.py:173-174)
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(args.local_out_dir_path, exist_ok=True)
-    if args.local_debug:
-        local_debug(args, dev, attn)
-        return
-    untee = tee_output(args.local_out_dir_path)
+    untee = (tee_output(args.local_out_dir_path) if pm.process_is_master()
+             and not args.local_debug else (lambda: None))
     try:
-        train_imagenet(args, dev, attn)
+        if args.local_debug:
+            local_debug(args, dev, attn, mesh)
+        else:
+            train_imagenet(args, dev, attn, mesh)
     finally:
         untee()
+        if joined and torch.distributed.is_initialized():  # the group this call joined
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

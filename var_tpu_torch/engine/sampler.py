@@ -21,6 +21,15 @@ neighbour-constrained :func:`smooth_sampling` and the dispatch-batched
 
 Public outputs keep the JAX layouts: image (B, H, W, 3) in [0, 1], tokens
 (B, L), f_hat (B, h, w, Cvae).
+
+``mesh`` (``parallel/mesh.py``, JAX ``sampler.py:99-121``, ``:408-411``):
+every rank passes the whole batch; each data rank decodes its rows, each
+model rank its heads of each block (the module sharded by
+``mesh.shard_var_params``), and the results are gathered over the data
+group, so every rank returns the whole batch. The model ranks of a data
+rank hold the same gathered logits and draw from the same generator, so
+they feed the same next input; a data rank's noise is its rows of the
+global batch's draw, so the decode is the one-process decode.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
 from var_tpu_torch.ops.resize import resize_bilinear
 from var_tpu_torch.ops.sampling import gumbel_softmax, sample_with_top_k_top_p
+from var_tpu_torch.parallel import shard_attn as sa
+from var_tpu_torch.parallel.mesh import Mesh, data_rows, gather_data
 
 CACHE_IMPLS = ("chunked", "prealloc", "concat")
 
@@ -110,13 +121,14 @@ def _next_input(var: var_mod.VAR, nxt: torch.Tensor, lvl_pos: torch.Tensor, cur:
     return (ntm + lvl_pos[:, cur:cur + nseg]).repeat(2, 1, 1)
 
 
-def _start(var: var_mod.VAR, label_b: torch.Tensor, dtype: torch.dtype):
+def _start(var: var_mod.VAR, label_b: torch.Tensor, dtype: torch.dtype,
+           mesh: Optional[Mesh] = None):
     """(cond_bd (2B, C), per-block context, lvl_pos (1, L, C), first token
     map (2B, first_l, C)) of a CFG decode."""
     cfg = var.cfg
     labels2 = torch.cat([label_b, torch.full_like(label_b, cfg.num_classes)])
     cond_bd = var.class_emb.weight[labels2]  # (2B, C) float32
-    ctx = var_mod.cond_context(var, cond_bd, dtype)
+    ctx = var_mod.cond_context(var, cond_bd, dtype, mesh)
     lvl_pos = var_mod.lvl_pos_embed(var)
     ntm = cond_bd[:, None, :] + var.pos_start + lvl_pos[:, :cfg.first_l]
     return cond_bd, ctx, lvl_pos, ntm
@@ -137,23 +149,43 @@ def decode_tokens_cfg(
     edit_mask: Optional[torch.Tensor] = None,
     kv_window: Optional[int] = None,
     cache_impl: str = "chunked",
+    approx_topk: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Transformer half of :func:`decode_cfg` -> (tokens (B, L), f_hat).
     Argument semantics are documented on :func:`decode_cfg`."""
+    tokens, f_hat = _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p,
+                                 more_smooth, dtype, gt_tokens, keep_mask, edit_mask, kv_window,
+                                 cache_impl, approx_topk, mesh)
+    return gather_data(mesh, tokens), gather_data(mesh, f_hat)
+
+
+def _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p, more_smooth, dtype,
+                 gt_tokens, keep_mask, edit_mask, kv_window, cache_impl, approx_topk, mesh):
+    """This data rank's rows of :func:`decode_tokens_cfg`: (tokens, f_hat)."""
     _check_branches(gt_tokens, keep_mask, edit_mask, kv_window, cache_impl)
     var_cfg, vae_cfg = var.cfg, vae.cfg
-    b = label_b.shape[0]
+    dp = sa.axis_sizes(mesh)[0]
+    if label_b.shape[0] % dp:
+        raise ValueError(f"a batch of {label_b.shape[0]} does not split over dp={dp}")
+    b = label_b.shape[0] // dp
+    row0, _ = rows = data_rows(mesh, b)
+    label_b = label_b[row0:row0 + b]
+    if gt_tokens is not None:
+        gt_tokens = gt_tokens[row0:row0 + b]
+    if keep_mask is not None:
+        keep_mask = keep_mask[row0:row0 + b]
     pns = var_cfg.patch_nums
     lens = [pn * pn for pn in pns]
     sn = len(pns)
     quant = vae.quantize
     device = var.pos_1LC.device
-    cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype)
+    cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype, mesh)
 
     f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
     lmax = None if kv_window is None else window_len(pns, kv_window)
     paired = cache_impl != "chunked" or kv_window is not None
-    cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired)
+    cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired, mesh)
     cur = 0
     token_segs = []
     for si, pn in enumerate(pns):
@@ -161,15 +193,16 @@ def decode_tokens_cfg(
         seg = lens[si]
         if kv_window is not None:
             _slide_window(cache, lens, si, kv_window)
-        x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype)
-        lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio)
-        idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator)
+        x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype, mesh)
+        lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio, mesh)
+        idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator,
+                                      approx_topk=approx_topk, rows=rows)
         if keep_mask is not None:  # kept positions take the ground-truth ids
             idx = torch.where(keep_mask[:, cur:cur + seg], gt_tokens[:, cur:cur + seg], idx)
         token_segs.append(idx)
         if more_smooth:  # gumbel-softmax codebook mixing (var.py:178-180)
             gum_t = max(0.27 * (1 - ratio * 0.95), 0.005)
-            soft = gumbel_softmax(lg * (1.0 + ratio), tau=gum_t, generator=generator)
+            soft = gumbel_softmax(lg * (1.0 + ratio), tau=gum_t, generator=generator, rows=rows)
             h = soft @ quant.embedding.weight.float()
         else:
             h = q.embed(quant, idx)
@@ -206,6 +239,8 @@ def decode_cfg(
     edit_mask: Optional[torch.Tensor] = None,
     kv_window: Optional[int] = None,
     cache_impl: str = "chunked",
+    approx_topk: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> DecodeResult:
     """Class-conditional CFG decode of ``label_b`` (B,) int -> DecodeResult.
 
@@ -222,12 +257,14 @@ def decode_cfg(
     ``cache_impl``: ``"chunked"`` attends through ``flash_decode`` (q norm
     in the kernel), ``"prealloc"``/``"concat"`` and every ``kv_window``
     decode through ``flash_decode_paired`` (scale folded into q), all over
-    one in-place buffer (see ``models/var.py``)."""
-    tokens, f_hat = decode_tokens_cfg(
-        var, vae, label_b, generator, cfg_scale=cfg_scale, top_k=top_k, top_p=top_p,
-        more_smooth=more_smooth, dtype=dtype, gt_tokens=gt_tokens, keep_mask=keep_mask,
-        edit_mask=edit_mask, kv_window=kv_window, cache_impl=cache_impl)
-    return DecodeResult(render_fhat(vae, f_hat, dtype), tokens, f_hat)
+    one in-place buffer (see ``models/var.py``). ``approx_topk`` takes the
+    exact path (``ops/sampling.py::sample_with_top_k_top_p`` says why).
+    ``mesh``: see the module docstring; each data rank renders its rows."""
+    tokens, f_hat = _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p,
+                                 more_smooth, dtype, gt_tokens, keep_mask, edit_mask, kv_window,
+                                 cache_impl, approx_topk, mesh)
+    img = render_fhat(vae, f_hat, dtype)
+    return DecodeResult(*(gather_data(mesh, t) for t in (img, tokens, f_hat)))
 
 
 def _on(module: torch.nn.Module, dev: torch.device) -> bool:
@@ -247,13 +284,16 @@ def make_sampler(
     inpainting: bool = False,
     kv_window: Optional[int] = None,
     cache_impl: str = "chunked",
+    approx_topk: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Sampler ``(var, vae, generator, label_b) -> DecodeResult`` on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``; raises when
     CUDA is asked for and absent); with ``inpainting`` it is ``(var, vae,
     generator, label_b, gt, mask)``, ``gt`` (B, L) ids and ``mask`` (B, L)
     bool. Sampling hyper-parameters are fixed here, as the JAX sampler fixes
-    them at compile time."""
+    them at compile time. ``approx_topk`` and ``mesh``: as
+    :func:`decode_cfg`'s."""
     dev = resolve_device(device)
     _check_branches(None, None, None, kv_window, cache_impl)
 
@@ -272,7 +312,7 @@ def make_sampler(
             return decode_cfg(var, vae, labels, generator, cfg_scale=cfg_scale, top_k=top_k,
                               top_p=top_p, more_smooth=more_smooth, dtype=dtype,
                               gt_tokens=gt, keep_mask=mask, kv_window=kv_window,
-                              cache_impl=cache_impl)
+                              cache_impl=cache_impl, approx_topk=approx_topk, mesh=mesh)
 
     return sampler
 
@@ -287,15 +327,17 @@ def fold_in(generator: torch.Generator, r: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(seed)
 
 
-def make_scan_sampler(var_cfg, vae_cfg, rounds: int, device="cuda", **sampler_kw):
+def make_scan_sampler(var_cfg, vae_cfg, rounds: int, device="cuda",
+                      mesh: Optional[Mesh] = None, **sampler_kw):
     """Dispatch-batched sampler ``(var, vae, generator, labels (rounds, B))
     -> DecodeResult`` with leading (rounds, B, ...) axes: ``rounds``
     independent decodes, stacked. Round r equals :func:`make_sampler`
     called with ``fold_in(generator, r)``. PyTorch runs eagerly, so this is
-    a loop; it keeps the JAX package's interface (``sampler.py:300``)."""
+    a loop; it keeps the JAX package's interface (``sampler.py:300``).
+    ``mesh``: as :func:`decode_cfg`'s, each round split alike."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
-    sampler = make_sampler(var_cfg, vae_cfg, device=device, **sampler_kw)
+    sampler = make_sampler(var_cfg, vae_cfg, device=device, mesh=mesh, **sampler_kw)
 
     def run(var, vae, generator, labels_rb) -> DecodeResult:
         res = [sampler(var, vae, fold_in(generator, r), labels_rb[r]) for r in range(rounds)]

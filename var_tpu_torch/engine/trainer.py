@@ -18,7 +18,17 @@ Semantics follow the JAX package (reference ``trainer.py:20-160``,
   dynamic loss scaling with torch-GradScaler semantics.
 
 Parameters and optimizer state are float32; the forward casts to the compute
-dtype at each use (no autocast). Single device.
+dtype at each use (no autocast).
+
+``mesh`` (``parallel/mesh.py``): each data rank steps on its rows of the
+global batch; after the micro-batches one flat all-reduce over the data
+group averages the gradients (XLA's gradient all-reduce in the JAX
+package; ``DistributedDataParallel`` does not fit, since the port calls
+functions on submodules and DDP hooks only ``module.forward``). With a
+model axis the module holds this rank's shards; the clipping norm counts
+the sharded gradients over the model group and the replicated ones once,
+so the clip factor, the skip guard and the loss scale agree on every rank.
+The metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from var_tpu_torch.engine.schedules import lr_factor, wd_value
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
+from var_tpu_torch.parallel import mesh as pm
 
 NOWD_NAMES = ("pos_1LC", "pos_start", "lvl_embed", "ada_gss", "scale_mul")
 
@@ -48,12 +59,15 @@ def weight_decay_mask(var: torch.nn.Module) -> Dict[str, bool]:
 
 
 class ClippedAdamW:
-    """``make_adamw`` (``trainer.py:66``): p -= lr * (adam(clip(g)) + wd * p * mask)."""
+    """``make_adamw`` (``trainer.py:66``): p -= lr * (adam(clip(g)) + wd * p * mask).
+    ``mesh``: the global norm of a model split over its model axis."""
 
-    def __init__(self, var: torch.nn.Module, tclip: float):
+    def __init__(self, var: torch.nn.Module, tclip: float, mesh: Optional[pm.Mesh] = None):
         mask = weight_decay_mask(var)
         named = list(var.named_parameters())
         self.params = [p for _, p in named]
+        self.sharded = [pm.is_sharded(n) for n, _ in named]
+        self.mesh = mesh
         self.tclip = tclip
         self.opt = torch.optim.AdamW(
             [{"params": [p for n, p in named if mask[n]]},
@@ -69,10 +83,23 @@ class ClippedAdamW:
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self.params]
 
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """L2 norm of the whole model's gradient. Under a model axis: the
+        sharded tensors' squares summed over the model group, the replicated
+        ones' counted once (their mean over the group, so every rank gets the
+        same bits)."""
+        group = None if self.mesh is None else self.mesh.model_group
+        if group is None:
+            return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        sq = torch.stack([g.float().pow(2).sum() for g in grads])
+        shard = torch.tensor(self.sharded, device=sq.device)
+        parts = torch.stack([sq[shard].sum(), sq[~shard].sum() / self.mesh.mp])
+        return pm.all_reduce_(parts, group).sum().sqrt()
+
     def step(self, lr: float, wd: float, skip_nonfinite: bool):
         """Clip, then step. Returns (global grad norm before clipping, stepped)."""
         grads = self.grads()
-        gnorm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        gnorm = self.global_norm(grads)
         if skip_nonfinite and not bool(torch.isfinite(gnorm)):
             return gnorm, False
         if self.tclip > 0:
@@ -85,8 +112,9 @@ class ClippedAdamW:
         return gnorm, True
 
 
-def make_adamw(var: torch.nn.Module, tclip: float) -> ClippedAdamW:
-    return ClippedAdamW(var, tclip)
+def make_adamw(var: torch.nn.Module, tclip: float,
+               mesh: Optional[pm.Mesh] = None) -> ClippedAdamW:
+    return ClippedAdamW(var, tclip, mesh)
 
 
 def make_grad_scaler(init_scale: float = 2.0 ** 11, growth_interval: int = 1000,
@@ -187,8 +215,9 @@ def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
                  idx_bl: List[torch.Tensor], label: torch.Tensor,
                  generator: Optional[torch.Generator], prog_si: int = -1,
                  prog_wp: float = 1.0, dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "paired"):
-    """(loss, metrics) of one micro-batch from its tokens (``trainer.py:207-241``)."""
+                 attn_impl: str = "paired", mesh: Optional[pm.Mesh] = None):
+    """(loss, metrics) of one micro-batch from its tokens (``trainer.py:207-241``);
+    under a mesh, of this data rank's rows."""
     var_cfg = var.cfg
     L = var_cfg.seq_len
     ed = L if prog_si < 0 else var_cfg.begin_ends[prog_si][1]
@@ -198,7 +227,7 @@ def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
         x_in = q.idxBl_to_var_input(vae.quantize, vae.cfg, idx_bl)
     logits = var_mod.var_forward(var, label, x_in, generator=generator, train=True,
                                  prog_si=prog_si, dtype=dtype, remat=args.remat,
-                                 attn_impl=attn_impl)
+                                 attn_impl=attn_impl, mesh=mesh)
     ce = cross_entropy(logits, gt_bl, args.ls)  # (B, ed)
     lw = torch.full((ed,), 1.0 / L, device=ce.device)
     if prog_si >= 0:
@@ -207,14 +236,35 @@ def teacher_loss(var: var_mod.VAR, vae: vae_mod.VQVAE, args: TrainArgs,
     return loss, _metrics_from_logits(logits.detach(), gt_bl, var_cfg, prog_si)
 
 
+def _mean_over_data(mesh: Optional[pm.Mesh], m: dict, loss: torch.Tensor):
+    """The metrics and loss of the global batch from each data rank's:
+    means averaged, the prediction histogram summed, in one all-reduce."""
+    if mesh is None or mesh.data_group is None:
+        return m, loss
+    keys = ("Lm", "Lt", "accm", "acct")
+    s = len(m["per_scale_L"])
+    flat = pm.all_reduce_(torch.cat([torch.stack([m[k] for k in keys] + [loss]),
+                                     m["per_scale_L"], m["per_scale_acc"], m["pred_hist"]]),
+                          mesh.data_group)
+    flat[:5 + 2 * s] /= mesh.dp
+    out = dict(zip(keys, flat[:4]))
+    out.update(per_scale_L=flat[5:5 + s], per_scale_acc=flat[5 + s:5 + 2 * s],
+               pred_hist=flat[5 + 2 * s:])
+    return out, flat[4]
+
+
 def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
                     iters_per_ep: int, prog_si: int = -1, dtype: torch.dtype = torch.bfloat16,
-                    attn_impl: str = "paired"):
+                    attn_impl: str = "paired", mesh: Optional[pm.Mesh] = None):
     """(init_state, step) (``trainer.py:175``). ``attn_impl``: the training
     attention, resolved already (``config.resolve_attn``).
 
     ``step(state, vae, imgs (ac, B, H, W, 3), labels (ac, B), generator, g_it,
-    prog_wp) -> (state, StepMetrics)``: updates ``state.var`` in place."""
+    prog_wp) -> (state, StepMetrics)``: updates ``state.var`` in place.
+    ``mesh``: ``imgs`` and ``labels`` are this data rank's B rows, ``var``
+    holds this model rank's shards, and every rank passes a generator in
+    the same state (cond-drop and drop-path draw for the global batch);
+    ``init_state`` gives every data rank data rank 0's parameters."""
     skip_nonfinite = args.fp16 == 1
     dynamic_scale = bool(args.dscale) and args.fp16 == 1
     scaler_init, scaler_update = make_grad_scaler()
@@ -222,7 +272,8 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
     wp_it = float(args.wp * iters_per_ep)
 
     def init_state(var: var_mod.VAR) -> TrainState:
-        return TrainState(var, make_adamw(var, args.tclip),
+        pm.broadcast_from_data_root(mesh, list(var.parameters()))
+        return TrainState(var, make_adamw(var, args.tclip, mesh),
                           scaler=scaler_init() if dynamic_scale else None)
 
     def step(state: TrainState, vae, imgs, labels, generator, g_it: int, prog_wp: float = 1.0):
@@ -233,9 +284,14 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
         for i in range(ac):
             idx_bl = tokenize(vae, imgs[i], args)
             loss, m = teacher_loss(state.var, vae, args, idx_bl, labels[i], generator, prog_si,
-                                   prog_wp, dtype, attn_impl)
+                                   prog_wp, dtype, attn_impl, mesh)
             (loss * (scale / ac)).backward()  # loss scaled before backward (amp_sc.py:43)
             loss_acc += loss.detach() / ac
+        if mesh is not None and mesh.data_group is not None:  # one flat all-reduce
+            grads = state.opt.grads()
+            flat = pm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.data_group)
+            for g, f in zip(grads, flat.div_(mesh.dp).split([g.numel() for g in grads])):
+                g.copy_(f.view_as(g))
         if dynamic_scale:  # unscale (GradScaler.unscale_)
             torch._foreach_div_(state.opt.grads(), scale)
         lr = args.tlr * lr_factor(args.sche, g_it, wp_it, max_it, args.wp0, args.wpe)
@@ -245,6 +301,7 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
             state.scaler = scaler_update(state.scaler, math.isfinite(float(gnorm)))
         state.step += 1
         # metrics of the last micro-batch, as the reference logs them
+        m, loss_acc = _mean_over_data(mesh, m, loss_acc)
         return state, StepMetrics(loss=loss_acc, grad_norm=gnorm, lr=lr, wd=wd, scale=scale, **m)
 
     return init_state, step
@@ -261,10 +318,12 @@ def pick_eval_attn(train_attn: str, seq_len: int) -> str:
 
 
 def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = torch.bfloat16,
-                   attn_impl: str = "paired"):
+                   attn_impl: str = "paired", mesh: Optional[pm.Mesh] = None):
     """Validation step (``trainer.py:328``): summed [L_mean, L_tail, acc_mean,
     acc_tail, n] over the rows where ``valid`` (B,) is nonzero. The caller
-    picks ``attn_impl`` with :func:`pick_eval_attn`."""
+    picks ``attn_impl`` with :func:`pick_eval_attn`. ``mesh``: each data
+    rank passes its rows, and the sums come back summed over the data
+    group, on every rank."""
     last_l = var_cfg.patch_nums[-1] ** 2
 
     @torch.no_grad()
@@ -273,16 +332,17 @@ def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = 
         gt = torch.cat(idx_bl, dim=1)
         x_in = q.idxBl_to_var_input(vae.quantize, vae_cfg, idx_bl)
         logits = var_mod.var_forward(var, label, x_in, train=False, dtype=dtype,
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl, mesh=mesh)
         v = valid.float()
         ce = cross_entropy(logits, gt)
         hit = (logits.argmax(-1) == gt).float()
-        return torch.stack([
+        sums = torch.stack([
             (ce.mean(1) * v).sum(),
             (ce[:, -last_l:].mean(1) * v).sum(),
             (hit.mean(1) * 100.0 * v).sum(),
             (hit[:, -last_l:].mean(1) * 100.0 * v).sum(),
             v.sum(),
         ])
+        return sums if mesh is None else pm.all_reduce_(sums, mesh.data_group)
 
     return step

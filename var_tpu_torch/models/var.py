@@ -29,6 +29,17 @@ LayerNorm (the LN kernel has no backward), cond-drop and drop-path from an
 explicit ``torch.Generator``, ``prog_si`` truncation and remat 0/1/2.
 Parameters stay float32 and are cast to the compute dtype at each use, as
 in the JAX package; no autocast.
+
+Under a mesh (``parallel/mesh.py``) every function takes ``mesh``: the batch
+is this data rank's rows, and with a model axis the module holds this
+model rank's Megatron shards (``mesh.shard_var_params``): qkv, fc1 and the
+head split by output rows behind ``copy_to_model``, proj and fc2 by input
+columns before ``reduce_from_model`` (their biases added once, after it),
+the head's logits gathered along V. The attention kernels run unchanged on
+``H // mp`` heads and the KV cache holds C/mp channels. The activations
+between the blocks stay whole (C) on every rank, so the fused LayerNorm
+(row 1) keeps running under a mesh, where the JAX package moves it to XLA
+(``var.py:497-503``).
 """
 
 from __future__ import annotations
@@ -47,8 +58,12 @@ from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.ops.attention import attention, recompute_grad
 from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
-                                                    flash_decode_paired)
+                                                    flash_decode_paired,
+                                                    flash_decode_paired_plain,
+                                                    flash_decode_plain)
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
+from var_tpu_torch.parallel import shard_attn as sa
+from var_tpu_torch.parallel.mesh import Mesh, data_rows
 
 
 def level_ids(cfg: VARConfig) -> np.ndarray:
@@ -207,10 +222,12 @@ class KVCache:
 
 
 def init_prealloc_caches(cfg: VARConfig, batch: int, dtype: torch.dtype, device,
-                         lmax: Optional[int] = None, paired: bool = False) -> KVCache:
-    """Empty (depth, batch, lmax, C) K and V buffers; ``lmax`` defaults to
-    the whole pyramid, ``cfg.seq_len``."""
-    shape = (cfg.depth, batch, cfg.seq_len if lmax is None else lmax, cfg.embed_dim)
+                         lmax: Optional[int] = None, paired: bool = False,
+                         mesh: Optional[Mesh] = None) -> KVCache:
+    """Empty (depth, batch, lmax, C / mp) K and V buffers (this model
+    rank's heads); ``lmax`` defaults to the whole pyramid, ``cfg.seq_len``."""
+    width = sa.local_heads(cfg.num_heads, mesh) * cfg.head_dim
+    shape = (cfg.depth, batch, cfg.seq_len if lmax is None else lmax, width)
     return KVCache(torch.empty(shape, dtype=dtype, device=device),
                    torch.empty(shape, dtype=dtype, device=device), paired=paired)
 
@@ -235,6 +252,26 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
+def _row_linear(lin: nn.Linear, x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``lin`` whose input columns are split over ``model`` (proj, fc2): the
+    partial products summed over the model group, then the whole bias, added
+    once."""
+    if sa.axis_sizes(mesh)[1] == 1:
+        return _linear(lin, x)
+    out = sa.reduce_from_model(F.linear(x, lin.weight.to(x.dtype)), mesh)
+    return out + lin.bias.to(x.dtype)
+
+
+def check_sharded(var: "VAR", mesh: Optional[Mesh]) -> None:
+    """Raise unless ``var`` holds the shards of ``mesh``'s model axis."""
+    c = var.cfg.embed_dim
+    want = 3 * c // sa.axis_sizes(mesh)[1]
+    got = var.blocks[0].attn.mat_qkv.weight.shape[0] if len(var.blocks) else want
+    if got != want:
+        raise ValueError(f"the VAR holds {got} qkv rows, the mesh wants {want}: shard it with "
+                         f"parallel.mesh.shard_var_params")
+
+
 class BlockContext(NamedTuple):
     """What block ``i`` of a decode needs that never changes across its
     stages, computed once per decode (the JAX package hoists the AdaLN
@@ -256,10 +293,13 @@ def _adaln6(blk: AdaLNSelfAttn, cfg: VARConfig, h: torch.Tensor,
     return _linear(blk.ada_lin[1], h).reshape(-1, 6, cfg.embed_dim)
 
 
-def cond_context(var: VAR, cond_bd: torch.Tensor, dtype: torch.dtype) -> List[BlockContext]:
+def cond_context(var: VAR, cond_bd: torch.Tensor, dtype: torch.dtype,
+                 mesh: Optional[Mesh] = None) -> List[BlockContext]:
     """Each block's :class:`BlockContext` for the (B, C) class embeddings
-    ``cond_bd`` and the compute dtype."""
+    ``cond_bd`` and the compute dtype; under a model axis the qkv bias and
+    ``scale_mul`` are this rank's heads'."""
     cfg = var.cfg
+    check_sharded(var, mesh)
     h = F.silu(cond_bd.float())
     shared = None
     if cfg.shared_aln:
@@ -271,7 +311,7 @@ def cond_context(var: VAR, cond_bd: torch.Tensor, dtype: torch.dtype) -> List[Bl
         sm = None
         if cfg.attn_l2_norm:
             sm = torch.exp(attn.scale_mul_1H11.float().clamp(max=math.log(100.0)))
-            sm = sm.reshape(cfg.num_heads)
+            sm = sm.reshape(-1)
         bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias])
         out.append(BlockContext(p6, p6[:, :2].transpose(0, 1)[:, :, None].to(dtype),
                                 bias.to(dtype), sm))
@@ -297,17 +337,21 @@ def _l2_heads(t: torch.Tensor, num_heads: int,
 
 
 def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockContext,
-               cache: KVCache, layer: int) -> torch.Tensor:
+               cache: KVCache, layer: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time,
     then attention of this stage's queries over cache rows [0, cum + l)
     (``basic_var.py:90-119``): chunked through ``flash_decode``, paired
     through ``flash_decode_paired`` (the scale folded into q,
     ``var.py:402-454``), both reading q from the fused qkv, with the q norm
-    (where ``cfg.attn_l2_norm``) in the kernel's launch."""
-    b, l, c = x.shape
-    h, d = cfg.num_heads, cfg.head_dim
+    (where ``cfg.attn_l2_norm``) in the kernel's launch. Under a model axis
+    both run on this rank's ``H // mp`` heads (JAX's ``decode_paired`` and
+    ``decode_paired_chunks`` bridges)."""
+    b, l, _ = x.shape
+    h, d = sa.local_heads(cfg.num_heads, mesh), cfg.head_dim
+    c = h * d
     dtype = x.dtype
-    qkv = F.linear(x, attn.mat_qkv.weight.to(dtype), ctx.qkv_bias)  # (B, l, 3C)
+    qkv = F.linear(sa.copy_to_model(x, mesh), attn.mat_qkv.weight.to(dtype),
+                   ctx.qkv_bias)  # (B, l, 3C / mp)
     k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
     cum = cache.cum
     k_dst = cache.k[layer, :, cum:cum + l]
@@ -320,30 +364,38 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
         scale = 0.25 / math.sqrt(d)
         k_dst.copy_(k)
     cache.v[layer, :, cum:cum + l] = v
+    # a mesh the paired kernels do not split (odd heads per rank) takes the
+    # dense path, as the JAX decode does (var.py:374, :441)
+    dense = not sa.mesh_is_trivial(mesh) and not sa.paired_mesh_ok(
+        mesh, cfg.num_heads, b * sa.axis_sizes(mesh)[0])
     if cache.paired:
-        out = flash_decode_paired(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
-                                  q_l2_scale_mul=ctx.scale_mul)
+        fn = flash_decode_paired_plain if dense else flash_decode_paired
+        out = fn(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
+                 q_l2_scale_mul=ctx.scale_mul)
     else:
-        out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
-                           q_l2_scale_mul=ctx.scale_mul)
-    return _linear(attn.proj, out)
+        fn = flash_decode_plain if dense else flash_decode
+        out = fn(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
+                 q_l2_scale_mul=ctx.scale_mul)
+    return _row_linear(attn.proj, out, mesh)
 
 
-def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
-    """Linear-GELU(tanh)-Linear (``basic_var.py:33-52``)."""
-    return _linear(ffn.fc2, F.gelu(_linear(ffn.fc1, x), approximate="tanh"))
+def ffn_apply(ffn: FFN, x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Linear-GELU(tanh)-Linear (``basic_var.py:33-52``); under a model
+    axis fc1's rows and fc2's columns are this rank's."""
+    hidden = F.gelu(_linear(ffn.fc1, sa.copy_to_model(x, mesh)), approximate="tanh")
+    return _row_linear(ffn.fc2, hidden, mesh)
 
 
 def block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor, ctx: BlockContext,
-                cache: KVCache, layer: int) -> torch.Tensor:
+                cache: KVCache, layer: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Pre-norm AdaLN block (``basic_var.py:152-158``):
     x += attn(ln(x)*(s1+1)+sh1) * g1; x += ffn(ln(x)*(s2+1)+sh2) * g2,
     each LN + modulation one launch of the fused kernel."""
     p6 = ctx.p6
     a_in = modulated_layernorm(x, p6[:, 2], p6[:, 4], eps=cfg.norm_eps)
-    x = x + attn_apply(blk.attn, cfg, a_in, ctx, cache, layer) * ctx.gammas[0]
+    x = x + attn_apply(blk.attn, cfg, a_in, ctx, cache, layer, mesh) * ctx.gammas[0]
     f_in = modulated_layernorm(x, p6[:, 3], p6[:, 5], eps=cfg.norm_eps)
-    return x + ffn_apply(blk.ffn, f_in) * ctx.gammas[1]
+    return x + ffn_apply(blk.ffn, f_in, mesh) * ctx.gammas[1]
 
 
 def _head_nm(var: VAR, h: torch.Tensor, cond_bd: torch.Tensor) -> torch.Tensor:
@@ -354,25 +406,28 @@ def _head_nm(var: VAR, h: torch.Tensor, cond_bd: torch.Tensor) -> torch.Tensor:
 
 
 def get_logits_cfg(var: VAR, h_2b: torch.Tensor, cond_bd_2b: torch.Tensor,
-                   t: float) -> torch.Tensor:
+                   t: float, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """CFG-mixed float32 logits for a (cond | uncond) doubled batch, mixed
     before the head (``(1+t) - t = 1`` keeps its bias), so the C x V matmul
-    runs on B rows instead of 2B. TF32 is off here: greedy tokens would flip."""
+    runs on B rows instead of 2B. TF32 is off here: greedy tokens would flip.
+    Under a model axis the V/mp columns of each rank are gathered, so every
+    rank holds the whole logits."""
     b = h_2b.shape[0] // 2
     with fp32_exact():
         nm = _head_nm(var, h_2b, cond_bd_2b)
         mixed = (1.0 + t) * nm[:b] - t * nm[b:]
-        return _linear(var.head, mixed)
+        return sa.gather_from_model(_linear(var.head, sa.copy_to_model(mixed, mesh)), mesh)
 
 
 def transformer_stage(var: VAR, x: torch.Tensor, ctx: List[BlockContext], cache: KVCache,
-                      dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, KVCache]:
+                      dtype: torch.dtype = torch.bfloat16,
+                      mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run every block over one scale's token map (``var.py:166-169``),
     writing this stage's K/V into ``cache`` at row ``cache.cum``, which then
     advances by the stage length. Returns (x, cache)."""
     x = x.to(dtype)
     for i, blk in enumerate(var.blocks):
-        x = block_apply(blk, var.cfg, x, ctx[i], cache, i)
+        x = block_apply(blk, var.cfg, x, ctx[i], cache, i, mesh)
     cache.cum += x.shape[1]
     return x, cache
 
@@ -391,9 +446,12 @@ def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], impl: str, qkv: torch.
     block-causal attention, (B, L, C) (``var.py:293-347``): ``paired``
     through the paired training kernel (row 6) on merged tensors, every
     other impl through :func:`ops.attention.attention` on BLHD views
-    (``pallas``: the streaming kernel, row 5; else the dense path)."""
-    b, l, _ = qkv.shape
-    c, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    (``pallas``: the streaming kernel, row 5; else the dense path). The
+    heads are ``qkv``'s: this model rank's under a mesh."""
+    b, l, c3 = qkv.shape
+    d = cfg.head_dim
+    c = c3 // 3
+    h = c // d
     dtype = qkv.dtype
     q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
     if cfg.attn_l2_norm:
@@ -412,7 +470,7 @@ def _attn_core(cfg: VARConfig, scale_ends: Sequence[int], impl: str, qkv: torch.
 
 def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
                      scale_ends: Sequence[int], remat_core: bool,
-                     impl: str = "paired") -> torch.Tensor:
+                     impl: str = "paired", mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Fused QKV with a zero k bias, then the attention core, then the
     projection (``var.py:402-410``). ``paired`` degrades to ``xla`` unless
     the heads pair into 128 lanes (even count, head_dim 64; ``var.py:262``).
@@ -420,26 +478,36 @@ def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
     only the qkv tensor is kept (``var.py:322-359``); ``hybrid`` then runs
     row 5's forward as the primal and takes the dense path's backward.
     Without it, ``hybrid`` is the dense path, as JAX's ``attention`` treats
-    every impl but ``pallas`` (``ops/attention.py:98``)."""
-    if impl == "paired" and not (cfg.num_heads % 2 == 0 and 2 * cfg.head_dim == 128):
+    every impl but ``pallas`` (``ops/attention.py:98``). Under a mesh the
+    kernels run on this rank's heads (JAX's ``paired_train`` and
+    ``flash_blhd`` bridges), and an impl whose geometry the mesh does not
+    split takes the dense path (``var.py:271-282``)."""
+    h = cfg.num_heads
+    if impl == "paired" and not (h % 2 == 0 and 2 * cfg.head_dim == 128):
         impl = "xla"
+    # under a mesh flash_mesh_ok always holds (a sharded module has mp | H,
+    # and the global batch is dp local ones): pallas and hybrid keep row 5
+    if impl == "paired" and not sa.mesh_is_trivial(mesh) and not sa.paired_mesh_ok(
+            mesh, h, x.shape[0] * sa.axis_sizes(mesh)[0]):
+        impl = "xla"  # the paired kernel needs even heads per rank
     dtype = x.dtype
     bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias]).to(dtype)
-    qkv = F.linear(x, attn.mat_qkv.weight.to(dtype), bias)
+    qkv = F.linear(sa.copy_to_model(x, mesh), attn.mat_qkv.weight.to(dtype), bias)
     core = functools.partial(_attn_core, cfg, scale_ends, impl)
     if remat_core and impl == "hybrid":
         core = recompute_grad(functools.partial(_attn_core, cfg, scale_ends, "pallas"),
                               bwd_fn=functools.partial(_attn_core, cfg, scale_ends, "xla"))
     elif remat_core:
         core = recompute_grad(core)
-    return _linear(attn.proj, core(qkv, attn.scale_mul_1H11 if cfg.attn_l2_norm else None))
+    out = core(qkv, attn.scale_mul_1H11 if cfg.attn_l2_norm else None)
+    return _row_linear(attn.proj, out, mesh)
 
 
 def train_block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor,
                       cond_h: torch.Tensor, shared: Optional[torch.Tensor],
                       scale_ends: Sequence[int], remat: int = 0,
                       drop_path: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      attn_impl: str = "paired"):
+                      attn_impl: str = "paired", mesh: Optional[Mesh] = None):
     """Pre-norm AdaLN block (``var.py:475-548``) for teacher forcing:
     x += dp(attn(ln(x)*(s1+1)+sh1) * g1); x += dp(ffn(ln(x)*(s2+1)+sh2) * g2),
     with the plain LayerNorm. ``cond_h`` = silu(class embedding) (B, C) fp32;
@@ -455,47 +523,62 @@ def train_block_apply(blk: AdaLNSelfAttn, cfg: VARConfig, x: torch.Tensor,
     if remat == 2:
         mod_ln, ffn = recompute_grad(mod_ln), recompute_grad(ffn_apply)
     a_out = train_attn_apply(blk.attn, cfg, mod_ln(x, s1, sh1), scale_ends, remat == 2,
-                             attn_impl) * g1
+                             attn_impl, mesh) * g1
     if drop_path is not None:
         a_out = a_out * drop_path[0].to(dtype)
     x = x + a_out
-    f_out = ffn(blk.ffn, mod_ln(x, s2, sh2)) * g2
+    f_out = ffn(blk.ffn, mod_ln(x, s2, sh2), mesh) * g2
     if drop_path is not None:
         f_out = f_out * drop_path[1].to(dtype)
     return x + f_out
 
 
-def get_logits(var: VAR, h: torch.Tensor, cond_bd: torch.Tensor) -> torch.Tensor:
-    """AdaLN-before-head and the classifier head, all fp32 (``var.py:551``)."""
-    return _linear(var.head, _head_nm(var, h, cond_bd))
+def get_logits(var: VAR, h: torch.Tensor, cond_bd: torch.Tensor,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """AdaLN-before-head and the classifier head, all fp32 (``var.py:551``);
+    under a model axis the logits are gathered along V."""
+    nm = sa.copy_to_model(_head_nm(var, h, cond_bd), mesh)
+    return sa.gather_from_model(_linear(var.head, nm), mesh)
 
 
-def cond_drop(cfg: VARConfig, label_b: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def cond_drop(cfg: VARConfig, label_b: torch.Tensor, generator: torch.Generator,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Labels with each replaced by the unconditional class (``num_classes``)
-    with probability ``cond_drop_rate`` (``var.py:643-647``)."""
-    drop = torch.rand(label_b.shape[0], generator=generator, device=label_b.device)
+    with probability ``cond_drop_rate`` (``var.py:643-647``). Under a mesh
+    the draw is the global batch's and this data rank takes its rows, as JAX
+    draws one key over the sharded batch: the masks do not depend on dp."""
+    row0, glb = data_rows(mesh, label_b.shape[0])
+    drop = torch.rand(glb, generator=generator, device=label_b.device)
+    drop = drop[row0:row0 + label_b.shape[0]]
     return torch.where(drop < cfg.cond_drop_rate, torch.full_like(label_b, cfg.num_classes),
                        label_b)
 
 
 def drop_path_masks(cfg: VARConfig, batch: int, generator: torch.Generator,
-                    device) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+                    device, mesh: Optional[Mesh] = None
+                    ) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Per block, None (rate 0) or the two (B, 1, 1) float32 masks of its
     residual branches: 1 / keep with probability keep = 1 - rate_i, else 0,
-    rates linear in depth from 0 to ``drop_path_rate`` (``var.py:686-696``)."""
+    rates linear in depth from 0 to ``drop_path_rate`` (``var.py:686-696``).
+    Under a mesh drawn for the global batch, this data rank's rows kept."""
+    row0, glb = data_rows(mesh, batch)
+
+    def mask(keep):
+        u = torch.rand(glb, 1, 1, generator=generator, device=device)[row0:row0 + batch]
+        return (u < keep).float() / keep
+
     out = []
     for rate in np.linspace(0.0, cfg.drop_path_rate, cfg.depth):
         keep = 1.0 - float(rate)
-        out.append(None if rate <= 0 else tuple(
-            (torch.rand(batch, 1, 1, generator=generator, device=device) < keep).float() / keep
-            for _ in range(2)))
+        out.append(None if rate <= 0 else (mask(keep), mask(keep)))
     return out
 
 
 def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[torch.Tensor],
                 *, generator: Optional[torch.Generator] = None, train: bool = False,
                 prog_si: int = -1, dtype: torch.dtype = torch.bfloat16,
-                remat: int = 0, attn_impl: str = "paired") -> torch.Tensor:
+                remat: int = 0, attn_impl: str = "paired",
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Teacher-forced forward (``var.py:614-723``) -> fp32 logits (B, ed, V).
 
     ``x_blcv_wo_first_l``: (B, L - first_l, Cvae) quantizer-space inputs from
@@ -508,14 +591,17 @@ def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[tor
     1 recomputes each whole block in backward; 2 only the LN, attention core
     and FFN hidden states (``attn_remat``). ``attn_impl``: ``paired`` (the
     default: what ``auto`` resolves to on the GPU), ``pallas``, ``hybrid``
-    or ``xla``, dispatched as in the JAX package (:func:`train_attn_apply`)."""
+    or ``xla``, dispatched as in the JAX package (:func:`train_attn_apply`).
+    ``mesh``: the batch is this data rank's rows and ``var`` this model
+    rank's shards; the logits come back whole (V) on every model rank."""
     cfg = var.cfg
+    check_sharded(var, mesh)
     b, c = label_b.shape[0], cfg.embed_dim
     ed = cfg.seq_len if prog_si < 0 else cfg.begin_ends[prog_si][1]
     if train and (cfg.cond_drop_rate > 0 or cfg.drop_path_rate > 0) and generator is None:
         raise ValueError("a training forward needs a generator for cond-drop and drop-path")
     if train and cfg.cond_drop_rate > 0:
-        label_b = cond_drop(cfg, label_b, generator)
+        label_b = cond_drop(cfg, label_b, generator, mesh)
     cond_bd = F.embedding(label_b, var.class_emb.weight)  # (B, C) fp32
     x = (cond_bd[:, None] + var.pos_start).expand(b, cfg.first_l, c)
     if prog_si != 0:
@@ -529,11 +615,12 @@ def var_forward(var: VAR, label_b: torch.Tensor, x_blcv_wo_first_l: Optional[tor
         shared = _linear(var.shared_ada_lin[1], cond_h).reshape(-1, 6, c)
     dps = [None] * cfg.depth
     if train and cfg.drop_path_rate > 0:
-        dps = drop_path_masks(cfg, b, generator, x.device)
+        dps = drop_path_masks(cfg, b, generator, x.device, mesh)
     for blk, dp in zip(var.blocks, dps):
         if remat == 1:
             x = recompute_grad(train_block_apply)(blk, cfg, x, cond_h, shared, scale_ends, 0, dp,
-                                                  attn_impl)
+                                                  attn_impl, mesh)
         else:
-            x = train_block_apply(blk, cfg, x, cond_h, shared, scale_ends, remat, dp, attn_impl)
-    return get_logits(var, x, cond_bd)
+            x = train_block_apply(blk, cfg, x, cond_h, shared, scale_ends, remat, dp, attn_impl,
+                                  mesh)
+    return get_logits(var, x, cond_bd, mesh)
