@@ -234,6 +234,57 @@ def test_cuda_paired_train_takes_head_dim_64_only(cuda):
         flash_attention_paired_train(q, q, q, 2, 1.0, None)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_cuda_kernels_take_an_odd_head_count(cuda, dtype, h):
+    """Rows 2, 4 and 6 at an odd head count, as a model rank holds it under
+    tensor parallelism (d20 at mp 4: 5 heads; d30 at mp 2: 15): each CUDA
+    block takes one head, so no head pairs are needed. Each against its
+    plain version in fp32 on the same inputs, at the tolerances of the
+    tests above (fp32 1e-4 + 1e-4 |want|; bf16 3 ulps for decode, 4 for
+    training, of max|want|)."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
+                                                        flash_decode_paired_plain)
+
+    c, b, lmax, l, lk = 64 * h, 2, 160, 25, 120
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(b, l, 3 * c, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, lmax, c, generator=g, device=cuda).to(dtype) for _ in range(2))
+    sm = torch.full((h,), 4.0, device=cuda)
+
+    def close(got, want, ulps):
+        got = got.detach().float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert float((got - want).abs().max()) <= ulps * _ulp(float(want.abs().max()))
+
+    kh = k.float().reshape(b, lmax, h, 64)  # row 2 as an l2 model feeds it: K normalised
+    k_l2 = (kh * torch.rsqrt((kh * kh).sum(-1, keepdim=True) + 1e-24)).reshape(k.shape).to(dtype)
+    f = [t.float() for t in (qkv, k, v)]
+    launches = (flash_decode.launches, flash_decode_paired.launches,
+                paired_train_fwd.launches, paired_train_bwd.launches)
+    close(flash_decode(qkv, k_l2, v, lk, h, 1.0, sm),
+          flash_decode_plain(f[0], k_l2.float(), f[2], lk, h, 1.0, sm), 3)
+    close(flash_decode_paired(qkv, k, v, h, 0.125, lk=lk),
+          flash_decode_paired_plain(*f, h, 0.125, lk), 3)
+    ends = (1, 5, 14, 30, 55, 91, 155)
+    q, kt, vt, do = (torch.randn(b, 155, c, generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    got_in = [t.clone().requires_grad_() for t in (q, kt, vt)]
+    out = flash_attention_paired_train(*got_in, h, 0.125, ends)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode_paired.launches, paired_train_fwd.launches,
+            paired_train_bwd.launches) == tuple(n + 1 for n in launches)
+    want_in = [t.float().requires_grad_() for t in (q, kt, vt)]
+    ref = attention(*(t.reshape(b, 155, h, 64) for t in want_in), 0.125, ends).reshape(b, 155, -1)
+    ref.backward(do.float())
+    for got, want in zip([out] + [t.grad for t in got_in], [ref] + [t.grad for t in want_in]):
+        close(got, want.detach(), 4)
+
+
 def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     import chip_smoke

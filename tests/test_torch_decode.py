@@ -98,8 +98,8 @@ def test_sampled_decode_draws_inside_candidate_set(monkeypatch):
     vae, var = _random_models(2048, 3)
     drawn = []
 
-    def recording(logits, top_k=0, top_p=0.0, generator=None, **kw):
-        idx = sample(logits, top_k=top_k, top_p=top_p, generator=generator, **kw)
+    def recording(logits, top_k=0, top_p=0.0, generator=None, rows=None):
+        idx = sample(logits, top_k=top_k, top_p=top_p, generator=generator, rows=rows)
         drawn.append((logits.clone(), idx.clone(), top_k, top_p))
         return idx
 

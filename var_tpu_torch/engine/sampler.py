@@ -149,19 +149,18 @@ def decode_tokens_cfg(
     edit_mask: Optional[torch.Tensor] = None,
     kv_window: Optional[int] = None,
     cache_impl: str = "chunked",
-    approx_topk: bool = False,
     mesh: Optional[Mesh] = None,
 ):
     """Transformer half of :func:`decode_cfg` -> (tokens (B, L), f_hat).
     Argument semantics are documented on :func:`decode_cfg`."""
     tokens, f_hat = _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p,
                                  more_smooth, dtype, gt_tokens, keep_mask, edit_mask, kv_window,
-                                 cache_impl, approx_topk, mesh)
+                                 cache_impl, mesh)
     return gather_data(mesh, tokens), gather_data(mesh, f_hat)
 
 
 def _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p, more_smooth, dtype,
-                 gt_tokens, keep_mask, edit_mask, kv_window, cache_impl, approx_topk, mesh):
+                 gt_tokens, keep_mask, edit_mask, kv_window, cache_impl, mesh):
     """This data rank's rows of :func:`decode_tokens_cfg`: (tokens, f_hat)."""
     _check_branches(gt_tokens, keep_mask, edit_mask, kv_window, cache_impl)
     var_cfg, vae_cfg = var.cfg, vae.cfg
@@ -196,7 +195,7 @@ def _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p, more_smo
         x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype, mesh)
         lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio, mesh)
         idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator,
-                                      approx_topk=approx_topk, rows=rows)
+                                      rows=rows)
         if keep_mask is not None:  # kept positions take the ground-truth ids
             idx = torch.where(keep_mask[:, cur:cur + seg], gt_tokens[:, cur:cur + seg], idx)
         token_segs.append(idx)
@@ -257,12 +256,14 @@ def decode_cfg(
     ``cache_impl``: ``"chunked"`` attends through ``flash_decode`` (q norm
     in the kernel), ``"prealloc"``/``"concat"`` and every ``kv_window``
     decode through ``flash_decode_paired`` (scale folded into q), all over
-    one in-place buffer (see ``models/var.py``). ``approx_topk`` takes the
-    exact path (``ops/sampling.py::sample_with_top_k_top_p`` says why).
+    one in-place buffer (see ``models/var.py``). ``approx_topk`` is
+    accepted for the JAX package's signature and discarded: the decode is
+    exact (``ops/sampling.py::sample_with_top_k_top_p`` says why).
     ``mesh``: see the module docstring; each data rank renders its rows."""
+    del approx_topk
     tokens, f_hat = _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p,
                                  more_smooth, dtype, gt_tokens, keep_mask, edit_mask, kv_window,
-                                 cache_impl, approx_topk, mesh)
+                                 cache_impl, mesh)
     img = render_fhat(vae, f_hat, dtype)
     return DecodeResult(*(gather_data(mesh, t) for t in (img, tokens, f_hat)))
 
@@ -294,6 +295,7 @@ def make_sampler(
     bool. Sampling hyper-parameters are fixed here, as the JAX sampler fixes
     them at compile time. ``approx_topk`` and ``mesh``: as
     :func:`decode_cfg`'s."""
+    del approx_topk
     dev = resolve_device(device)
     _check_branches(None, None, None, kv_window, cache_impl)
 
@@ -312,7 +314,7 @@ def make_sampler(
             return decode_cfg(var, vae, labels, generator, cfg_scale=cfg_scale, top_k=top_k,
                               top_p=top_p, more_smooth=more_smooth, dtype=dtype,
                               gt_tokens=gt, keep_mask=mask, kv_window=kv_window,
-                              cache_impl=cache_impl, approx_topk=approx_topk, mesh=mesh)
+                              cache_impl=cache_impl, mesh=mesh)
 
     return sampler
 

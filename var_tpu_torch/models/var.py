@@ -58,9 +58,7 @@ from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.ops.attention import attention, recompute_grad
 from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
-                                                    flash_decode_paired,
-                                                    flash_decode_paired_plain,
-                                                    flash_decode_plain)
+                                                    flash_decode_paired)
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, data_rows
@@ -345,7 +343,9 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
     ``var.py:402-454``), both reading q from the fused qkv, with the q norm
     (where ``cfg.attn_l2_norm``) in the kernel's launch. Under a model axis
     both run on this rank's ``H // mp`` heads (JAX's ``decode_paired`` and
-    ``decode_paired_chunks`` bridges)."""
+    ``decode_paired_chunks`` bridges), an odd count too: the kernels take
+    one head a block, where JAX's paired kernels want head pairs and leave
+    such a mesh to XLA (``var.py:374``, ``:441``)."""
     b, l, _ = x.shape
     h, d = sa.local_heads(cfg.num_heads, mesh), cfg.head_dim
     c = h * d
@@ -364,18 +364,12 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
         scale = 0.25 / math.sqrt(d)
         k_dst.copy_(k)
     cache.v[layer, :, cum:cum + l] = v
-    # a mesh the paired kernels do not split (odd heads per rank) takes the
-    # dense path, as the JAX decode does (var.py:374, :441)
-    dense = not sa.mesh_is_trivial(mesh) and not sa.paired_mesh_ok(
-        mesh, cfg.num_heads, b * sa.axis_sizes(mesh)[0])
     if cache.paired:
-        fn = flash_decode_paired_plain if dense else flash_decode_paired
-        out = fn(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
-                 q_l2_scale_mul=ctx.scale_mul)
+        out = flash_decode_paired(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
+                                  q_l2_scale_mul=ctx.scale_mul)
     else:
-        fn = flash_decode_plain if dense else flash_decode
-        out = fn(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
-                 q_l2_scale_mul=ctx.scale_mul)
+        out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
+                           q_l2_scale_mul=ctx.scale_mul)
     return _row_linear(attn.proj, out, mesh)
 
 
@@ -480,16 +474,12 @@ def train_attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor,
     Without it, ``hybrid`` is the dense path, as JAX's ``attention`` treats
     every impl but ``pallas`` (``ops/attention.py:98``). Under a mesh the
     kernels run on this rank's heads (JAX's ``paired_train`` and
-    ``flash_blhd`` bridges), and an impl whose geometry the mesh does not
-    split takes the dense path (``var.py:271-282``)."""
+    ``flash_blhd`` bridges), an odd count too: row 6 takes one head a
+    block, where JAX sends a mesh with odd heads a device to XLA
+    (``var.py:271-282``)."""
     h = cfg.num_heads
     if impl == "paired" and not (h % 2 == 0 and 2 * cfg.head_dim == 128):
         impl = "xla"
-    # under a mesh flash_mesh_ok always holds (a sharded module has mp | H,
-    # and the global batch is dp local ones): pallas and hybrid keep row 5
-    if impl == "paired" and not sa.mesh_is_trivial(mesh) and not sa.paired_mesh_ok(
-            mesh, h, x.shape[0] * sa.axis_sizes(mesh)[0]):
-        impl = "xla"  # the paired kernel needs even heads per rank
     dtype = x.dtype
     bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias]).to(dtype)
     qkv = F.linear(sa.copy_to_model(x, mesh), attn.mat_qkv.weight.to(dtype), bias)

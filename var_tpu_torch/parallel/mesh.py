@@ -38,12 +38,17 @@ def initialize_distributed(backend: Optional[str] = None, init_method: str = "en
     machine with a GPU and ``gloo`` without, unless named (gloo also takes
     CUDA tensors, staged through host memory: two ranks on one card, which
     NCCL refuses). With a GPU, this process's current device becomes
-    ``cuda:LOCAL_RANK`` (modulo the cards present), so the entry points'
-    default ``"cuda"`` is the rank's own card."""
+    ``cuda:LOCAL_RANK``, so the entry points' default ``"cuda"`` is the
+    rank's own card; a ``LOCAL_RANK`` beyond the cards present raises,
+    unless the caller names gloo, which may share a card between ranks."""
     if "WORLD_SIZE" not in os.environ or dist.is_initialized():
         return
     if torch.cuda.is_available():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+        local, cards = int(os.environ.get("LOCAL_RANK", 0)), torch.cuda.device_count()
+        if local >= cards and backend != "gloo":
+            raise RuntimeError(f"LOCAL_RANK {local} but {cards} GPU(s): start at most one "
+                               "process a card, or name the gloo backend to share one")
+        torch.cuda.set_device(local % cards)
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=init_method, rank=int(os.environ["RANK"]),

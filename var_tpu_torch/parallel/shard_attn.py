@@ -17,10 +17,12 @@ as ``torch.autograd.Function``s:
 * :func:`gather_from_model`: the head's V/mp logit columns gathered along
   V forward, this rank's slice of the gradient backward.
 
-Geometry contract (:func:`paired_mesh_ok`, :func:`flash_mesh_ok`): mp
-divides H (the paired kernels also want an even per-rank head count) and
-dp divides the global batch. Where it does not hold the callers take the
-dense path, as the JAX package does.
+Geometry (:func:`paired_mesh_ok`, :func:`flash_mesh_ok`): JAX's rules, kept
+with its answers. In the JAX package the paired kernels want an even head
+count a device and a mesh without one goes to XLA. The port's kernels take
+one head a CUDA block, so the model runs them on any ``H // mp`` heads and
+asks only that mp divide H (:func:`local_heads`); each rank holds its own
+rows of the batch, so dp need not divide anything there.
 """
 
 from __future__ import annotations
