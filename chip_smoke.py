@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
 each against its plain PyTorch version at the d16 main-path shapes (rows
 1-7 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
-an unmasked Lq != Lk shape and a ragged L), then drives the port's six
+an unmasked Lq != Lk shape and a ragged L), then drives the port's nine
 paths, each run with the launch counters set to 0 just before it and read
 just after:
 
@@ -63,7 +63,24 @@ just after:
   (chunked and prealloc, rows 1-4 at 8 heads) at both, each against the
   same call in one process on the card at the JAX dry run's tolerances,
   with each rank's launch counts. Gloo through host memory is no
-  throughput figure, so none is printed.
+  throughput figure, so none is printed;
+* FID (``metrics/fid.py``, ``apps/fid_sample.py``): the vae extractor (the
+  ch160 tokenizer, seeded weights) and the pixel extractor on two sets of 8
+  seeded 256px images on the card against the CPU (features and the
+  Fréchet distance), then ``fid_sample``'s decode loop at d16, bf16, the
+  FID recipe, 8 classes x 4, batch 8, ``--rounds 2``, packed into an
+  ``arr_0`` npz and scored against itself (~0) and a second seed's set
+  (> 0) with both extractors, with the sampling img/s beside main_path's
+  and the scorer's ms an image;
+* the quality loop (``apps/quality_loop.py``) at the JAX script's default
+  scale over in-memory gratings: the tokenizer's recon must fall below
+  0.8x its first value and the held-out val loss must fall; the FID proxy
+  is printed beside JAX's recorded CPU run;
+* the analysis apps (``apps/analysis.py``): fp32 per-scale scores on the
+  card against the CPU at the var_prod.npz geometry, without and with the
+  CFG ramp and ``l2_dist`` (rtol 1e-4, predictions equal), then d16 and d20
+  (``--depths 16,20``) in bf16 over 8 images x 10 classes, img/s per model.
+  None of these phases needs Pillow or matplotlib.
 
 Rows 1 and 3 (modulated LayerNorm, top-k/top-p bound) are held against
 their plain versions and timed at every stage shape of the d16 CFG decode
@@ -243,9 +260,35 @@ def phase_build():
           "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
 
 
-def _stage_lens():
-    lens = [pn * pn for pn in PATCH_NUMS]
+def _stage_lens(patch_nums=PATCH_NUMS):
+    lens = [pn * pn for pn in patch_nums]
     return lens, [sum(lens[:i]) for i in range(len(lens))]
+
+
+def check_ln(dev, b2: int, lens, c: int, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """Row 1 against its plain version at (b2, l, c) for each l of ``lens``,
+    with strided modulation rows as on the main path (slices of a (b2, 6, c)
+    table), within TOL; raises on any violation. Returns {dtype: worst
+    error}."""
+    from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    p6 = torch.randn(b2, 6, c, generator=g, device=dev) * 0.3
+    scale, shift = p6[:, 2], p6[:, 4]
+    errs = {}
+    for dtype in dtypes:
+        atol, rtol = TOL[("modulated_layernorm", dtype)]
+        worst = 0.0
+        for l in lens:
+            x = (torch.randn(b2, l, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
+            err, ok = max_violation(modulated_layernorm(x, scale, shift),
+                                    modulated_layernorm_plain(x, scale, shift), atol, rtol)
+            if not ok:
+                raise AssertionError(f"modulated_layernorm {dtype} ({b2}, {l}, {c}): "
+                                     f"max err {err}")
+            worst = max(worst, err)
+        errs[str(dtype)] = worst
+    return errs
 
 
 def phase_kernel_ln(dev):
@@ -257,27 +300,18 @@ def phase_kernel_ln(dev):
 
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
 
-    g = torch.Generator(device=dev).manual_seed(1)
     b2 = 2 * BATCH
+    lens, _ = _stage_lens()
+    errs = check_ln(dev, b2, lens, C)
+    g = torch.Generator(device=dev).manual_seed(11)
     p6 = torch.randn(b2, 6, C, generator=g, device=dev) * 0.3
     scale, shift = p6[:, 2], p6[:, 4]  # strided rows, as on the main path
-    lens, _ = _stage_lens()
-    errs, stage_ms, stage_bound_ms = {}, [], []
-    for dtype in (torch.float32, torch.bfloat16):
-        atol, rtol = TOL[("modulated_layernorm", dtype)]
-        worst = 0.0
-        for l in lens:
-            x = (torch.randn(b2, l, C, generator=g, device=dev) * 2 + 0.5).to(dtype)
-            err, ok = max_violation(modulated_layernorm(x, scale, shift),
-                                    modulated_layernorm_plain(x, scale, shift), atol, rtol)
-            if not ok:
-                raise AssertionError(f"modulated_layernorm {dtype} l={l}: max err {err}")
-            worst = max(worst, err)
-            if dtype == torch.bfloat16:
-                stage_ms.append(device_ms(lambda: modulated_layernorm(x, scale, shift), 50))
-                nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
-                stage_bound_ms.append(bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0])
-        errs[str(dtype)] = worst
+    stage_ms, stage_bound_ms = [], []
+    for l in lens:
+        x = (torch.randn(b2, l, C, generator=g, device=dev) * 2 + 0.5).bfloat16()
+        stage_ms.append(device_ms(lambda: modulated_layernorm(x, scale, shift), 50))
+        nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
+        stage_bound_ms.append(bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0])
     wall = call_ms(lambda: modulated_layernorm(x, scale, shift), 50)
     plain_ms = device_ms(lambda: modulated_layernorm_plain(x, scale, shift), 20)
     # the library yardstick (never used by the port): the nearest single call
@@ -299,16 +333,50 @@ def phase_kernel_ln(dev):
             "shape": [b2, lens[-1], C], "dtype": "bfloat16"}
 
 
-def select_logits(g, rows: int, dev) -> torch.Tensor:
-    """(rows, V) fp32 logits: by row, in turn, N(0, 9) in fp32, the same
+def select_logits(g, rows: int, dev, v: int = V) -> torch.Tensor:
+    """(rows, v) fp32 logits: by row, in turn, N(0, 9) in fp32, the same
     rounded to bf16 (a bf16 head's output: real ties) and a coarse grid
     (N(0, 4) rounded to halves, through fp16: about 13 distinct values, so
     the k-th value and the top-p threshold fall inside tie groups)."""
-    logits = torch.randn(rows, V, generator=g, device=dev) * 3
+    logits = torch.randn(rows, v, generator=g, device=dev) * 3
     logits[1::3] = logits[1::3].bfloat16().float()
-    grid = torch.round(torch.randn(rows, V, generator=g, device=dev) * 2) / 2
+    grid = torch.round(torch.randn(rows, v, generator=g, device=dev) * 2) / 2
     logits[2::3] = grid[2::3].half().float()
     return logits
+
+
+def check_select(dev, stage_rows, v: int, ks, top_p: float) -> dict:
+    """Row 3 against its plain version on (rows, v) logits with real ties
+    (select_logits) for each of ``stage_rows``: top-k bounds equal at each k
+    of ``ks`` (0: k = v); top-p bounds at ``top_p`` within the mass-gap
+    rule; two launches on the same logits bit-identical. Raises on any
+    violation; returns the worst mass gap, the rows that differ, the rows
+    and the checks."""
+    from var_tpu_torch.ops.cuda.select import (bound_mass_gap, topk_topp_bound,
+                                               topk_topp_bound_plain)
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst, disputed, rows_total, checks = 0.0, 0, 0, 0
+    for rows in stage_rows:
+        logits = select_logits(g, rows, dev, v)
+        for k in ks:
+            tk = topk_topp_bound(logits, k, 0.0)
+            if not torch.equal(tk, topk_topp_bound_plain(logits, k, 0.0)):
+                raise AssertionError(f"topk_topp_bound top-k only, k={k} ({rows}, {v}): "
+                                     "bounds differ")
+            got = topk_topp_bound(logits, k, top_p)
+            again = topk_topp_bound(logits, k, top_p)
+            if not (torch.equal(got, again) and torch.equal(tk, topk_topp_bound(logits, k, 0.0))):
+                raise AssertionError(f"topk_topp_bound k={k} ({rows}, {v}): two launches differ")
+            want = topk_topp_bound_plain(logits, k, top_p)
+            err, n = bound_mass_gap(logits, tk, got, want, top_p)
+            if err > SELECT_MASS_TOL:
+                raise AssertionError(f"topk_topp_bound k={k} p={top_p} ({rows}, {v}): {n} rows "
+                                     f"differ, mass gap {err}")
+            worst, disputed = max(worst, err), disputed + n
+            rows_total, checks = rows_total + got.numel(), checks + 1
+    return {"max_mass_gap": worst, "rows_differ": disputed, "rows": rows_total,
+            "checks": checks}
 
 
 def phase_kernel_select(dev):
@@ -318,30 +386,13 @@ def phase_kernel_select(dev):
     the same logits bit-identical. Timed at each stage at the main path's
     (k 900, p 0.96) and at inpainting's k 1; ``per_batch_ms`` sums one
     launch per stage; ``ms`` is the last stage's."""
-    from var_tpu_torch.ops.cuda.select import (bound_mass_gap, topk_topp_bound,
-                                               topk_topp_bound_plain)
+    from var_tpu_torch.ops.cuda.select import topk_topp_bound, topk_topp_bound_plain
 
-    g = torch.Generator(device=dev).manual_seed(2)
     lens, _ = _stage_lens()
-    worst, disputed, rows_total, checks = 0.0, 0, 0, 0
+    checked = check_select(dev, [BATCH * l for l in lens], V, (1, TOP_K, 0), TOP_P)
+    g = torch.Generator(device=dev).manual_seed(12)
     stage_ms, stage_bound_ms, stage_k1_ms = [], [], []
     for l in lens:
-        logits = select_logits(g, BATCH * l, dev)
-        for k in (1, TOP_K, 0):  # 0: no top-k, k = V
-            tk = topk_topp_bound(logits, k, 0.0)
-            if not torch.equal(tk, topk_topp_bound_plain(logits, k, 0.0)):
-                raise AssertionError(f"topk_topp_bound top-k only, k={k} l={l}: bounds differ")
-            got = topk_topp_bound(logits, k, TOP_P)
-            again = topk_topp_bound(logits, k, TOP_P)
-            if not (torch.equal(got, again) and torch.equal(tk, topk_topp_bound(logits, k, 0.0))):
-                raise AssertionError(f"topk_topp_bound k={k} l={l}: two launches differ")
-            want = topk_topp_bound_plain(logits, k, TOP_P)
-            err, n = bound_mass_gap(logits, tk, got, want, TOP_P)
-            if err > SELECT_MASS_TOL:
-                raise AssertionError(f"topk_topp_bound k={k} l={l}: {n} rows differ, "
-                                     f"mass gap {err}")
-            worst, disputed = max(worst, err), disputed + n
-            rows_total, checks = rows_total + got.numel(), checks + 1
         # timed on N(0, 9) logits (ties only by chance), as the kernel table has been
         logits = torch.randn(BATCH * l, V, generator=g, device=dev) * 3
         stage_ms.append(device_ms(lambda: topk_topp_bound(logits, TOP_K, TOP_P), 20))
@@ -357,8 +408,9 @@ def phase_kernel_select(dev):
     library_ms = device_ms(lambda: torch.topk(logits, TOP_K), 20)
     bound_ms, bound_by = bound(logits.numel() * 4 + logits.shape[0] * 4,
                                logits.numel() * (3 + 2 * 4), FP32_FLOPS)
-    return {"name": "topk_topp_bound", "max_abs_err": worst, "rows_differ": disputed,
-            "rows": rows_total, "checks": checks,
+    return {"name": "topk_topp_bound", "max_abs_err": checked["max_mass_gap"],
+            "rows_differ": checked["rows_differ"], "rows": checked["rows"],
+            "checks": checked["checks"],
             "tol": f"top-k bounds equal; top-p mass gap <= {SELECT_MASS_TOL}; "
                    "two launches equal",
             "ms": stage_ms[-1], "call_ms": wall, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -415,42 +467,45 @@ def _check_errs(name, dtype, got, want, errs, failures, what):
     errs[key] = max(errs.get(key, 0.0), err)
 
 
-def chunked_shapes():
+def chunked_shapes(patch_nums=PATCH_NUMS):
     """(Lq, Lk) of every stage of the chunked decode: Lk = every stage so far."""
-    lens, cums = _stage_lens()
+    lens, cums = _stage_lens(patch_nums)
     return [(l, c + l) for l, c in zip(lens, cums)]
 
 
-def check_decode(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
-    """flash_decode (row 2) against its plain version at every stage of the
-    chunked decode, 2B = 16, C 1024, 16 heads, q in the fused (2B, Lq, 3C)
-    qkv, over rows [0, Lk) of a longer NaN-poisoned buffer: as the model
-    feeds it (the q norm with scale_mul 4 in the kernel, L2-normalised K,
-    scale 1) and with raw K and the post-dot scale 0.25 / sqrt(d). fp32
-    within TOL; bf16 against the plain version in fp32 on the same bf16
-    inputs, within FLASH_BF16_ULPS bf16 ulps of max|want|. Raises on any
-    violation; returns {dtype: worst error}."""
+def check_decode(dev, dtypes=(torch.float32, torch.bfloat16), b2: int = 2 * BATCH, c: int = C,
+                 heads: int = HEADS, shapes=None) -> dict:
+    """flash_decode (row 2) against its plain version at every (Lq, Lk) of
+    ``shapes`` (default: every stage of the d16 chunked decode), b2 rows
+    (default 2B = 16), width c (1024), ``heads`` heads (16), q in the fused
+    (b2, Lq, 3c) qkv, over rows [0, Lk) of a longer NaN-poisoned buffer: as
+    the model feeds it (the q norm with scale_mul 4 in the kernel,
+    L2-normalised K, scale 1) and with raw K and the post-dot scale
+    0.25 / sqrt(d). fp32 within TOL; bf16 against the plain version in fp32
+    on the same bf16 inputs, within FLASH_BF16_ULPS bf16 ulps of max|want|.
+    Raises on any violation; returns {dtype: worst error}."""
     from var_tpu_torch.ops.cuda.flash_attention import flash_decode, flash_decode_plain
 
+    shapes = shapes or chunked_shapes()
     g = torch.Generator(device=dev).manual_seed(3)
-    b2, d = 2 * BATCH, C // HEADS
-    lmax = sum(_stage_lens()[0]) + POISON_ROWS
-    sm = torch.full((HEADS,), 4.0, device=dev)  # exp(log 4), the init scale_mul
+    d = c // heads
+    lmax = max(lk for _, lk in shapes) + POISON_ROWS
+    sm = torch.full((heads,), 4.0, device=dev)  # exp(log 4), the init scale_mul
     errs, failures = {}, []
     for dtype in dtypes:
-        k_raw = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
-        v = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
-        cases = (("scale_mul", l2_heads(k_raw, HEADS), 1.0, sm),
+        k_raw = torch.randn(b2, lmax, c, generator=g, device=dev).to(dtype)
+        v = torch.randn(b2, lmax, c, generator=g, device=dev).to(dtype)
+        cases = (("scale_mul", l2_heads(k_raw, heads), 1.0, sm),
                  ("scale", k_raw, 0.25 / d ** 0.5, None))
-        for l, lk in chunked_shapes():
-            qkv = torch.randn(b2, l, 3 * C, generator=g, device=dev).to(dtype)
+        for l, lk in shapes:
+            qkv = torch.randn(b2, l, 3 * c, generator=g, device=dev).to(dtype)
             vp = _poisoned(v, lk)
             for case, k, scale, smul in cases:
-                got = flash_decode(qkv, _poisoned(k, lk), vp, lk, HEADS, scale, smul).float()
-                want = flash_decode_plain(qkv.float(), k.float(), v.float(), lk, HEADS, scale,
+                got = flash_decode(qkv, _poisoned(k, lk), vp, lk, heads, scale, smul).float()
+                want = flash_decode_plain(qkv.float(), k.float(), v.float(), lk, heads, scale,
                                           smul)
                 _check_errs("flash_decode", dtype, got, want, errs, failures,
-                            f"{case} l={l} lk={lk}")
+                            f"{case} b2={b2} c={c} h={heads} l={l} lk={lk}")
     if failures:
         raise AssertionError("flash_decode differs from its plain version: " + "; ".join(failures))
     return errs
@@ -601,8 +656,8 @@ def phase_kernel_decode_paired(dev):
     return row
 
 
-def _scale_ends():
-    lens, cums = _stage_lens()
+def _scale_ends(patch_nums=PATCH_NUMS):
+    lens, cums = _stage_lens(patch_nums)
     return tuple(c + n for c, n in zip(cums, lens))
 
 
@@ -619,34 +674,39 @@ def bwd_split(bwd, iters: int) -> dict:
             "dkv_ms": sum(ms for k, ms in by.items() if "ptrain_dkv" in k), "kernels": by}
 
 
-def ptrain_inputs(dev, dtype, batch: int, seed: int):
-    """q, k, v, do at the d16 training shapes, as the model feeds them:
-    per-head L2-normalised q times scale_mul 4 (exp(log 4), the init), L2-normalised k."""
+def ptrain_inputs(dev, dtype, batch: int, seed: int, c: int = C, heads: int = HEADS,
+                  patch_nums=PATCH_NUMS):
+    """q, k, v, do at the training shapes (default d16's), as the model feeds
+    them: per-head L2-normalised q times scale_mul 4 (exp(log 4), the init),
+    L2-normalised k."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    l = sum(_stage_lens()[0])
-    q, k, v, do = (torch.randn(batch, l, C, generator=g, device=dev) for _ in range(4))
-    q = l2_heads(q, HEADS) * 4.0
-    return tuple(t.to(dtype) for t in (q, l2_heads(k, HEADS), v, do))
+    l = sum(_stage_lens(patch_nums)[0])
+    q, k, v, do = (torch.randn(batch, l, c, generator=g, device=dev) for _ in range(4))
+    q = l2_heads(q, heads) * 4.0
+    return tuple(t.to(dtype) for t in (q, l2_heads(k, heads), v, do))
 
 
-def check_ptrain(dev, batch: int = TRAIN_BATCH) -> dict:
+def check_ptrain(dev, batch: int = TRAIN_BATCH, c: int = C, heads: int = HEADS,
+                 patch_nums=PATCH_NUMS, dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """flash_attention_paired_train's forward and backward kernels against
-    autograd through ops/attention.py::attention, in fp32 and bf16; raises
-    on any violation. Returns {dtype: {tensor: error}} (bf16 errors also in ulps)."""
+    autograd through ops/attention.py::attention at (batch, L, c) with
+    ``heads`` heads over the pyramid ``patch_nums`` (default d16's at
+    TRAIN_BATCH), in each of ``dtypes``; raises on any violation. Returns
+    {dtype: {tensor: error}} (bf16 errors also in ulps)."""
     from var_tpu_torch.ops.attention import attention
     from var_tpu_torch.ops.cuda.flash_attention import flash_attention_paired_train
 
-    ends = _scale_ends()
-    d = C // HEADS
+    ends = _scale_ends(patch_nums)
+    d = c // heads
     errs, failures = {}, []
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do = ptrain_inputs(dev, dtype, batch, 4)
+    for dtype in dtypes:
+        q, k, v, do = ptrain_inputs(dev, dtype, batch, 4, c, heads, patch_nums)
         got_in = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = flash_attention_paired_train(*got_in, HEADS, 1.0, ends)
+        out = flash_attention_paired_train(*got_in, heads, 1.0, ends)
         out.backward(do)
         want_in = [t.float().requires_grad_() for t in (q, k, v)]
         b, l, _ = q.shape
-        ref = attention(*(t.reshape(b, l, HEADS, d) for t in want_in), 1.0, ends).reshape(b, l, C)
+        ref = attention(*(t.reshape(b, l, heads, d) for t in want_in), 1.0, ends).reshape(b, l, c)
         ref.backward(do.float())
         got = {"out": out.detach(), "dq": got_in[0].grad, "dk": got_in[1].grad,
                "dv": got_in[2].grad}
@@ -670,8 +730,9 @@ def check_ptrain(dev, batch: int = TRAIN_BATCH) -> dict:
         errs[str(dtype).replace("torch.", "")] = row
         del got_in, want_in, out, ref, got, want
     if failures:
-        raise AssertionError("flash_attention_paired_train differs from its plain version: "
-                             + "; ".join(failures) + f" (errors {errs})")
+        raise AssertionError("flash_attention_paired_train differs from its plain version at "
+                             f"({batch}, L, {c}), {heads} heads: " + "; ".join(failures)
+                             + f" (errors {errs})")
     return errs
 
 
@@ -1136,7 +1197,7 @@ def phase_main_path(dev):
           "setup_s": setup_s, "first_decode_s": first_s, "decode_s": times,
           "decode_s_median": median_s, "img_per_s": BATCH / median_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches
+    return launches, BATCH / median_s
 
 
 def _all_kernels():
@@ -2156,6 +2217,392 @@ def phase_vae_train_main_path(dev):
     return out
 
 
+FID_IMAGES = 8  # seeded 256px images a set in fid_parity
+# card vs CPU, fp32 with TF32 off: vae features within this share of the
+# set's max |feature| (the encoder's convolutions sum in another order on
+# each device); pixel features within atol; the Fréchet distance between
+# two sets within this relative tolerance
+FID_FEAT_RTOL_OF_MAX = 1e-4
+FID_PIXEL_ATOL = 1e-6
+FID_RTOL = 1e-3
+FID_SELF_ATOL = 1e-2  # a set against itself: 0 up to the eigensolver's noise (JAX's bound)
+FID_CLASSES, FID_PER_CLASS, FID_BATCH, FID_ROUNDS = 8, 4, 8, 2  # 32 images, 2 chunks
+
+
+def _fid_vae(seed: int):
+    """The published ch160 tokenizer with seeded weights, on the CPU."""
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.models import vae as vae_mod
+
+    vae = vae_mod.VQVAE(VAEConfig(v_patch_nums=PATCH_NUMS))
+    return vae_mod.init_vae_params(vae, torch.Generator().manual_seed(seed)).eval()
+
+
+def phase_fid_parity(dev):
+    """``metrics/fid.py``'s extractors on the card against the same calls on
+    the CPU: two sets of FID_IMAGES seeded 256px uint8 images through the
+    vae extractor (the ch160 tokenizer, seeded weights carried to the card),
+    the randproj extractor built on the card from seed 0 (held against the
+    CPU's vae features: ``_fid_vae(0)`` is the same seed-0 init, drawn on
+    the CPU) and the pixel extractor; the features, and the Fréchet
+    distance between the two sets, within the stated tolerances."""
+    import copy
+
+    from var_tpu_torch.metrics import fid as F
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    sets = [rng.integers(0, 256, (FID_IMAGES, 256, 256, 3), dtype=np.uint8) for _ in range(2)]
+    vae = _fid_vae(0)
+    cpu_vae = F.make_vae_extractor(vae=vae, device="cpu")
+    extractors = {
+        "vae": (F.make_vae_extractor(vae=copy.deepcopy(vae), device=dev), cpu_vae),
+        "vae_randproj": (F.make_vae_extractor(seed=0, device=dev), cpu_vae),
+        "pixel": (F.make_pixel_extractor(device=dev), F.make_pixel_extractor(device="cpu")),
+    }
+    if extractors["vae_randproj"][0].feature_space != "vae_randproj":
+        raise AssertionError("the seeded extractor is not labelled vae_randproj")
+    rows, failures, cpu_feats = {}, [], {}
+    for name, (card_ex, cpu_ex) in extractors.items():
+        card = [card_ex(s) for s in sets]
+        if id(cpu_ex) not in cpu_feats:  # the CPU's vae features serve both vae rows
+            cpu_feats[id(cpu_ex)] = [cpu_ex(s) for s in sets]
+        cpu = cpu_feats[id(cpu_ex)]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+        scale = max(float(np.abs(b).max()) for b in cpu)
+        fids = [F.frechet_distance(*F.feature_stats(f[0]), *F.feature_stats(f[1]))
+                for f in (card, cpu)]
+        fid_rel = abs(fids[0] - fids[1]) / abs(fids[1])
+        bound = FID_PIXEL_ATOL if name == "pixel" else FID_FEAT_RTOL_OF_MAX * scale
+        rows[name] = {"dims": int(card[0].shape[1]), "feat_max_abs_err": err,
+                      "feat_max_abs": scale, "feat_bound": bound, "fid_card": fids[0],
+                      "fid_cpu": fids[1], "fid_rel_err": fid_rel}
+        if not (err <= bound and fid_rel <= FID_RTOL):  # NaN fails too
+            failures.append(f"{name}: features {err} (bound {bound}), FID rel {fid_rel}")
+    emit({"phase": "fid_parity", "images": 2 * FID_IMAGES, "reso": 256, "tf32": False,
+          "extractors": rows, "tol": {"vae_feat_of_max": FID_FEAT_RTOL_OF_MAX,
+                                      "pixel_feat_abs": FID_PIXEL_ATOL, "fid_rel": FID_RTOL},
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("fid parity failed: " + "; ".join(failures))
+
+
+def phase_fid_main_path(dev, main_path_img_per_s: float):
+    """``apps/fid_sample.py``'s decode loop at d16, bf16, the FID recipe
+    (cfg 1.5, top_k 900, top_p 0.96): FID_CLASSES x FID_PER_CLASS images in
+    batches of FID_BATCH, ``--rounds`` FID_ROUNDS (counted), packed into
+    an ``arr_0`` npz with numpy; a second seed's set likewise (not
+    counted; its time is the img/s printed beside main_path's). Each
+    extractor scores the first set against itself (~0) and against the
+    second (> 0)."""
+    import shutil
+    import tempfile
+
+    from var_tpu_torch.apps.fid_sample import decode_chunks
+    from var_tpu_torch.metrics import fid as F
+    from var_tpu_torch.models import build_vae_var
+
+    t_phase = time.perf_counter()
+    dtype = torch.bfloat16
+    _, var_cfg, vae, var = build_vae_var(device=dev, seed=0, depth=DEPTH, patch_nums=PATCH_NUMS,
+                                         dtype=dtype)
+    labels = np.repeat(np.arange(FID_CLASSES), FID_PER_CLASS)
+    kw = dict(batch=FID_BATCH, rounds=FID_ROUNDS, cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P,
+              dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    kernels = _all_kernels()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    chunks = list(decode_chunks(var, vae, labels, seed=0, **kw))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = _counts(kernels)
+    batches = len(labels) // FID_BATCH
+    sn = len(PATCH_NUMS)
+    want = {k: batches * v for k, v in {**_decode_want(DEPTH, sn),
+                                        "flash_decode": DEPTH * sn}.items()}
+    if launches != want:
+        raise AssertionError(f"fid_sample launches {launches}, want {want}")
+    reso = 16 * PATCH_NUMS[-1]
+    first = np.concatenate([imgs for _, imgs in chunks])
+    if [i for i, _ in chunks] != [0, FID_ROUNDS * FID_BATCH] \
+            or first.shape != (len(labels), reso, reso, 3) or first.dtype != np.uint8:
+        raise AssertionError(f"fid_sample chunks {[i for i, _ in chunks]}, images "
+                             f"{first.shape} {first.dtype}")
+    t0 = time.perf_counter()  # the second seed's set: the same work, warm, not counted
+    second = np.concatenate([imgs for _, imgs in decode_chunks(var, vae, labels, seed=1, **kw)])
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="var_fid_")
+    try:
+        paths = []
+        for name, arr in (("seed0", first), ("seed1", second)):
+            paths.append(os.path.join(tmp, f"{name}.npz"))
+            np.savez(paths[-1], arr_0=arr)
+        scores = {}
+        for name, ex in (("vae", F.make_vae_extractor(vae=vae, device=dev)),
+                         ("pixel", F.make_pixel_extractor(device=dev))):
+            ex(first[:FID_BATCH])  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = [F.path_stats(p, ex, batch=FID_BATCH) for p in paths]
+            score_s = time.perf_counter() - t0
+            scores[name] = {"fid_self": F.frechet_distance(*stats[0], *stats[0]),
+                            "fid_other_seed": F.frechet_distance(*stats[0], *stats[1]),
+                            "scorer_ms_per_image": 1e3 * score_s / (2 * len(labels))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "fid_main_path", "depth": DEPTH, "dtype": "bfloat16", "cfg": CFG,
+          "top_k": TOP_K, "top_p": TOP_P, "images": len(labels), "batch": FID_BATCH,
+          "rounds": FID_ROUNDS, "chunks": len(chunks), "launches": launches,
+          "first_sample_s": sample_s, "sample_s": second_s,
+          "sample_img_per_s": len(labels) / second_s, "main_path_img_per_s": main_path_img_per_s,
+          "distinct_pixels_first": int(np.unique(first.reshape(-1, 3), axis=0).shape[0]),
+          "scores": scores, "fid_self_atol": FID_SELF_ATOL,
+          "seconds": time.perf_counter() - t_phase})
+    for name, s in scores.items():
+        if not (abs(s["fid_self"]) < FID_SELF_ATOL and s["fid_other_seed"] > 0):
+            raise AssertionError(f"fid {name}: self {s['fid_self']}, other {s['fid_other_seed']}")
+
+
+# JAX's recorded CPU run at the script's defaults (scripts/quality_loop.py:30-34)
+QLOOP_JAX_CPU = {"vae_recon_first_last": [0.28375, 0.00647], "val_curve_first_last":
+                 [4.8513, 4.7869], "fid_init": 0.015, "fid_trained": 0.013}
+
+
+def _qloop_want(args) -> dict:
+    """The quality loop's launches: row 6 forward and backward once a block a
+    step (remat 0), none in eval (dense at L 130); rows 1-3 in the chunked
+    decodes of the two sample sets."""
+    from var_tpu_torch.config import parse_patch_nums
+
+    sn = len(parse_patch_nums(args.pn))
+    steps = args.epochs * max(1, args.classes * args.per_class // args.bs)
+    decodes = 2 * -(-args.classes * args.sample_per_class // args.bs)
+    want = dict.fromkeys(_decode_want(args.depth, 0), 0)
+    want.update(modulated_layernorm=decodes * 2 * args.depth * sn,
+                flash_decode=decodes * args.depth * sn, topk_topp_bound=decodes * sn,
+                paired_train_fwd=steps * args.depth, paired_train_bwd=steps * args.depth)
+    return want
+
+
+class _Gratings:
+    """An in-memory split of ``apps/quality_loop.py``'s gratings, for its
+    ``run``: ``samples[i]`` is ((H, W, 3) uint8, label), without the JPEG
+    round trip or the resize-and-crop of the folder route."""
+
+    def __init__(self):
+        self.samples = []
+
+    def __len__(self):
+        return len(self.samples)
+
+
+def _u8_to_pm1(item: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    return item.astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
+def _grating_splits(args, reso: int):
+    """(train, val): ``grating_images``' stream, in ``gen_dataset``'s order."""
+    from var_tpu_torch.apps.quality_loop import grating_images
+
+    splits = {"train": _Gratings(), "val": _Gratings()}
+    for split, c, _, arr in grating_images(args.classes, args.per_class, args.val_per_class,
+                                           reso, args.seed):
+        splits[split].samples.append((arr, c))
+    return splits["train"], splits["val"]
+
+
+def _check_qloop_kernels(dev, args) -> dict:
+    """Each kernel of the quality loop against its plain version at the
+    shapes and in the dtype (fp32) the loop gives it: row 1 at (2 bs, pn^2,
+    width) per stage, row 2 at the loop's chunked stages over 2 bs rows and
+    ``heads`` heads, row 3 at (bs pn^2, vocab) with the loop's top_k and
+    top_p (and k 1 and k = vocab), row 6's forward and backward at (bs, L,
+    width). Raises on any violation; returns the errors."""
+    from var_tpu_torch.apps import quality_loop as ql
+    from var_tpu_torch.config import parse_patch_nums
+
+    pns = parse_patch_nums(args.pn)
+    lens, _ = _stage_lens(pns)
+    f32 = (torch.float32,)
+    return {
+        "modulated_layernorm": check_ln(dev, 2 * args.bs, lens, args.width, f32),
+        "flash_decode": check_decode(dev, f32, 2 * args.bs, args.width, args.heads,
+                                     chunked_shapes(pns)),
+        "topk_topp_bound": check_select(dev, [args.bs * l for l in lens], args.vocab,
+                                        (1, ql.TOP_K, 0), ql.TOP_P),
+        "paired_train": check_ptrain(dev, args.bs, args.width, args.heads, pns, f32),
+    }
+
+
+def phase_quality_loop(dev):
+    """``apps/quality_loop.py::run`` at the JAX script's defaults (8 classes,
+    64 train and 16 val per class, pn 1_2_3_4_6_8, 300 tokenizer steps, 6
+    epochs, bs 32, depth 4, width 256, 4 heads, vocab 128, cfg 2.0, seed
+    0) on the card, over the gratings in memory, after each kernel of the
+    loop is held against its plain version at the loop's shapes. Fails
+    unless the tokenizer's recon falls below 0.8x its first value, the
+    held-out val loss falls and every number is finite; fid_improved is
+    reported."""
+    from var_tpu_torch.apps import quality_loop as ql
+    from var_tpu_torch.config import parse_patch_nums
+
+    args = ql.build_parser().parse_args(["--device", dev.type])
+    t0 = time.perf_counter()
+    checks = _check_qloop_kernels(dev, args)
+    checks_s = time.perf_counter() - t0
+    reso = parse_patch_nums(args.pn)[-1] * ql.vae_config(args).downsample
+    train, val = _grating_splits(args, reso)
+    lines = []
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    result, samples, _ = ql.run(args, train, val, _u8_to_pm1, _u8_to_pm1, log=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts(kernels)
+    want = _qloop_want(args)
+    numbers = result["vae_recon_first_last"] + result["val_curve"] \
+        + [result["fid_init"], result["fid_trained"]]
+    emit({"phase": "quality_loop", **result, "jax_cpu_recorded": QLOOP_JAX_CPU,
+          "launches": launches, "kernel_checks": checks, "kernel_checks_s": checks_s,
+          "log": lines, "wall_s": seconds})
+    r0, r1 = result["vae_recon_first_last"]
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches}, want {want}")
+    if not all(np.isfinite(numbers)):
+        failures.append(f"non-finite numbers {numbers}")
+    if not r1 < 0.8 * r0:
+        failures.append(f"tokenizer recon {r0} -> {r1}, not below 0.8x")
+    if not result["val_curve"][-1] < result["val_curve"][0]:
+        failures.append(f"val loss did not fall: {result['val_curve']}")
+    if any(s.shape != (args.classes * args.sample_per_class, reso, reso, 3)
+           for s in samples.values()):
+        failures.append(f"sample shapes {[s.shape for s in samples.values()]}")
+    if failures:
+        raise AssertionError("quality loop failed: " + "; ".join(failures))
+
+
+ANALYSIS_CLASSES, ANALYSIS_IMAGES = 10, 8
+ANALYSIS_DEPTHS = (DEPTH, 20)  # --depths 16,20: d20 has 20 heads of 64
+ANALYSIS_CASES = ((0.0, False), (CFG, True))  # (cfg_scale, l2_dist) of the parity phase
+
+
+def _analysis_records(models, imgs, labels):
+    from var_tpu_torch.apps.analysis import analyze_image
+
+    return [analyze_image(models, img[None], int(lbl), list(range(ANALYSIS_CLASSES)),
+                          batch_size=ANALYSIS_CLASSES) for img, lbl in zip(imgs, labels)]
+
+
+def phase_analysis_parity(dev, root):
+    """``apps/analysis.py`` at the var_prod.npz geometry (fp32, TF32 off):
+    one seeded image over ANALYSIS_CLASSES classes, without and with the
+    CFG ramp and ``l2_dist``: the card's per-scale scores within
+    ZEROSHOT_RTOL of the CPU's, the predictions equal, row 6's forward
+    launched once a block a forward and no backward."""
+    import copy
+
+    from var_tpu_torch.apps.analysis import make_score_fn
+
+    t0 = time.perf_counter()
+    _, var, vae = _prod_models(root)
+    var_c, vae_c = copy.deepcopy(var).to(dev), copy.deepcopy(vae).to(dev)
+    img = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    rows, failures = {}, []
+    kernels = _all_kernels()
+    for cfg_scale, l2 in ANALYSIS_CASES:
+        name = f"cfg{cfg_scale:g}_l2{int(l2)}"
+        _zero_counts(kernels)
+        card = _analysis_records({"m": (var_c, vae_c, make_score_fn(var_c, vae_c, cfg_scale, l2))},
+                                 img.to(dev), [3])[0]["m"]
+        torch.cuda.synchronize()
+        launches = _counts(kernels)
+        cpu = _analysis_records({"m": (var, vae, make_score_fn(var, vae, cfg_scale, l2))}, img,
+                                [3])[0]["m"]
+        got, want = np.asarray(card["per_scale"]), np.asarray(cpu["per_scale"])
+        rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
+        preds_equal = all(card[k] == cpu[k] for k in ("pred_per_scale", "pred_cumulative",
+                                                       "pred"))
+        fwd = var.cfg.depth * (2 if cfg_scale > 0 else 1)
+        want_launches = {**dict.fromkeys(launches, 0), "paired_train_fwd": fwd}
+        rows[name] = {"max_rel_err": rel, "preds_equal": preds_equal, "pred": card["pred"],
+                      "launches": launches}
+        if not (rel <= ZEROSHOT_RTOL and preds_equal) or launches != want_launches:
+            failures.append(f"{name}: rel {rel}, preds equal {preds_equal}, launches "
+                            f"{launches} (want {want_launches})")
+    emit({"phase": "analysis_parity", "depth": var.cfg.depth, "width": var.cfg.embed_dim,
+          "classes": ANALYSIS_CLASSES, "tf32": False, "cases": rows,
+          "tol": {"per_scale_rel": ZEROSHOT_RTOL, "preds": "equal"},
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("analysis parity failed: " + "; ".join(failures))
+
+
+def phase_analysis_main_path(dev):
+    """``apps/analysis.py``'s scoring as its CLI runs it (fp32 models,
+    ``make_score_fn``'s fp32 default, TF32 off) at d16, then d16 and d20
+    side by side (``--depths 16,20``; d20: 20 heads of 64): first row 6 at
+    each model's score-batch shape held against its plain version in fp32,
+    then ANALYSIS_IMAGES seeded 256px images over ANALYSIS_CLASSES classes
+    in one score batch each, one warm-up image not timed, images/s per
+    model, row 6's forward launched once a block a batch (twice with the
+    CFG ramp, one image at d16) and no backward."""
+    from var_tpu_torch.apps.analysis import aggregate, make_score_fn
+    from var_tpu_torch.models import build_vae_var
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(9)
+    reso = 16 * PATCH_NUMS[-1]
+    imgs = torch.rand(ANALYSIS_IMAGES, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    labels = np.arange(ANALYSIS_IMAGES) % ANALYSIS_CLASSES
+    kernels = _all_kernels()
+    out, records = {}, [dict(label=int(lbl)) for lbl in labels]
+    for depth in ANALYSIS_DEPTHS:
+        _, _, vae, var = build_vae_var(device=dev, seed=0, depth=depth, patch_nums=PATCH_NUMS,
+                                       dtype=torch.float32)
+        name = f"d{depth}"
+        # the score batch's attention: (classes, L, C), the model's heads, fp32
+        checks = check_ptrain(dev, ANALYSIS_CLASSES, var.cfg.embed_dim, var.cfg.num_heads,
+                              PATCH_NUMS, (torch.float32,))
+        models = {name: (var, vae, make_score_fn(var, vae))}
+        _analysis_records(models, imgs[:1], labels[:1])  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        recs = _analysis_records(models, imgs, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts(kernels)
+        want = {**dict.fromkeys(launches, 0), "paired_train_fwd": depth * ANALYSIS_IMAGES}
+        if launches != want:
+            raise AssertionError(f"analysis {name} launches {launches}, want {want}")
+        for rec, r in zip(records, recs):
+            rec[name] = r[name]
+        if not np.isfinite([r[name]["per_scale"] for r in recs]).all():
+            raise AssertionError(f"analysis {name}: non-finite scores")
+        row = {"launches": launches, "seconds": seconds, "img_per_s": ANALYSIS_IMAGES / seconds,
+               "heads": var.cfg.num_heads, "kernel_check": checks}
+        if depth == DEPTH:
+            cfg_models = {name: (var, vae, make_score_fn(var, vae, cfg_scale=CFG))}
+            _zero_counts(kernels)
+            _analysis_records(cfg_models, imgs[:1], labels[:1])
+            torch.cuda.synchronize()
+            row["cfg_launches"] = _counts(kernels)
+            del cfg_models
+            if row["cfg_launches"] != {**want, "paired_train_fwd": 2 * depth}:
+                raise AssertionError(f"analysis {name} with cfg launches {row['cfg_launches']}")
+        out[name] = row
+        del models, var, vae
+        torch.cuda.empty_cache()
+    emit({"phase": "analysis_main_path", "dtype": "float32", "tf32": False,
+          "images": ANALYSIS_IMAGES, "classes": ANALYSIS_CLASSES, "models": out,
+          "aggregate": aggregate(records, list(out)), "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2177,7 +2624,7 @@ def main() -> None:
     for row in rows:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
-    launches = phase_main_path(dev)
+    launches, main_path_img_per_s = phase_main_path(dev)
     phase_train_parity(dev, root)
     _, train_step_s = phase_train_main_path(dev)
     torch.cuda.empty_cache()
@@ -2197,6 +2644,13 @@ def main() -> None:
         "gn_channel_stats"]
     torch.cuda.empty_cache()
     phase_multigpu_parity(dev)
+    torch.cuda.empty_cache()
+    phase_fid_parity(dev)
+    phase_fid_main_path(dev, main_path_img_per_s)
+    torch.cuda.empty_cache()
+    phase_quality_loop(dev)
+    phase_analysis_parity(dev, root)
+    phase_analysis_main_path(dev)
     meta = {
         "modulated_layernorm": ("var_tpu_torch/ops/cuda/csrc/fused_ln.cu",
                                 "var_tpu/ops/pallas/fused_ln.py:54"),

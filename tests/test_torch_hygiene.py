@@ -284,3 +284,46 @@ def test_parallel_modules_import_no_jax_and_no_process_group():
     out = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("app,argv", [
+    ("fid_score", ["ref", "samples", "--extractor", "pixel"]),
+    ("fid_sample", ["--depth", "2", "--pn", "1_2", "--V", "64", "--Cvae", "8", "--ch", "32"]),
+    ("quality_loop", ["--vae_steps", "1"]),
+    ("analysis", ["--depths", "2", "--pn", "1_2", "--data_path", "imgs"]),
+    ("dryrun_multigpu", ["--n", "2"]),
+])
+def test_new_app_default_device_raises_without_gpu(app, argv, tmp_path, monkeypatch):
+    """The FID, quality-loop, analysis and multi-GPU dry-run CLIs default to
+    ``cuda`` and raise without a GPU before any work (nothing is written
+    into the working directory); ``--device cpu`` is the only way to the
+    CPU."""
+    _no_gpu()
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    main = importlib.import_module(f"var_tpu_torch.apps.{app}").main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(argv)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("factory", ["make_vae_extractor", "make_pixel_extractor"])
+def test_fid_extractors_default_device_raises_without_gpu(factory):
+    _no_gpu()
+    from var_tpu_torch.metrics import fid
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(fid, factory)()
+
+
+def test_dryrun_multigpu_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    """On a one-card machine ``--n 2`` (nccl, the default on cuda) raises
+    before starting a rank; it does not fall back to the CPU."""
+    from var_tpu_torch.apps import dryrun_multigpu as dry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(dry, "launch", lambda *a, **k: pytest.fail("a rank was started"))
+    with pytest.raises(RuntimeError, match="1 GPU"):
+        dry.main(["--n", "2"])

@@ -94,7 +94,7 @@ def _jax_runs(spec, vae, var):
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     """(per-rank reports, rank 0's results, JAX's results) of one run."""
-    spec = dict(dry.tiny_spec(2), save=True)
+    spec = dict(dry.tiny_spec(2, "cpu", "gloo"), save=True)
     out = str(tmp_path_factory.mktemp("parallel"))
     run = dry.launch(spec, 2, out, timeout=300)
     try:

@@ -2,8 +2,8 @@
 (counterpart of ``__graft_entry__.py::dryrun_multichip`` and
 ``_dryrun_impl``, :30-200):
 
-    python -m var_tpu_torch.apps.dryrun_multigpu --n 2                 # gloo, CPU
-    python -m var_tpu_torch.apps.dryrun_multigpu --n 4 --device cuda   # nccl, a card each
+    python -m var_tpu_torch.apps.dryrun_multigpu --n 4                  # nccl, a card each
+    python -m var_tpu_torch.apps.dryrun_multigpu --n 2 --device cpu     # gloo, CPU
 
 It starts n processes, joined through a file store in a temporary
 directory (no port), and runs every (dp, mp) factorisation of n. In each,
@@ -53,7 +53,7 @@ def factorisations(n: int) -> List[List[int]]:
     return [[n // mp, mp] for mp in (1, 2, 4, 8) if mp <= n and n % mp == 0]
 
 
-def tiny_spec(n: int, device: str = "cpu", backend: str = "gloo") -> dict:
+def tiny_spec(n: int, device: str = "cuda", backend: str = "nccl") -> dict:
     """The JAX dry run's tiny configuration over n processes: two training
     cases (``drop``: cond-drop and drop-path on, ac 2; ``plain``: neither,
     ac 1, the JAX mesh step's), a chunked greedy decode, the planted fault
@@ -468,14 +468,22 @@ def failures(reports) -> List[str]:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=2, help="processes (every (dp, mp) of n is run)")
-    p.add_argument("--device", default="cpu", help="cpu, or cuda (rank r on card r)")
-    p.add_argument("--backend", default=None, help="gloo (default on the CPU) or nccl")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (rank r on card r), or cpu")
+    p.add_argument("--backend", default=None, help="nccl (default on cuda) or gloo")
     p.add_argument("--worker", nargs=3, metavar=("SPEC", "STORE", "OUT"), help=argparse.SUPPRESS)
     a = p.parse_args(argv)
     if a.worker:
         worker(*a.worker)
         return
-    backend = a.backend or ("gloo" if a.device == "cpu" else "nccl")
+    from var_tpu_torch.device import resolve_device
+
+    dev = resolve_device(a.device)
+    backend = a.backend or ("gloo" if dev.type == "cpu" else "nccl")
+    if dev.type == "cuda" and backend != "gloo" and a.n > torch.cuda.device_count():
+        raise RuntimeError(f"--n {a.n} ranks but {torch.cuda.device_count()} GPU(s): NCCL "
+                           "takes one rank a card; name --backend gloo to share a card, or "
+                           "pass --device cpu")
     with tempfile.TemporaryDirectory(prefix="var_dryrun_") as tmp:
         reports, _ = launch(tiny_spec(a.n, a.device, backend), a.n, tmp).wait()
     for rep in reports:
