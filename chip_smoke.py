@@ -12,10 +12,18 @@ just after:
 * sampling: a greedy fp32 decode through the kernels against the reference
   fixture ``tests/fixtures/var_prod.npz`` (the modules loaded by name, then
   built again by ``models.from_pretrained_dict`` from a hub config and a
-  bundled state dict), then 256px class-conditional CFG
+  bundled state dict), eagerly and through a replay of ``make_sampler``'s
+  CUDA graph, then 256px class-conditional CFG
   sampling at d16 (depth 16, C = 1024, V = 4096, the 10-scale pyramid, the
   ch160 VQVAE decoder) with seeded random weights, bf16, cfg 1.5, top_k 900,
-  top_p 0.96, 8 requests;
+  top_p 0.96, 8 requests, through ``make_sampler`` (the first call warms up
+  and captures the decode into one CUDA graph, the timed calls replay it);
+  then ``graph_main_path``: from the same generator state a replay must
+  give an eager ``decode_cfg``'s tokens bit for bit, one decode's launches
+  must agree as the capture recorded them, as the wrappers count a replay
+  and as ``torch.profiler`` counts one, and eager and replay batches are
+  timed in turns (img/s, host ms a batch, capture s, graph pool GB, idle
+  share);
 * training: one fp32 step at the var_prod.npz geometry whose tokens must
   equal ``tests/fixtures/vae_prod.npz`` and whose loss and gradients must
   equal the same step on the CPU, then d16 teacher-forced training (batch
@@ -38,7 +46,8 @@ just after:
   log-likelihoods and scores) of the same calls on the CPU; then each mode
   at d16, bf16, with seeded random weights and images tokenised on the card,
   8 requests (the classifier: one image over 10 classes), one warm-up and
-  five timed batches, with its launch counts;
+  five timed batches, with its launch counts (inpaint, ``kv_window=2`` and
+  prealloc through ``make_sampler``: captured, then replayed);
 * the long presets and the ``--attn`` impls: fp32 training steps at the
   512px patch numbers through ``pallas`` and ``hybrid`` on the card must
   equal the same steps on the CPU; then d16 512px training (L 2240, batch
@@ -68,7 +77,8 @@ just after:
   ch160 tokenizer, seeded weights) and the pixel extractor on two sets of 8
   seeded 256px images on the card against the CPU (features and the
   Fréchet distance), then ``fid_sample``'s decode loop at d16, bf16, the
-  FID recipe, 8 classes x 4, batch 8, ``--rounds 2``, packed into an
+  FID recipe, 8 classes x 4, batch 8, ``--rounds 2`` (``make_scan_sampler``:
+  both rounds of a chunk replays of one captured decode), packed into an
   ``arr_0`` npz and scored against itself (~0) and a second seed's set
   (> 0) with both extractors, with the sampling img/s beside main_path's
   and the scorer's ms an image;
@@ -1099,19 +1109,30 @@ def _prod_models(root):
     return data, var.eval().requires_grad_(False), vae.eval().requires_grad_(False)
 
 
-def _parity_decode(var, vae, data, dev):
+def _parity_decode(var, vae, data, dev, captured: bool = False):
     """The greedy fp32 decode of var_prod.npz's labels, TF32 off, counted:
-    (tokens equal, tokens, f_hat max abs err, launches)."""
+    (tokens equal, tokens, f_hat max abs err, launches). ``captured``: through
+    ``make_sampler``'s graph, whose first call warms up and captures; the
+    second call, a replay, is the one counted and compared."""
     from var_tpu_torch.device import fp32_exact
-    from var_tpu_torch.engine.sampler import decode_tokens_cfg
+    from var_tpu_torch.engine.sampler import decode_tokens_cfg, make_sampler
 
+    labels = torch.as_tensor(data["dec_label"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
     kernels = _all_kernels()
-    _zero_counts(kernels)
     with torch.inference_mode(), fp32_exact():
-        tokens, f_hat = decode_tokens_cfg(
-            var, vae, torch.as_tensor(data["dec_label"], device=dev),
-            torch.Generator(device=dev).manual_seed(0), cfg_scale=CFG, top_k=1, top_p=0.0,
-            dtype=torch.float32)
+        if captured:
+            sampler = make_sampler(var.cfg, vae.cfg, cfg_scale=CFG, top_k=1, top_p=0.0,
+                                   dtype=torch.float32, device=dev)
+            sampler(var, vae, gen, labels)
+            torch.cuda.synchronize()
+            _zero_counts(kernels)
+            res = sampler(var, vae, gen, labels)
+            tokens, f_hat = res.tokens, res.f_hat
+        else:
+            _zero_counts(kernels)
+            tokens, f_hat = decode_tokens_cfg(var, vae, labels, gen, cfg_scale=CFG, top_k=1,
+                                              top_p=0.0, dtype=torch.float32)
     torch.cuda.synchronize()
     launches = _counts(kernels)
     got = tokens.cpu().numpy()
@@ -1125,7 +1146,9 @@ def phase_parity(dev, root):
     (d16 width, depth 2, full pyramid, synthesized weights), TF32 off: once
     with the modules loaded by name, once built by ``from_pretrained_dict``
     from a hub config and a bundled state dict (the VQVAE under
-    ``vae_local.``, derived buffers included, which it drops)."""
+    ``vae_local.``, derived buffers included, which it drops); each eagerly
+    through ``decode_tokens_cfg`` and through a replay of ``make_sampler``'s
+    captured decode."""
     from var_tpu_torch.models import from_pretrained_dict
 
     data, var, vae = _prod_models(root)
@@ -1143,17 +1166,25 @@ def phase_parity(dev, root):
         if built == "from_pretrained_dict":
             del var, vae
             _, _, vae, var = from_pretrained_dict(config, bundled, device=dev)
-        equal, total, fhat_err, through = _parity_decode(var, vae, data, dev)
-        emit({"phase": "parity", "built_by": built, "tokens_equal": equal, "tokens": total,
-              "fhat_max_abs_err": fhat_err, "launches": through})
-        if through != want:
-            raise AssertionError(f"parity decode ({built}) launches {through}, want {want}")
-        if equal != total or fhat_err > 1e-4:
-            raise AssertionError(f"greedy fp32 decode ({built}) differs from dec_tokens: "
-                                 f"{equal}/{total} equal, f_hat err {fhat_err}")
+        for captured in (False, True):
+            equal, total, fhat_err, through = _parity_decode(var, vae, data, dev, captured)
+            emit({"phase": "parity", "built_by": built, "captured": captured,
+                  "tokens_equal": equal, "tokens": total, "fhat_max_abs_err": fhat_err,
+                  "launches": through})
+            if through != want:
+                raise AssertionError(f"parity decode ({built}, captured {captured}) launches "
+                                     f"{through}, want {want}")
+            if equal != total or fhat_err > 1e-4:
+                raise AssertionError(f"greedy fp32 decode ({built}, captured {captured}) "
+                                     f"differs from dec_tokens: {equal}/{total} equal, f_hat "
+                                     f"err {fhat_err}")
 
 
 def phase_main_path(dev):
+    """d16 sampling through ``make_sampler`` as a user calls it: the first
+    call (counted: the eager warm-up, whose result it returns, then the
+    capture) checked for shape and range, then 10 timed calls, each a
+    replay of the captured decode (counted: 10 decodes' launches)."""
     from var_tpu_torch.engine.sampler import make_sampler
     from var_tpu_torch.models import build_vae_var
 
@@ -1184,14 +1215,19 @@ def phase_main_path(dev):
             or int(tokens.max()) >= V:
         raise AssertionError("tokens out of range")
     times = []
-    for i in range(10):  # the counted run above was the warm-up
+    _zero_counts(kernels)
+    for i in range(10):  # the counted run above was the warm-up and the capture
         t0 = time.perf_counter()
         sampler(var, vae, torch.Generator(device=dev).manual_seed(1 + i), DEMO_CLASSES)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    replayed = _counts(kernels)
+    if replayed != {k: 10 * v for k, v in want.items()}:
+        raise AssertionError(f"main path's 10 replays launched {replayed}, want 10 x {want}")
     median_s = float(np.median(times))
     emit({"phase": "main_path", "depth": DEPTH, "batch": BATCH, "dtype": "bfloat16",
           "cfg": CFG, "top_k": TOP_K, "top_p": TOP_P, "launches": launches,
+          "captured": sampler.graphs[(BATCH, False)].graph is not None,
           "image_shape": list(img.shape), "image_min": float(img.min()),
           "image_max": float(img.max()), "distinct_tokens": int(tokens.unique().numel()),
           "setup_s": setup_s, "first_decode_s": first_s, "decode_s": times,
@@ -1200,19 +1236,159 @@ def phase_main_path(dev):
     return launches, BATCH / median_s
 
 
+def _kernel_of(event: str):
+    """The wrapper whose kernel a device event of the profiler is, or None."""
+    n = event.lower()
+    if "decode_attention" in n:  # row 4 is the kPaired instantiation of row 2's kernels
+        return "flash_decode_paired" if "<true" in n else "flash_decode"
+    if "modulated_ln" in n:
+        return "modulated_layernorm"
+    if "topk_topp_bound" in n:
+        return "topk_topp_bound"
+    return None
+
+
+def profiled_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
+    ending in a synchronise), device-busy ms (the device events' self
+    time), idle share, device events, and the decode kernels' launches by
+    wrapper name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, events, launches = 0.0, 0, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        busy_us += ev.self_device_time_total
+        events += ev.count
+        name = _kernel_of(ev.key)
+        if name is not None:
+            launches[name] = launches.get(name, 0) + ev.count
+    busy_ms = busy_us / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "device_events": events, "launches": launches}
+
+
+def phase_graph_main_path(dev):
+    """The captured sampler (``make_sampler`` on CUDA: one graph of the
+    whole decode and render) at d16, 256px, bf16, cfg 1.5, top_k 900, top_p
+    0.96, batch 8. From the same generator state a replay must give an
+    eager ``decode_cfg``'s tokens bit for bit and leave the generator where
+    the eager decode leaves it; one decode's launches, recorded at the
+    capture, counted by the wrappers over a replay and counted by
+    ``torch.profiler`` in a replay, must be the decode's. Then eager and
+    replay batches in turns, 10 each: img/s (median), host ms a batch (until
+    the call returns), the capture's seconds, the graph pool's GB and the
+    idle share of one profiled replay beside one eager decode's."""
+    from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
+    from var_tpu_torch.models import build_vae_var
+
+    kw = dict(cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P, dtype=torch.bfloat16)
+    vae_cfg, var_cfg, vae, var = build_vae_var(device=dev, seed=0, depth=DEPTH,
+                                               patch_nums=PATCH_NUMS)
+    sampler = make_sampler(var_cfg, vae_cfg, device=dev, **kw)
+    labels = torch.as_tensor(DEMO_CLASSES, device=dev)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+
+    def eager(g):
+        with torch.inference_mode():
+            return decode_cfg(var, vae, labels, g, **kw)
+
+    eager(gen(0))  # cuBLAS and cuDNN plans of the eager path
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    g_first = gen(1)
+    t0 = time.perf_counter()
+    first = sampler(var, vae, g_first, DEMO_CLASSES)  # warm-up and capture
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    pool_gb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e9
+    entry = sampler.graphs[(BATCH, False)]
+    sn = len(PATCH_NUMS)
+    want = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
+    decode_kernels = {k: v for k, v in want.items() if v}
+    if entry.launches != want:
+        raise AssertionError(f"captured decode launches {entry.launches}, want {want}")
+    same = []
+    for s in (1, 2, 3):  # seed 1: the first call, whose result is its warm-up's
+        g_eager = gen(s)
+        e = eager(g_eager)
+        if s == 1:
+            r, g_replay = first, g_first
+        else:
+            g_replay = gen(s)
+            r = sampler(var, vae, g_replay, DEMO_CLASSES)
+        torch.cuda.synchronize()
+        same.append({"seed": s, "tokens_equal": bool(torch.equal(r.tokens, e.tokens)),
+                     "generator_equal": bool(torch.equal(g_eager.get_state(),
+                                                         g_replay.get_state())),
+                     "fhat_max_abs_err": float((r.f_hat - e.f_hat).abs().max()),
+                     "image_max_abs_err": float((r.image - e.image).abs().max())})
+    kernels = _all_kernels()
+    _zero_counts(kernels)
+    sampler(var, vae, gen(4), DEMO_CLASSES)
+    torch.cuda.synchronize()
+    counted = _counts(kernels)
+    prof_replay = profiled_call(lambda: sampler(var, vae, gen(5), DEMO_CLASSES))
+    prof_eager = profiled_call(lambda: eager(gen(5)))
+    _zero_counts(kernels)
+    times = {"eager": [], "replay": []}
+    host = {"eager": [], "replay": []}
+    runs = {"eager": lambda g: eager(g),
+            "replay": lambda g: sampler(var, vae, g, DEMO_CLASSES)}
+    for i in range(10):  # in turns: eager, replay, replay, eager, ...
+        for name in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name](gen(10 + i))
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    timed = _counts(kernels)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out = {"phase": "graph_main_path", "depth": DEPTH, "batch": BATCH, "dtype": "bfloat16",
+           "cfg": CFG, "top_k": TOP_K, "top_p": TOP_P, "same_state": same,
+           "launches_captured": {k: entry.launches[k] for k in decode_kernels},
+           "launches_replay_counted": {k: counted[k] for k in decode_kernels},
+           "launches_replay_profiled": prof_replay["launches"],
+           "launches_timed": {k: timed[k] for k in decode_kernels},
+           "first_call_s": first_s, "capture_s": entry.capture_s, "graph_pool_gb": pool_gb,
+           "eager_img_per_s": BATCH / med["eager"], "replay_img_per_s": BATCH / med["replay"],
+           "eager_batch_s": times["eager"], "replay_batch_s": times["replay"],
+           "eager_host_ms_median": float(np.median(host["eager"])),
+           "replay_host_ms_median": float(np.median(host["replay"])),
+           "profiled_replay": {k: v for k, v in prof_replay.items() if k != "launches"},
+           "profiled_eager": {k: v for k, v in prof_eager.items() if k != "launches"},
+           "eager_launches_profiled": prof_eager["launches"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    for row in same:
+        if not (row["tokens_equal"] and row["generator_equal"]):
+            raise AssertionError(f"replay differs from the eager decode: {row}")
+    if counted != want:
+        raise AssertionError(f"one replay counted {counted}, want {want}")
+    if prof_replay["launches"] != decode_kernels or prof_eager["launches"] != decode_kernels:
+        raise AssertionError(f"profiled launches: replay {prof_replay['launches']}, eager "
+                             f"{prof_eager['launches']}, want {decode_kernels}")
+    if timed != {k: 20 * v for k, v in want.items()}:
+        raise AssertionError(f"timed runs launched {timed}, want 20 x {want}")
+    return out
+
+
 def _all_kernels():
     """Every kernel wrapper with a launch counter, in kernel-table order."""
-    from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
-                                                        flash_attention_fwd, flash_decode,
-                                                        flash_decode_paired, paired_train_bwd,
-                                                        paired_train_fwd)
-    from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
-    from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
-    from var_tpu_torch.ops.cuda.select import topk_topp_bound
+    from var_tpu_torch.ops.cuda import counted_wrappers
 
-    return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
-            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd,
-            gn_channel_stats)
+    return counted_wrappers()
 
 
 def _zero_counts(kernels) -> None:
@@ -1764,7 +1940,10 @@ def phase_zeroshot_main_path(dev):
     """Each zero-shot mode at d16, 256px, bf16, seeded random weights and
     images tokenised on the card, 8 requests (the classifier: one image over
     10 classes in one batch): counters set to 0 just before the mode's
-    warm-up run and read just after it, then 5 timed runs."""
+    warm-up run and read just after it, then 5 timed runs, counted too. The
+    ``make_sampler`` modes (inpaint, ``kv_window=2``, prealloc) capture at
+    their first run and replay in the timed ones; edit, smooth and the
+    classifier run eagerly."""
     from var_tpu_torch.apps.classify import VARClassifier
     from var_tpu_torch.apps.masks import get_edit_mask, keep_scales_mask
     from var_tpu_torch.engine.sampler import decode_cfg, make_sampler, smooth_sampling
@@ -1789,6 +1968,7 @@ def phase_zeroshot_main_path(dev):
                            inpainting=True)
     kv_window = make_sampler(var_cfg, vae_cfg, kv_window=2, **sample_kw)
     prealloc = make_sampler(var_cfg, vae_cfg, cache_impl="prealloc", **sample_kw)
+    captured = {"inpaint": inpaint, "kv_window": kv_window, "prealloc": prealloc}
     clf = VARClassifier(var, vae, mode="bayesian", dtype=dtype)
     gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
 
@@ -1831,14 +2011,24 @@ def phase_zeroshot_main_path(dev):
         total = {k: total[k] + launches[k] for k in total}
         check = _check_zeroshot_output(name, res, gt, keep, var_cfg)
         times = []
+        _zero_counts(kernels)
         for i in range(5):
             t0 = time.perf_counter()
             run(1 + i)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        timed = _counts(kernels)
+        if timed != {k: 5 * v for k, v in wants[name].items()}:
+            raise AssertionError(f"zero-shot {name}'s 5 timed runs launched {timed}, "
+                                 f"want 5 x {wants[name]}")
+        entry = captured[name].graphs[(BATCH, name == "inpaint")] if name in captured else None
+        if name in captured and entry.graph is None:
+            raise AssertionError(f"zero-shot {name}: make_sampler did not capture")
         median_s = float(np.median(times))
         emit({"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
-              "dtype": "bfloat16", "launches": launches, **check, "setup_s": setup_s,
+              "dtype": "bfloat16", "launches": launches, "captured": entry is not None,
+              "launches_captured": None if entry is None else
+              {k: v for k, v in entry.launches.items() if v}, **check, "setup_s": setup_s,
               "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
               "img_per_s": n_img / median_s,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -2292,7 +2482,8 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
     (cfg 1.5, top_k 900, top_p 0.96): FID_CLASSES x FID_PER_CLASS images in
     batches of FID_BATCH, ``--rounds`` FID_ROUNDS (counted), packed into
     an ``arr_0`` npz with numpy; a second seed's set likewise (not
-    counted; its time is the img/s printed beside main_path's). Each
+    counted; its time, and that of its chunks after the first, which
+    replay without capturing, are the img/s printed beside main_path's). Each
     extractor scores the first set against itself (~0) and against the
     second (> 0)."""
     import shutil
@@ -2329,10 +2520,17 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
             or first.shape != (len(labels), reso, reso, 3) or first.dtype != np.uint8:
         raise AssertionError(f"fid_sample chunks {[i for i, _ in chunks]}, images "
                              f"{first.shape} {first.dtype}")
-    t0 = time.perf_counter()  # the second seed's set: the same work, warm, not counted
-    second = np.concatenate([imgs for _, imgs in decode_chunks(var, vae, labels, seed=1, **kw)])
-    torch.cuda.synchronize()
-    second_s = time.perf_counter() - t0
+    # the second seed's set: the same work, warm, not counted; a new
+    # decode_chunks call makes a new sampler, whose first chunk captures
+    # again, so its later chunks (replays only) are timed apart
+    t0 = time.perf_counter()
+    second, stamps = [], []
+    for _, imgs in decode_chunks(var, vae, labels, seed=1, **kw):  # yields after a host copy
+        second.append(imgs)
+        stamps.append(time.perf_counter())
+    second = np.concatenate(second)
+    second_s = stamps[-1] - t0
+    replay_img_per_s = (len(labels) - FID_ROUNDS * FID_BATCH) / (stamps[-1] - stamps[0])
     tmp = tempfile.mkdtemp(prefix="var_fid_")
     try:
         paths = []
@@ -2356,7 +2554,9 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
           "top_k": TOP_K, "top_p": TOP_P, "images": len(labels), "batch": FID_BATCH,
           "rounds": FID_ROUNDS, "chunks": len(chunks), "launches": launches,
           "first_sample_s": sample_s, "sample_s": second_s,
-          "sample_img_per_s": len(labels) / second_s, "main_path_img_per_s": main_path_img_per_s,
+          "sample_img_per_s": len(labels) / second_s,
+          "replayed_chunks_img_per_s": replay_img_per_s,
+          "main_path_img_per_s": main_path_img_per_s,
           "distinct_pixels_first": int(np.unique(first.reshape(-1, 3), axis=0).shape[0]),
           "scores": scores, "fid_self_atol": FID_SELF_ATOL,
           "seconds": time.perf_counter() - t_phase})
@@ -2625,6 +2825,7 @@ def main() -> None:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
     launches, main_path_img_per_s = phase_main_path(dev)
+    phase_graph_main_path(dev)
     phase_train_parity(dev, root)
     _, train_step_s = phase_train_main_path(dev)
     torch.cuda.empty_cache()

@@ -33,9 +33,11 @@ def decode_chunks(var, vae, labels_all: np.ndarray, batch: int, rounds: int = 1,
                   ) -> Iterator[Tuple[int, np.ndarray]]:
     """Decode ``labels_all`` in chunks of ``rounds * batch`` images
     (``engine/sampler.py::make_scan_sampler`` when ``rounds`` > 1, else
-    ``make_sampler``) and yield ``(first_index, (n, H, W, 3) uint8)`` per
-    chunk. Chunk k draws from ``torch.Generator(device).manual_seed(seed +
-    k + 1)`` (JAX: ``PRNGKey(seed + rng_i)``). A ragged tail under
+    ``make_sampler``; on CUDA both replay one captured decode, and the
+    ragged tail's batch size is a capture of its own) and yield
+    ``(first_index, (n, H, W, 3) uint8)`` per chunk. Chunk k draws from
+    ``torch.Generator(device).manual_seed(seed + k + 1)`` (JAX:
+    ``PRNGKey(seed + rng_i)``). A ragged tail under
     ``rounds`` > 1 falls back to per-batch decodes. ``done(i, n)``: True
     when images i..i+n-1 exist already; such a chunk is skipped (its seed
     is still consumed)."""

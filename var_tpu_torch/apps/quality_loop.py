@@ -232,6 +232,9 @@ def run(args, train_ds, val_ds, train_tf: Callable, eval_tf: Callable,
                                to_dev(valid)).double().cpu().numpy()
         return float(stats[0] / max(stats[-1], 1))
 
+    # AdamW updates the parameters in place: a sampler captured on the model
+    # (make_sampler's CUDA graph) keeps reading them across training
+    addresses = [t.data_ptr() for t in state.var.parameters()]
     val_curve = [val_loss(state.var)]
     log(f"[var ep -1] val L_mean {val_curve[0]:.4f} (untrained)")
     g_it = 0
@@ -243,6 +246,8 @@ def run(args, train_ds, val_ds, train_tf: Callable, eval_tf: Callable,
             g_it += 1
         val_curve.append(val_loss(state.var))
         log(f"[var ep {ep}] train Lm {float(m.Lm):.4f} val L_mean {val_curve[-1]:.4f}")
+    if [t.data_ptr() for t in state.var.parameters()] != addresses:
+        raise RuntimeError("training moved the VAR's parameters to new addresses")
     trained = state.var.eval().requires_grad_(False)
 
     # ---- 3) sample from the initial and the trained parameters ----------

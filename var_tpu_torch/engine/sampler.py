@@ -34,6 +34,7 @@ global batch's draw, so the decode is the one-process decode.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -273,6 +274,102 @@ def _on(module: torch.nn.Module, dev: torch.device) -> bool:
     return p.device.type == dev.type and (dev.index is None or p.device.index == dev.index)
 
 
+def _modules_key(var: var_mod.VAR, vae: vae_mod.VQVAE) -> tuple:
+    """What a captured decode is bound to: the modules, the addresses of
+    their parameters and buffers (the graph reads them by pointer), and the
+    TF32 switches (they choose the GEMM and convolution kernels it holds)."""
+    ptrs = tuple(t.data_ptr() for m in (var, vae) for t in (*m.parameters(), *m.buffers()))
+    return (id(var), id(vae), ptrs, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+class GraphDecode:
+    """One capture-ready CFG decode of ``b`` rows, plain or inpainting,
+    bound to the modules it was made with: static input buffers (labels;
+    ``gt`` and ``mask`` for inpainting), static outputs, and on CUDA the
+    graph that replays :meth:`body`.
+
+    ``launches``: the kernel launches one decode makes, by wrapper name,
+    recorded at the capture (which launches nothing; each replay adds them
+    to the wrappers' counts). ``capture_s``: host seconds of the capture."""
+
+    def __init__(self, key: tuple, var, vae, b: int, inpainting: bool, run):
+        dev = var.pos_1LC.device
+        seq = var.cfg.seq_len
+        self.key, self.var, self.vae, self._run = key, var, vae, run
+        self.labels = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.gt = torch.zeros(b, seq, dtype=torch.int64, device=dev) if inpainting else None
+        self.mask = torch.zeros(b, seq, dtype=torch.bool, device=dev) if inpainting else None
+        self.out: Optional[DecodeResult] = None
+        self.graph = None
+        self.generator: Optional[torch.Generator] = None  # the graph's own (CUDA)
+        self.launches: dict = {}
+        self.capture_s = 0.0
+
+    def load(self, labels: torch.Tensor, gt=None, mask=None) -> None:
+        self.labels.copy_(labels)
+        if self.gt is not None:
+            self.gt.copy_(gt)
+            self.mask.copy_(mask)
+
+    def body(self, generator: Optional[torch.Generator]) -> None:
+        """The whole decode and its render over the static buffers, into the
+        static outputs (the first run's outputs become them). It reads
+        nothing back to the host, so a graph can capture it."""
+        res = self._run(self.var, self.vae, self.labels, generator, self.gt, self.mask)
+        if self.out is None:
+            self.out = res
+        else:
+            for dst, src in zip(self.out, res):
+                dst.copy_(src)
+
+    def capture(self, generator: Optional[torch.Generator]) -> None:
+        """The first call on CUDA: one eager run of the body on a side
+        stream, drawing from ``generator`` as :func:`decode_cfg` would (it
+        builds the kernel library, lets cuBLAS and cuDNN settle, and its
+        outputs are this call's result), then the capture, drawing from the
+        graph's own generator."""
+        from var_tpu_torch.ops.cuda import counted_wrappers
+
+        dev = self.labels.device
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.body(generator)
+        main.wait_stream(side)
+        self.generator = torch.Generator(device=dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        kernels = counted_wrappers()
+        before = [fn.launches for fn in kernels]
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self.body(self.generator)
+        finally:  # the capture launched nothing: its counts are each replay's
+            self.launches = {fn.__name__: fn.launches - n for fn, n in zip(kernels, before)}
+            for fn, n in zip(kernels, before):
+                fn.launches = n
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+
+    def replay(self, generator: Optional[torch.Generator]) -> None:
+        """Replay the decode, drawing what :func:`decode_cfg` would draw
+        from ``generator`` (the device's default one when None), and
+        advance ``generator`` as it would: its state goes into the graph's
+        generator, whose offset the replay advances by the decode's draws,
+        and comes back. No host synchronisation."""
+        from var_tpu_torch.ops.cuda import counted_wrappers
+
+        if generator is None:
+            generator = torch.cuda.default_generators[self.labels.device.index]
+        self.generator.set_state(generator.get_state())
+        self.graph.replay()
+        generator.set_state(self.generator.get_state())
+        for fn in counted_wrappers():
+            fn.launches += self.launches[fn.__name__]
+
+
 def make_sampler(
     var_cfg,
     vae_cfg,
@@ -288,18 +385,41 @@ def make_sampler(
     approx_topk: bool = False,
     mesh: Optional[Mesh] = None,
 ):
-    """Sampler ``(var, vae, generator, label_b) -> DecodeResult`` on
+    """Compiled sampler ``(var, vae, generator, label_b) -> DecodeResult`` on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``; raises when
     CUDA is asked for and absent); with ``inpainting`` it is ``(var, vae,
     generator, label_b, gt, mask)``, ``gt`` (B, L) ids and ``mask`` (B, L)
     bool. Sampling hyper-parameters are fixed here, as the JAX sampler fixes
-    them at compile time. ``approx_topk`` and ``mesh``: as
-    :func:`decode_cfg`'s."""
+    them at compile time.
+
+    On CUDA the whole decode (ten stages, sampling, the f_hat updates and
+    the render) is one CUDA graph, the counterpart of JAX's one jitted
+    program (``sampler.py:247``): the first call at a batch size warms up
+    eagerly (its result is that run's) and captures; later calls copy
+    their inputs into static buffers and replay. From the same generator
+    state a replay draws what the eager :func:`decode_cfg` draws and
+    leaves the generator where it would. ``sampler.graphs`` holds the
+    :class:`GraphDecode` of each (batch, inpainting). On the CPU the same
+    capture-ready body runs eagerly. Under a ``mesh`` the decode runs
+    eagerly: its gloo collectives cannot be captured. ``approx_topk`` and
+    ``mesh``: as :func:`decode_cfg`'s."""
     del approx_topk
     dev = resolve_device(device)
     _check_branches(None, None, None, kv_window, cache_impl)
+    kw = dict(cfg_scale=cfg_scale, top_k=top_k, top_p=top_p, more_smooth=more_smooth,
+              dtype=dtype, kv_window=kv_window, cache_impl=cache_impl, mesh=mesh)
 
-    def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
+    graphs: dict = {}
+
+    def run(var, vae, labels, generator, gt, mask) -> DecodeResult:
+        return decode_cfg(var, vae, labels, generator, gt_tokens=gt, keep_mask=mask, **kw)
+
+    def decode(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
+        """The decode into a :class:`GraphDecode`'s static outputs (valid
+        until the next call). A call whose modules, parameter addresses or
+        TF32 switches differ from its entry's makes a new entry, which
+        captures again: a graph never replays pointers into another
+        model's weights. A capture or replay error raises."""
         if var.cfg != var_cfg or vae.cfg != vae_cfg:
             raise ValueError("sampler: the modules' configs differ from the sampler's")
         if not (_on(var, dev) and _on(vae, dev)):
@@ -310,12 +430,32 @@ def make_sampler(
         if inpainting:
             gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
             mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
-        with torch.inference_mode():
-            return decode_cfg(var, vae, labels, generator, cfg_scale=cfg_scale, top_k=top_k,
-                              top_p=top_p, more_smooth=more_smooth, dtype=dtype,
-                              gt_tokens=gt, keep_mask=mask, kv_window=kv_window,
-                              cache_impl=cache_impl, mesh=mesh)
+        if mesh is not None:
+            return run(var, vae, labels, generator, gt, mask)
+        key = _modules_key(var, vae)
+        slot = (labels.shape[0], inpainting)
+        entry = graphs.get(slot)
+        if entry is None or entry.key != key:
+            entry = graphs[slot] = GraphDecode(key, var, vae, labels.shape[0], inpainting, run)
+        entry.load(labels, gt, mask)
+        if dev.type == "cpu":
+            entry.body(generator)
+        elif entry.graph is None:
+            try:
+                entry.capture(generator)
+            except BaseException:
+                del graphs[slot]  # the next call starts afresh
+                raise
+        else:
+            entry.replay(generator)
+        return entry.out
 
+    def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
+        with torch.inference_mode():
+            res = decode(var, vae, generator, label_b, gt, mask)
+            return DecodeResult(*(t.clone() for t in res))
+
+    sampler.graphs, sampler.static_decode = graphs, decode
     return sampler
 
 
@@ -334,17 +474,30 @@ def make_scan_sampler(var_cfg, vae_cfg, rounds: int, device="cuda",
     """Dispatch-batched sampler ``(var, vae, generator, labels (rounds, B))
     -> DecodeResult`` with leading (rounds, B, ...) axes: ``rounds``
     independent decodes, stacked. Round r equals :func:`make_sampler`
-    called with ``fold_in(generator, r)``. PyTorch runs eagerly, so this is
-    a loop; it keeps the JAX package's interface (``sampler.py:300``).
-    ``mesh``: as :func:`decode_cfg`'s, each round split alike."""
+    called with ``fold_in(generator, r)``. On CUDA the rounds are replays
+    of :func:`make_sampler`'s captured decode, issued back to back into the
+    stacked outputs with no host synchronisation between them: the port's
+    counterpart of the JAX package's one-program ``lax.scan``
+    (``sampler.py:300``). On the CPU, and under a ``mesh`` (each round
+    split as :func:`decode_cfg` splits it), the rounds run eagerly."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     sampler = make_sampler(var_cfg, vae_cfg, device=device, mesh=mesh, **sampler_kw)
+    dev = resolve_device(device)
 
     def run(var, vae, generator, labels_rb) -> DecodeResult:
-        res = [sampler(var, vae, fold_in(generator, r), labels_rb[r]) for r in range(rounds)]
-        return DecodeResult(*(torch.stack(t) for t in zip(*res)))
+        with torch.inference_mode():
+            labels_rb = torch.as_tensor(labels_rb, dtype=torch.int64, device=dev)
+            out = None
+            for r in range(rounds):
+                res = sampler.static_decode(var, vae, fold_in(generator, r), labels_rb[r])
+                if out is None:
+                    out = DecodeResult(*(t.new_empty((rounds, *t.shape)) for t in res))
+                for dst, src in zip(out, res):
+                    dst[r].copy_(src)
+            return out
 
+    run.graphs = sampler.graphs
     return run
 
 

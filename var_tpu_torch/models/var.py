@@ -64,11 +64,6 @@ from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, data_rows
 
 
-def level_ids(cfg: VARConfig) -> np.ndarray:
-    """(L,) int: which pyramid scale each flat position belongs to."""
-    return np.concatenate([np.full(pn * pn, i, np.int64) for i, pn in enumerate(cfg.patch_nums)])
-
-
 # ---------------------------------------------------------------------------
 # modules (reference names)
 
@@ -317,8 +312,12 @@ def cond_context(var: VAR, cond_bd: torch.Tensor, dtype: torch.dtype,
 
 
 def lvl_pos_embed(var: VAR) -> torch.Tensor:
-    """(1, L, C) = scale embedding + absolute positions (``var.py:153``)."""
-    lvl = torch.as_tensor(level_ids(var.cfg), device=var.pos_1LC.device)
+    """(1, L, C) = scale embedding + absolute positions (``var.py:153``).
+    The scale id of each position is filled on the device, not copied from
+    the host, so that a CUDA graph can capture the decode."""
+    dev = var.pos_1LC.device
+    lvl = torch.cat([torch.full((pn * pn,), i, dtype=torch.int64, device=dev)
+                     for i, pn in enumerate(var.cfg.patch_nums)])
     return var.lvl_embed.weight[lvl][None] + var.pos_1LC
 
 

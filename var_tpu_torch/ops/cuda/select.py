@@ -13,6 +13,7 @@ masses summed in fixed point so the bound does not depend on their order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from var_tpu_torch.ops.cuda import build
@@ -56,7 +57,7 @@ def topk_topp_bound_plain(logits: torch.Tensor, top_k: int, top_p: float) -> tor
     tk = _descend(key, torch.ones_like(l), float(k), strict=False)
     if top_p > 0.0:
         e = torch.exp(l - l.amax(-1, keepdim=True)) * (key >= tk).float()
-        pm = e.sum(-1, keepdim=True) * float(torch.tensor(top_p, dtype=torch.float32))
+        pm = e.sum(-1, keepdim=True) * float(np.float32(top_p))
         tq = _descend(key, e, pm, strict=True)
         bound = torch.maximum(tk, tq + 1)
     else:
