@@ -45,9 +45,20 @@ just after:
   must give on the card the tokens (and, within rtol 1e-4, the
   log-likelihoods and scores) of the same calls on the CPU; then each mode
   at d16, bf16, with seeded random weights and images tokenised on the card,
-  8 requests (the classifier: one image over 10 classes), one warm-up and
-  five timed batches, with its launch counts (inpaint, ``kv_window=2`` and
-  prealloc through ``make_sampler``: captured, then replayed);
+  8 requests (the classifier: one image over 10 classes), each through its
+  compiled program (``engine/compiled.py``: the inpainting, box-editing,
+  ``kv_window=2`` and prealloc samplers, the smooth sampler, the
+  classifier's tokenizer and scores): the first call captures, replays
+  from the same generator states equal the eager function's outputs bit
+  for bit, five replays and five eager runs in turns with their launch
+  counts, img/s, capture s and graph pool GB; smooth and the classifier
+  also profiled. Then ``zeroshot_cli``: rows 1-3 against their plain
+  versions at the batch-1 decode shapes, and each zero-shot CLI's ``main``
+  (inpaint keep-through, target layer and box, smooth, classify bayesian
+  and gen) at d16, batch 1, over a folder of seeded PNGs (read with
+  Pillow, as the CLIs read them): s and launches an image of the CLI (its
+  first image captures, the rest replay) beside the eager functions it
+  compiles, whose outputs must equal the CLI's;
 * the long presets and the ``--attn`` impls: fp32 training steps at the
   512px patch numbers through ``pallas`` and ``hybrid`` on the card must
   equal the same steps on the CPU; then d16 512px training (L 2240, batch
@@ -89,8 +100,10 @@ just after:
 * the analysis apps (``apps/analysis.py``): fp32 per-scale scores on the
   card against the CPU at the var_prod.npz geometry, without and with the
   CFG ramp and ``l2_dist`` (rtol 1e-4, predictions equal), then d16 and d20
-  (``--depths 16,20``) in bf16 over 8 images x 10 classes, img/s per model.
-  None of these phases needs Pillow or matplotlib.
+  (``--depths 16,20``) in fp32 over 8 images x 10 classes: images/s per
+  model of ``make_score_fn``'s replays beside its eager body, the same
+  scores bit for bit.
+  These last phases need neither Pillow nor matplotlib.
 
 Rows 1 and 3 (modulated LayerNorm, top-k/top-p bound) are held against
 their plain versions and timed at every stage shape of the d16 CFG decode
@@ -1936,18 +1949,75 @@ def phase_zeroshot_parity(dev, root):
         raise AssertionError(f"zero-shot parity did not run on the kernels: {mode_launches}")
 
 
+def _same(a, b) -> bool:
+    """Bit-equal outputs: tensors, named tuples of tensors, numpy arrays."""
+    if isinstance(a, np.ndarray):
+        return bool(np.array_equal(a, b))
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+def _delta(kernels, before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts(kernels).items()}
+
+
+def _entries(*programs) -> list:
+    """The entries of compiled programs (``Compiled`` or a ``make_sampler``
+    sampler)."""
+    return [e for p in programs for e in p.graphs.values()]
+
+
+def _capture_row(entries) -> dict:
+    launches: dict = {}
+    for e in entries:
+        for k, v in e.launches.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+    return {"captured": bool(entries) and all(e.graph is not None for e in entries),
+            "entries": len(entries), "capture_s": sum(e.capture_s for e in entries),
+            "pool_gb": sum(e.pool_bytes for e in entries) / 1e9,
+            "launches_captured": launches}
+
+
+def _eager_vs_replay(kernels, replay, eager, n: int, seed: int) -> dict:
+    """n replays and n eager runs in turns (eager first on even turns),
+    each synchronised: their seconds and launches."""
+    times = {"replay": [], "eager": []}
+    launches = {k: dict.fromkeys(_counts(kernels), 0) for k in times}
+    runs = {"replay": replay, "eager": eager}
+    for i in range(n):
+        for name in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            torch.cuda.synchronize()
+            before = _counts(kernels)
+            t0 = time.perf_counter()
+            runs[name](seed + i)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            for k, v in _delta(kernels, before).items():
+                launches[name][k] += v
+    return {"times": times, "launches": launches}
+
+
 def phase_zeroshot_main_path(dev):
     """Each zero-shot mode at d16, 256px, bf16, seeded random weights and
-    images tokenised on the card, 8 requests (the classifier: one image over
-    10 classes in one batch): counters set to 0 just before the mode's
-    warm-up run and read just after it, then 5 timed runs, counted too. The
-    ``make_sampler`` modes (inpaint, ``kv_window=2``, prealloc) capture at
-    their first run and replay in the timed ones; edit, smooth and the
-    classifier run eagerly."""
+    images tokenised on the card, 8 requests (the classifier: one image
+    over 10 classes in one batch), each through its compiled program (the
+    inpainting, box-editing, ``kv_window=2`` and prealloc samplers, the
+    smooth sampler, the classifier's tokenizer and scores): counters set to
+    0 just before the mode's first call (its eager warm-up and capture) and
+    read just after it; then from the same generator states (seeds 1-3) a
+    replay must give the eager function's outputs bit for bit (tokens,
+    f_hat and image; log-likelihood sums; scores); then 5 eager runs and 5
+    replays in turns, each counted (5 x the first call's launches each):
+    img/s of both, capture s and graph pool GB; smooth and the classifier
+    also under ``torch.profiler``, one replay and one eager run."""
     from var_tpu_torch.apps.classify import VARClassifier
     from var_tpu_torch.apps.masks import get_edit_mask, keep_scales_mask
-    from var_tpu_torch.engine.sampler import decode_cfg, make_sampler, smooth_sampling
+    from var_tpu_torch.engine.sampler import (decode_cfg, make_sampler, make_smooth_sampler,
+                                              smooth_sampling)
     from var_tpu_torch.models import build_vae_var
+    from var_tpu_torch.models.quantizer import idxBl_to_var_input
     from var_tpu_torch.models.vae import img_to_idxBl
 
     t0 = time.perf_counter()
@@ -1963,29 +2033,49 @@ def phase_zeroshot_main_path(dev):
     keep = torch.from_numpy(keep_scales_mask(PATCH_NUMS, KEEP_THROUGH))[None].expand(BATCH, -1)
     keep = keep.to(dev)
     edit = torch.from_numpy(get_edit_mask(PATCH_NUMS, *EDIT_BOX)).to(dev)
-    sample_kw = dict(cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P, dtype=dtype, device=dev)
-    inpaint = make_sampler(var_cfg, vae_cfg, cfg_scale=4.0, top_k=1, dtype=dtype, device=dev,
-                           inpainting=True)
-    kv_window = make_sampler(var_cfg, vae_cfg, kv_window=2, **sample_kw)
-    prealloc = make_sampler(var_cfg, vae_cfg, cache_impl="prealloc", **sample_kw)
-    captured = {"inpaint": inpaint, "kv_window": kv_window, "prealloc": prealloc}
+    sample_kw = dict(cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P, dtype=dtype)
+    greedy_kw = dict(cfg_scale=4.0, top_k=1, dtype=dtype)
+    inpaint = make_sampler(var_cfg, vae_cfg, device=dev, inpainting=True, **greedy_kw)
+    editor = make_sampler(var_cfg, vae_cfg, device=dev, editing=True, **greedy_kw)
+    kv_window = make_sampler(var_cfg, vae_cfg, kv_window=2, device=dev, **sample_kw)
+    prealloc = make_sampler(var_cfg, vae_cfg, cache_impl="prealloc", device=dev, **sample_kw)
+    smoother = make_smooth_sampler(SMOOTH_N, cfg_scale=CFG, dtype=dtype, device=dev)
     clf = VARClassifier(var, vae, mode="bayesian", dtype=dtype)
+    classes = list(range(CLF_CLASSES))
     gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
 
-    def edit_run(i):
+    def eager_decode(i, **kw):
         with torch.inference_mode():
-            return decode_cfg(var, vae, labels, gen(i), cfg_scale=4.0, top_k=1, dtype=dtype,
-                              gt_tokens=gt, edit_mask=edit)
+            return decode_cfg(var, vae, labels, gen(i), **kw)
 
-    modes = {  # name: (run(i), images per run)
-        "inpaint": (lambda i: inpaint(var, vae, gen(i), labels, gt, keep), BATCH),
-        "edit": (edit_run, BATCH),
-        "kv_window": (lambda i: kv_window(var, vae, gen(i), labels), BATCH),
-        "prealloc": (lambda i: prealloc(var, vae, gen(i), labels), BATCH),
-        "smooth": (lambda i: smooth_sampling(var, vae, gt, SMOOTH_N, labels, cfg_scale=CFG,
-                                             dtype=dtype), BATCH),
-        "classify": (lambda i: clf.class_likelihoods(img[:1], list(range(CLF_CLASSES)),
-                                                     batch_size=CLF_CLASSES), 1),
+    def eager_smooth(i):
+        with torch.inference_mode():
+            return smooth_sampling(var, vae, gt, SMOOTH_N, labels, cfg_scale=CFG, dtype=dtype)
+
+    def eager_classify(i):
+        with torch.inference_mode():
+            idx = img_to_idxBl(vae, img[:1])
+            x_in = idxBl_to_var_input(vae.quantize, vae_cfg, idx)
+            ll, _ = clf._score_fn(var, torch.tensor(classes, device=dev),
+                                  x_in.expand(CLF_CLASSES, -1, -1),
+                                  torch.cat(idx, dim=1).expand(CLF_CLASSES, -1))
+            return ll.float().cpu().numpy()
+
+    modes = {  # name: (replay(i), eager(i), images per run, its programs)
+        "inpaint": (lambda i: inpaint(var, vae, gen(i), labels, gt, keep),
+                    lambda i: eager_decode(i, gt_tokens=gt, keep_mask=keep, **greedy_kw),
+                    BATCH, (inpaint,)),
+        "edit": (lambda i: editor(var, vae, gen(i), labels, gt, edit),
+                 lambda i: eager_decode(i, gt_tokens=gt, edit_mask=edit, **greedy_kw),
+                 BATCH, (editor,)),
+        "kv_window": (lambda i: kv_window(var, vae, gen(i), labels),
+                      lambda i: eager_decode(i, kv_window=2, **sample_kw), BATCH, (kv_window,)),
+        "prealloc": (lambda i: prealloc(var, vae, gen(i), labels),
+                     lambda i: eager_decode(i, cache_impl="prealloc", **sample_kw), BATCH,
+                     (prealloc,)),
+        "smooth": (lambda i: smoother(var, vae, gt, labels), eager_smooth, BATCH, (smoother,)),
+        "classify": (lambda i: clf.class_likelihoods(img[:1], classes, batch_size=CLF_CLASSES),
+                     eager_classify, 1, (clf._tokenize, clf._score)),
     }
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1998,40 +2088,50 @@ def phase_zeroshot_main_path(dev):
              "classify": {**_train_want(DEPTH), "paired_train_fwd": DEPTH,
                           "paired_train_bwd": 0}}
     total = dict.fromkeys(_counts(kernels), 0)
-    for name, (run, n_img) in modes.items():
+    failures = []
+    for name, (replay, eager, n_img, programs) in modes.items():
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(kernels)
         t0 = time.perf_counter()
-        res = run(0)
+        res = replay(0)  # the first call: eager warm-up, then the capture
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = _counts(kernels)
-        if launches != wants[name]:
-            raise AssertionError(f"zero-shot {name} launches {launches}, want {wants[name]}")
+        want = wants[name]
+        if launches != want:
+            failures.append(f"{name}: first call launched {launches}, want {want}")
         total = {k: total[k] + launches[k] for k in total}
         check = _check_zeroshot_output(name, res, gt, keep, var_cfg)
-        times = []
-        _zero_counts(kernels)
-        for i in range(5):
-            t0 = time.perf_counter()
-            run(1 + i)
+        cap = _capture_row(_entries(*programs))
+        if not cap["captured"] or cap["launches_captured"] != {k: v for k, v in want.items()
+                                                              if v}:
+            failures.append(f"{name}: capture {cap}")
+        same = []
+        for s in (1, 2, 3):
+            r, e = replay(s), eager(s)
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        timed = _counts(kernels)
-        if timed != {k: 5 * v for k, v in wants[name].items()}:
-            raise AssertionError(f"zero-shot {name}'s 5 timed runs launched {timed}, "
-                                 f"want 5 x {wants[name]}")
-        entry = captured[name].graphs[(BATCH, name == "inpaint")] if name in captured else None
-        if name in captured and entry.graph is None:
-            raise AssertionError(f"zero-shot {name}: make_sampler did not capture")
-        median_s = float(np.median(times))
-        emit({"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
-              "dtype": "bfloat16", "launches": launches, "captured": entry is not None,
-              "launches_captured": None if entry is None else
-              {k: v for k, v in entry.launches.items() if v}, **check, "setup_s": setup_s,
-              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
-              "img_per_s": n_img / median_s,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            same.append(_same(r, e))
+        if not all(same):
+            failures.append(f"{name}: a replay differs from the eager run: {same}")
+        timed = _eager_vs_replay(kernels, replay, eager, 5, 10)
+        for kind, got in timed["launches"].items():
+            if got != {k: 5 * v for k, v in want.items()}:
+                failures.append(f"{name}: 5 {kind} runs launched {got}, want 5 x {want}")
+        med = {k: float(np.median(v)) for k, v in timed["times"].items()}
+        row = {"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
+               "dtype": "bfloat16", "launches": launches, **cap, **check,
+               "replay_equals_eager": same, "setup_s": setup_s, "first_s": first_s,
+               "replay_batch_s": timed["times"]["replay"],
+               "eager_batch_s": timed["times"]["eager"],
+               "replay_img_per_s": n_img / med["replay"], "eager_img_per_s": n_img / med["eager"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name in ("smooth", "classify"):
+            for kind, fn in (("replay", replay), ("eager", eager)):
+                prof = profiled_call(lambda: fn(20))
+                row[f"profiled_{kind}"] = {k: v for k, v in prof.items() if k != "launches"}
+        emit(row)
+    if failures:
+        raise AssertionError("zero-shot main path: " + "; ".join(failures))
     return total
 
 
@@ -2059,6 +2159,227 @@ def _check_zeroshot_output(name, res, gt, keep, var_cfg) -> dict:
         out["log_likelihood"] = float(res.log_likelihood)
     return out
 
+
+
+CLI_IMAGES = 4  # the synthetic folder: 2 classes x 2 PNGs of 256 x 256
+CLI_MODES = {  # name: (app, its arguments, --limit)
+    "inpaint_keep": ("inpaint", [], CLI_IMAGES),
+    "inpaint_target": ("inpaint", ["--target_layer", "5", "--patches", "2,3;1,1"], CLI_IMAGES),
+    "inpaint_box": ("inpaint", ["--box", ",".join(map(str, EDIT_BOX))], CLI_IMAGES),
+    "smooth": ("smooth", [], CLI_IMAGES),
+    "classify_bayesian": ("classify", ["--mode", "bayesian"], CLI_IMAGES),
+    "classify_gen": ("classify", ["--mode", "gen"], 2),
+}
+
+
+class _LineClock:
+    """A stdout that timestamps each line holding an image's report."""
+
+    def __init__(self, out):
+        self.out, self.stamps = out, []
+
+    def write(self, text):
+        if "] label=" in text:
+            self.stamps.append(time.perf_counter())
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _check_batch1_kernels(dev) -> dict:
+    """Rows 1, 2 and 3 against their plain versions at the shapes of the
+    CLIs' batch-1 decodes: row 1 at (2, pn^2, C) per stage, row 2 at every
+    chunked stage over 2 rows, row 3 at (pn^2, V) at k 1 (the CLIs'
+    greedy decodes), TOP_K and V."""
+    lens, _ = _stage_lens()
+    return {"modulated_layernorm": check_ln(dev, 2, lens, C),
+            "flash_decode": check_decode(dev, b2=2),
+            "topk_topp_bound": check_select(dev, lens, V, (1, TOP_K, 0), TOP_P)}
+
+
+def phase_zeroshot_cli(dev):
+    """Each zero-shot CLI's ``main(argv)`` at d16 (seeded random weights, no
+    checkpoints), batch 1, over a synthetic folder of seeded 256px PNGs in
+    a temporary directory: inpaint (keep-through, target layer, box),
+    smooth (n 4096) and classify (bayesian over 10 classes, gen over 10
+    classes; fp32, as its CLI builds the models). First rows 1-3 against
+    their plain versions at the batch-1 shapes. Counters are set to 0 just
+    before each ``main`` and read just after it: launches an image must be
+    one image's (the first image warms up and captures, the others
+    replay). s an image is the median gap between successive images'
+    reports (replays; the first image's is ``first_image_s``). Beside it,
+    the eager functions the CLI compiles, on the same models and images at
+    batch 1: s and launches an image, and their outputs (the PNGs, the
+    predictions) equal to the CLI's. Pillow reads the PNGs, as in the
+    CLIs."""
+    import contextlib
+    import importlib
+    import shutil
+    import tempfile
+
+    from var_tpu_torch.apps.classify import VARClassifier
+    from var_tpu_torch.apps.masks import generate_inpainting_mask, get_edit_mask, keep_scales_mask
+    from var_tpu_torch.apps.sample import save_grid
+    from var_tpu_torch.data import imagenet
+    from var_tpu_torch.engine.sampler import decode_cfg, smooth_sampling
+    from var_tpu_torch.models import build_vae_var
+    from var_tpu_torch.models.quantizer import idxBl_to_var_input
+    from var_tpu_torch.models.vae import img_to_fhat, img_to_idxBl
+
+    t_phase = time.perf_counter()
+    checks = _check_batch1_kernels(dev)
+    root = tempfile.mkdtemp(prefix="var_cli_")
+    kernels = _all_kernels()
+    sn = len(PATCH_NUMS)
+    decode = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
+    wants = {"inpaint": decode, "smooth": {**decode, "topk_topp_bound": 0},
+             "classify_bayesian": {**dict.fromkeys(decode, 0), "paired_train_fwd": DEPTH},
+             "classify_gen": {k: CLF_CLASSES * v for k, v in decode.items()}}
+    rows, failures = {}, []
+    try:
+        data = os.path.join(root, "data")
+        rng = np.random.default_rng(14)
+        reso = 16 * PATCH_NUMS[-1]
+        for i in range(CLI_IMAGES):
+            os.makedirs(os.path.join(data, f"n0{i // 2}"), exist_ok=True)
+            save_grid(rng.random((1, reso, reso, 3)), os.path.join(data, f"n0{i // 2}",
+                                                                    f"{i}.png"), per_row=1)
+        common = ["--device", dev.type, "--depth", str(DEPTH), "--pn",
+                  "_".join(map(str, PATCH_NUMS)), "--data_path", data,
+                  "--vae_ckpt", os.path.join(root, "none.pth")]
+        tf = imagenet.make_transform(reso, train=False)
+        samples = imagenet.FolderDataset(data).samples
+        models = {}
+        for name, (app, extra, limit) in CLI_MODES.items():
+            out_dir = os.path.join(root, name)
+            argv = common + ["--out_dir", out_dir, "--limit", str(limit)] + extra
+            if app == "classify":
+                argv += ["--num_classes", str(CLF_CLASSES), "--batch_size", str(CLF_CLASSES)]
+            if app == "smooth":
+                argv += ["--n", str(SMOOTH_N)]
+            mod = importlib.import_module(f"var_tpu_torch.apps.{app}")
+            torch.cuda.synchronize()
+            _zero_counts(kernels)
+            clock = _LineClock(sys.stdout)
+            t_main = time.perf_counter()
+            if app == "classify":  # it reports once a run: time each image's classify call
+                real = VARClassifier.classify
+
+                def timed(self, *a, **k):
+                    r = real(self, *a, **k)
+                    clock.stamps.append(time.perf_counter())
+                    return r
+
+                VARClassifier.classify = timed
+            try:
+                with contextlib.redirect_stdout(clock):
+                    mod.main(argv)
+            finally:
+                if app == "classify":
+                    VARClassifier.classify = real
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t_main
+            launches = _counts(kernels)
+            want = wants.get(name, wants.get(app))
+            if launches != {k: limit * v for k, v in want.items()}:
+                failures.append(f"{name}: {limit} images launched {launches}, want {limit} x "
+                                f"{want}")
+            gaps = np.diff(clock.stamps)
+            # the eager functions the CLI compiles, on its models and images
+            # the CLIs' dtypes: fp32 for the classifier and on the CPU, else bf16
+            dtype = torch.float32 if app == "classify" or dev.type == "cpu" else torch.bfloat16
+            key = (app == "classify", dtype)
+            if key not in models:
+                models.clear()
+                torch.cuda.empty_cache()
+                models[key] = build_vae_var(
+                    device=dev, depth=DEPTH, patch_nums=PATCH_NUMS, dtype=dtype,
+                    num_classes=CLF_CLASSES if app == "classify" else 1000)[2:]
+            vae, var = models[key]
+            clf = VARClassifier(var, vae, mode="bayesian") if app == "classify" else None
+            img_rng = np.random.default_rng(0)
+            times, same = [], []
+            _zero_counts(kernels)
+            for idx, (path, label) in enumerate(samples[:limit]):
+                x = torch.from_numpy(tf(path, img_rng))[None].to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    idx_bl = img_to_idxBl(vae, x)
+                    gt = torch.cat(idx_bl, dim=1)
+                    g = torch.Generator(device=dev).manual_seed(idx)
+                    lab = torch.tensor([label], device=dev)
+                    if app == "inpaint":
+                        if "--box" in extra:
+                            masks = {"edit_mask": torch.from_numpy(
+                                get_edit_mask(PATCH_NUMS, *EDIT_BOX)).to(dev)}
+                        elif "--target_layer" in extra:
+                            masks = {"keep_mask": torch.from_numpy(generate_inpainting_mask(
+                                PATCH_NUMS, 5, [(2, 3), (1, 1)]))[None].to(dev)}
+                        else:
+                            masks = {"keep_mask": torch.from_numpy(
+                                keep_scales_mask(PATCH_NUMS, KEEP_THROUGH))[None].to(dev)}
+                        res = decode_cfg(var, vae, lab, g, cfg_scale=4.0, top_k=1, dtype=dtype,
+                                         gt_tokens=gt, **masks)
+                        out = res.image.cpu().numpy()
+                    elif app == "smooth":
+                        res = smooth_sampling(var, vae, gt, SMOOTH_N, lab, cfg_scale=CFG,
+                                              dtype=dtype)
+                        out = (res.image.cpu().numpy(), float(res.log_likelihood),
+                               float(res.distance_log_likelihood))
+                    elif "bayesian" in name:
+                        x_in = idxBl_to_var_input(vae.quantize, vae.cfg, idx_bl)
+                        ll, _ = clf._score_fn(var, torch.arange(CLF_CLASSES, device=dev),
+                                              x_in.expand(CLF_CLASSES, -1, -1),
+                                              gt.expand(CLF_CLASSES, -1))
+                        out = int(ll.argmax())
+                    else:
+                        keep = torch.ones_like(gt, dtype=torch.bool)
+                        feat_in = img_to_fhat(vae, x)[-1].reshape(-1)
+                        scores = []
+                        for c in range(CLF_CLASSES):
+                            res = decode_cfg(var, vae, torch.tensor([c], device=dev),
+                                             torch.Generator(device=dev).manual_seed(0),
+                                             cfg_scale=CFG, top_k=1, dtype=dtype, gt_tokens=gt,
+                                             keep_mask=keep)
+                            feat = img_to_fhat(vae, res.image * 2.0 - 1.0)[-1].reshape(-1)
+                            scores.append(-float((feat_in - feat).abs().mean()))
+                        out = int(np.argmax(scores))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if app in ("inpaint", "smooth"):  # both write PNGs with save_grid
+                    want_png = os.path.join(root, f"{name}_{idx}.png")
+                    save_grid(out if app == "inpaint" else out[0], want_png, per_row=1)
+                    got_png = os.path.join(out_dir, f"{idx}_inpainted_{label}.png" if app ==
+                                           "inpaint" else f"{idx}_smoothed_{label}.png")
+                    with open(got_png, "rb") as a, open(want_png, "rb") as b:
+                        same.append(a.read() == b.read())
+                else:
+                    with open(os.path.join(out_dir, f"{idx}.json")) as f:
+                        same.append(json.load(f)["pred"] == out)
+            eager_launches = _counts(kernels)
+            if not all(same):
+                failures.append(f"{name}: the CLI's outputs differ from the eager run's: {same}")
+            if eager_launches != {k: limit * v for k, v in want.items()}:
+                failures.append(f"{name}: eager launched {eager_launches}, want {limit} x {want}")
+            rows[name] = {
+                "images": limit, "main_s": main_s,
+                "first_image_s": clock.stamps[0] - t_main,
+                "replay_s_per_image": float(np.median(gaps)) if len(gaps) else None,
+                "replay_gaps_s": gaps.tolist(),
+                "eager_s_per_image": float(np.median(times[1:])), "eager_s": times,
+                "launches_per_image": {k: v // limit for k, v in launches.items() if v},
+                "eager_launches_per_image": {k: v // limit for k, v in eager_launches.items()
+                                             if v},
+                "outputs_equal_eager": same}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "zeroshot_cli", "depth": DEPTH, "batch": 1,
+          "kernel_checks_batch1": checks, "modes": rows,
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError("zero-shot CLIs: " + "; ".join(failures))
 
 
 def phase_long_parity(dev):
@@ -2748,8 +3069,10 @@ def phase_analysis_main_path(dev):
     side by side (``--depths 16,20``; d20: 20 heads of 64): first row 6 at
     each model's score-batch shape held against its plain version in fp32,
     then ANALYSIS_IMAGES seeded 256px images over ANALYSIS_CLASSES classes
-    in one score batch each, one warm-up image not timed, images/s per
-    model, row 6's forward launched once a block a batch (twice with the
+    in one score batch each, one warm-up image (the capture) not timed,
+    then replays of the compiled score and the eager body in turns, twice:
+    images/s of both per model (the second of each), the same scores bit
+    for bit, row 6's forward launched once a block a batch (twice with the
     CFG ramp, one image at d16) and no backward."""
     from var_tpu_torch.apps.analysis import aggregate, make_score_fn
     from var_tpu_torch.models import build_vae_var
@@ -2768,24 +3091,41 @@ def phase_analysis_main_path(dev):
         # the score batch's attention: (classes, L, C), the model's heads, fp32
         checks = check_ptrain(dev, ANALYSIS_CLASSES, var.cfg.embed_dim, var.cfg.num_heads,
                               PATCH_NUMS, (torch.float32,))
-        models = {name: (var, vae, make_score_fn(var, vae))}
-        _analysis_records(models, imgs[:1], labels[:1])  # warm-up
+        score_fn = make_score_fn(var, vae)
+        models = {name: (var, vae, score_fn)}
+        eager_models = {name: (var, vae, lambda *a: score_fn.program.eager(var, vae, *a))}
+        _analysis_records(models, imgs[:1], labels[:1])  # warm-up and capture
         torch.cuda.synchronize()
-        _zero_counts(kernels)
-        t0 = time.perf_counter()
-        recs = _analysis_records(models, imgs, labels)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _counts(kernels)
-        want = {**dict.fromkeys(launches, 0), "paired_train_fwd": depth * ANALYSIS_IMAGES}
-        if launches != want:
-            raise AssertionError(f"analysis {name} launches {launches}, want {want}")
-        for rec, r in zip(records, recs):
+        entry = next(iter(score_fn.program.graphs.values()))
+        launches, seconds, recs = {}, {}, {}
+        for kind in ("replay", "eager", "replay", "eager"):  # in turns, the last of each kept
+            _zero_counts(kernels)
+            t0 = time.perf_counter()
+            recs[kind] = _analysis_records(models if kind == "replay" else eager_models, imgs,
+                                           labels)
+            torch.cuda.synchronize()
+            seconds[kind] = time.perf_counter() - t0
+            launches[kind] = _counts(kernels)
+        same = [a[name] == b[name] for a, b in zip(recs["replay"], recs["eager"])]
+        if not all(same):
+            raise AssertionError(f"analysis {name}: replayed scores differ from eager: {same}")
+        want = {**dict.fromkeys(launches["replay"], 0),
+                "paired_train_fwd": depth * ANALYSIS_IMAGES}
+        for kind in launches:
+            if launches[kind] != want:
+                raise AssertionError(f"analysis {name} {kind} launches {launches[kind]}, "
+                                     f"want {want}")
+        for rec, r in zip(records, recs["replay"]):
             rec[name] = r[name]
-        if not np.isfinite([r[name]["per_scale"] for r in recs]).all():
+        if not np.isfinite([r[name]["per_scale"] for r in recs["replay"]]).all():
             raise AssertionError(f"analysis {name}: non-finite scores")
-        row = {"launches": launches, "seconds": seconds, "img_per_s": ANALYSIS_IMAGES / seconds,
-               "heads": var.cfg.num_heads, "kernel_check": checks}
+        row = {"launches": launches["replay"], "seconds": seconds["replay"],
+               "img_per_s": ANALYSIS_IMAGES / seconds["replay"],
+               "eager_seconds": seconds["eager"],
+               "eager_img_per_s": ANALYSIS_IMAGES / seconds["eager"],
+               "replay_equals_eager": all(same), "capture_s": entry.capture_s,
+               "pool_gb": entry.pool_bytes / 1e9, "heads": var.cfg.num_heads,
+               "kernel_check": checks}
         if depth == DEPTH:
             cfg_models = {name: (var, vae, make_score_fn(var, vae, cfg_scale=CFG))}
             _zero_counts(kernels)
@@ -2796,7 +3136,7 @@ def phase_analysis_main_path(dev):
             if row["cfg_launches"] != {**want, "paired_train_fwd": 2 * depth}:
                 raise AssertionError(f"analysis {name} with cfg launches {row['cfg_launches']}")
         out[name] = row
-        del models, var, vae
+        del models, eager_models, score_fn, entry, var, vae
         torch.cuda.empty_cache()
     emit({"phase": "analysis_main_path", "dtype": "float32", "tf32": False,
           "images": ANALYSIS_IMAGES, "classes": ANALYSIS_CLASSES, "models": out,
@@ -2834,6 +3174,8 @@ def main() -> None:
     phase_zeroshot_parity(dev, root)
     zeroshot = phase_zeroshot_main_path(dev)
     launches["flash_decode_paired"] = zeroshot["flash_decode_paired"]
+    torch.cuda.empty_cache()
+    phase_zeroshot_cli(dev)
     torch.cuda.empty_cache()
     phase_long_parity(dev)
     long_runs = phase_long_main_path(dev)

@@ -17,8 +17,9 @@ Covers the reference analysis tooling:
 Scoring goes through ``models/var.py::var_forward`` with its default
 ``paired`` attention (the training-attention kernel's forward, row 6, on
 the GPU), in float32 with TF32 off unless the caller passes another
-``dtype``. The CLI writes one JSON per image (resume-safe), which
-``apps/investigate.py`` consumes. ``--device`` defaults to ``cuda``;
+``dtype``; ``make_score_fn`` is compiled (a CUDA graph on the GPU). The
+CLI writes one JSON per image (resume-safe), which ``apps/investigate.py``
+consumes. ``--device`` defaults to ``cuda``;
 ``cpu`` runs the plain PyTorch path. The plots need matplotlib and are
 imported only under ``--plot``; reading images needs Pillow.
 """
@@ -34,6 +35,7 @@ import torch
 
 from var_tpu_torch.config import VARConfig
 from var_tpu_torch.device import fp32_exact
+from var_tpu_torch.engine.compiled import Compiled
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
@@ -54,10 +56,10 @@ def teacher_forced_log_probs(var: var_mod.VAR, labels: torch.Tensor, x_in: torch
     if cfg_scale > 0:
         null = torch.full_like(labels, cfg.num_classes)
         logits_u = var_mod.var_forward(var, null, x_in, train=False, dtype=dtype)
-        ramp = np.zeros(cfg.seq_len, np.float32)
-        for si, (b, e) in enumerate(cfg.begin_ends):
-            ramp[b:e] = cfg_scale * si / cfg.num_stages_minus_1
-        t = torch.from_numpy(ramp).to(logits.device)[None, :, None]
+        ramp = torch.cat([torch.full((e - b,), cfg_scale * si / cfg.num_stages_minus_1,
+                                     device=logits.device)
+                          for si, (b, e) in enumerate(cfg.begin_ends)])
+        t = ramp[None, :, None]
         logits = (1 + t) * logits - t * logits_u
     logp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(logp, -1, gt_bl[..., None])[..., 0], logp
@@ -81,11 +83,12 @@ def per_scale_sums(token_ll: torch.Tensor, cfg: VARConfig) -> torch.Tensor:
 
 def make_score_fn(var: var_mod.VAR, vae: vae_mod.VQVAE, cfg_scale: float = 0.0,
                   l2_dist: bool = False, dtype: torch.dtype = torch.float32):
-    """(labels, x_in, gt) -> (B, S) per-scale scores (higher = better), on
-    the modules' device, TF32 off."""
+    """Compiled (labels, x_in, gt) -> (B, S) per-scale scores (higher =
+    better), on the modules' device, TF32 off, as ``var_tpu/apps/
+    analysis.py:122`` jits it: on CUDA one CUDA graph a batch shape
+    (``engine/compiled.py``; ``fn.program`` is the :class:`Compiled`)."""
 
-    @torch.inference_mode()
-    def fn(labels, x_in, gt_bl):
+    def body(var, vae, labels, x_in, gt_bl):
         with fp32_exact():
             token_ll, logp = teacher_forced_log_probs(var, labels, x_in, gt_bl, cfg_scale, dtype)
             if l2_dist:
@@ -94,6 +97,12 @@ def make_score_fn(var: var_mod.VAR, vae: vae_mod.VQVAE, cfg_scale: float = 0.0,
                 scores = token_ll
             return per_scale_sums(scores, var.cfg)
 
+    program = Compiled(body, 2, var.pos_1LC.device)
+
+    def fn(labels, x_in, gt_bl):
+        return program(var, vae, labels, x_in, gt_bl)
+
+    fn.program = program
     return fn
 
 

@@ -21,8 +21,10 @@ score. Modes (reference ``eval_prob.py:433-584``):
   pretrained weights that are not in the repository, and raise.
 
 Teacher-forced scoring goes through ``var_forward`` (the training-attention
-kernel's forward on the GPU) with TF32 off. A per-image JSON cache makes a
-run resumable (``eval_prob.py:409-416``). ``--device`` defaults to ``cuda``;
+kernel's forward on the GPU) with TF32 off. The tokenizer, the scores and
+the decodes of ``neighbor_bayesian`` and ``gen`` are compiled: on CUDA each
+replays a CUDA graph (``engine/compiled.py``). A per-image JSON cache makes
+a run resumable (``eval_prob.py:409-416``). ``--device`` defaults to ``cuda``;
 ``cpu`` runs the plain PyTorch path. Scores run in float32 unless the
 caller passes another ``dtype``, as in the JAX package.
 """
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 
 from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.engine import sampler as sampler_mod
+from var_tpu_torch.engine.compiled import Compiled
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
@@ -75,7 +78,15 @@ def cumsum_tokens(patch_nums: Sequence[int]) -> List[int]:
 
 class VARClassifier:
     """Likelihood-based zero-shot classifier over class conditions, on the
-    device the modules are on."""
+    device the modules are on.
+
+    Its programs are compiled (``engine/compiled.py``), as the JAX
+    classifier jits ``_tokenize`` and ``_score`` (``classify.py:89-90``):
+    on CUDA each replays one CUDA graph an input shape (a ragged last score
+    batch is a second entry). ``neighbor_bayesian`` calls the compiled
+    smooth sampler and ``gen`` the compiled inpainting decode, once a class
+    at batch 1 (JAX runs those two loops unjitted: a replay gives what the
+    eager call gives)."""
 
     def __init__(self, var: var_mod.VAR, vae: vae_mod.VQVAE, mode: str = "bayesian",
                  Clayer: int = 0, threshold: float = 2.0, smooth_k: int = 50,
@@ -89,16 +100,26 @@ class VARClassifier:
         self.smooth_k, self.cfg_scale, self.feat, self.dtype = smooth_k, cfg_scale, feat, dtype
         self.device = var.pos_1LC.device
         self.cums = cumsum_tokens(self.var_cfg.patch_nums)
+        self._tokenize = vae_mod.make_tokenizer(self.device)
+        self._score = Compiled(self._score_fn, 1, self.device)
         if mode == "fast_neighbor_bayesian":
             n = min(64, self.var_cfg.vocab_size)  # neighbour table width
             with torch.inference_mode():
                 _, self.top_n, self.top_n_dists = sampler_mod.codebook_neighbor_tables(
                     vae.quantize.embedding.weight, n)
+        if mode == "neighbor_bayesian":
+            self._smooth = sampler_mod.make_smooth_sampler(
+                self.var_cfg.vocab_size, cfg_scale, threshold, dtype, self.device)
+        if mode == "gen":
+            self._decode = sampler_mod.make_sampler(
+                var.cfg, vae.cfg, cfg_scale=cfg_scale, top_k=1, dtype=dtype, device=self.device,
+                inpainting=True)
 
-    def _score(self, labels: torch.Tensor, x_in: torch.Tensor, gt_bl: torch.Tensor):
+    def _score_fn(self, var: var_mod.VAR, labels: torch.Tensor, x_in: torch.Tensor,
+                  gt_bl: torch.Tensor):
         """Teacher-forced (per-image sum, per-token) log-likelihoods."""
         with fp32_exact():
-            logits = var_mod.var_forward(self.var, labels, x_in, train=False, dtype=self.dtype)
+            logits = var_mod.var_forward(var, labels, x_in, train=False, dtype=self.dtype)
             log_probs = torch.log_softmax(logits, dim=-1)
             if self.mode == "smooth_bayesian":
                 log_probs = smooth_log_probs_by_k(log_probs, self.smooth_k)
@@ -120,22 +141,19 @@ class VARClassifier:
         seed seeds every class's decode alike (default 0)."""
         img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
         with torch.inference_mode():
-            idx_bl = vae_mod.img_to_idxBl(self.vae, img)
+            idx_bl = self._tokenize.static(self.vae, img)
             gt = torch.cat(idx_bl, dim=1)
             if self.mode == "gen":
                 return self._gen_scores(img, gt, class_ids, generator)
             if self.mode == "neighbor_bayesian":
-                return np.asarray([float(sampler_mod.smooth_sampling(
-                    self.var, self.vae, gt, n=self.var_cfg.vocab_size,
-                    label_b=torch.tensor([c], device=self.device), cfg_scale=self.cfg_scale,
-                    neighbor_threshold=self.threshold, dtype=self.dtype).log_likelihood)
-                    for c in class_ids])
+                return np.asarray([float(self._smooth.static(self.var, self.vae, gt, [c])
+                                         .log_likelihood) for c in class_ids])
             x_in = q.idxBl_to_var_input(self.vae.quantize, self.vae.cfg, idx_bl)
             out = []
             for i in range(0, len(class_ids), batch_size):
                 cls = torch.tensor(list(class_ids[i:i + batch_size]), device=self.device)
                 b = cls.shape[0]
-                ll, _ = self._score(cls, x_in.expand(b, -1, -1), gt.expand(b, -1))
+                ll, _ = self._score(self.var, cls, x_in.expand(b, -1, -1), gt.expand(b, -1))
                 out.append(ll.float().cpu().numpy())
             return np.concatenate(out)
 
@@ -147,11 +165,9 @@ class VARClassifier:
         feat_in = self._features(img)
         scores = []
         for c in class_ids:
-            res = sampler_mod.decode_cfg(
-                self.var, self.vae, torch.tensor([c], device=self.device),
-                torch.Generator(device=self.device).manual_seed(seed),
-                cfg_scale=self.cfg_scale, top_k=1, dtype=self.dtype, gt_tokens=gt,
-                keep_mask=keep)
+            res = self._decode.static_decode(
+                self.var, self.vae, torch.Generator(device=self.device).manual_seed(seed), [c],
+                gt, keep)
             feat_gen = self._features(res.image * 2.0 - 1.0)
             scores.append(-float((feat_in - feat_gen).abs().mean()))
         return np.asarray(scores)

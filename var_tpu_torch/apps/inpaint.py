@@ -19,8 +19,11 @@ ground truth forced at kept positions, save ``{i}_original.png`` and
   passes an all-True keep-mask here, which forces every token to the ground
   truth, so its box mode returns the tokenizer's reconstruction.
 
-Same flags and defaults as the JAX app (cfg 4.0, top_k 1), plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+The tokenizer and the decode are compiled, as the JAX app jits them: on
+CUDA the first image captures each into a CUDA graph and every later image
+replays it (``engine/compiled.py``); one capture serves every image of a
+mask or a box. Same flags and defaults as the JAX app (cfg 4.0, top_k 1),
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Decodes in bf16 on the GPU and in fp32 on the CPU. Reading images needs
 Pillow; without checkpoints the models have seeded random weights.
 """
@@ -64,9 +67,9 @@ def main(argv=None):
     from var_tpu_torch.config import parse_patch_nums
     from var_tpu_torch.data.imagenet import FolderDataset, make_transform
     from var_tpu_torch.device import resolve_device
-    from var_tpu_torch.engine.sampler import decode_cfg
+    from var_tpu_torch.engine.sampler import make_sampler
     from var_tpu_torch.models import build_vae_var
-    from var_tpu_torch.models.vae import img_to_idxBl
+    from var_tpu_torch.models.vae import make_tokenizer
 
     dev = resolve_device(args.device)
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
@@ -79,17 +82,19 @@ def main(argv=None):
     ds = FolderDataset(args.data_path)
     os.makedirs(args.out_dir, exist_ok=True)
 
-    edit_mask = keep = None
     if args.box:
         y0, x0, y1, x1 = [float(v) for v in args.box.split(",")]
-        edit_mask = torch.from_numpy(get_edit_mask(pns, y0, x0, y1, x1,
-                                                   inpainting=not args.outpaint)).to(dev)
+        mask = get_edit_mask(pns, y0, x0, y1, x1, inpainting=not args.outpaint)
     elif args.target_layer >= 0:
         coords = [tuple(int(v) for v in c.split(",")) for c in args.patches.split(";") if c]
-        keep = generate_inpainting_mask(pns, args.target_layer, coords, args.reverse)
+        mask = generate_inpainting_mask(pns, args.target_layer, coords, args.reverse)[None]
     else:
-        keep = keep_scales_mask(pns, args.keep_through)
-    keep = None if keep is None else torch.from_numpy(keep)[None].to(dev)
+        mask = keep_scales_mask(pns, args.keep_through)[None]
+    # one compiled decode and one compiled tokenizer, as the JAX app jits them
+    decode = make_sampler(var_cfg, vae_cfg, cfg_scale=args.cfg, top_k=args.top_k,
+                          top_p=args.top_p, dtype=dtype, device=dev,
+                          inpainting=not args.box, editing=bool(args.box))
+    tokenize = make_tokenizer(dev)
 
     rng_np = np.random.default_rng(args.seed)
     for idx in range(min(args.limit, len(ds))):
@@ -97,11 +102,9 @@ def main(argv=None):
         img = torch.from_numpy(tf(path, rng_np))[None].to(dev)
         lab = args.label if args.label >= 0 else label
         with torch.inference_mode():
-            gt = torch.cat(img_to_idxBl(vae, img), dim=1)
-            res = decode_cfg(var, vae, torch.tensor([lab], device=dev),
-                             torch.Generator(device=dev).manual_seed(args.seed + idx),
-                             cfg_scale=args.cfg, top_k=args.top_k, top_p=args.top_p,
-                             dtype=dtype, gt_tokens=gt, keep_mask=keep, edit_mask=edit_mask)
+            gt = torch.cat(tokenize.static(vae, img), dim=1)
+        res = decode(var, vae, torch.Generator(device=dev).manual_seed(args.seed + idx), [lab],
+                     gt, mask)
         save_grid((img * 0.5 + 0.5).cpu().numpy(),
                   os.path.join(args.out_dir, f"{idx}_original.png"), per_row=1)
         save_grid(res.image.cpu().numpy(),

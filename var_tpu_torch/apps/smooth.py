@@ -8,10 +8,13 @@ Per image: tokenize, regenerate constrained to codebook neighbours of the
 ground-truth tokens (``smooth_sampling``; ``--threshold`` switches from the
 candidate-count mode to the L2-threshold mode), save
 ``{i}_smoothed_{label}.png`` and print the model and distance
-log-likelihoods (``smoothing.py:352-369``). Same flags and defaults as the
-JAX app, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path). The transformer runs in bf16 on the GPU and in fp32 on the
-CPU. Reading images needs Pillow.
+log-likelihoods (``smoothing.py:352-369``). The tokenizer and
+``smooth_sampling`` are compiled, as the JAX app jits them: on CUDA the
+first image captures each into a CUDA graph and later images replay it
+(``engine/compiled.py``). Same flags and defaults as the JAX app, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). The
+transformer runs in bf16 on the GPU and in fp32 on the CPU. Reading
+images needs Pillow.
 """
 
 from __future__ import annotations
@@ -46,9 +49,9 @@ def main(argv=None):
     from var_tpu_torch.config import parse_patch_nums
     from var_tpu_torch.data.imagenet import FolderDataset, make_transform
     from var_tpu_torch.device import resolve_device
-    from var_tpu_torch.engine.sampler import smooth_sampling
+    from var_tpu_torch.engine.sampler import make_smooth_sampler
     from var_tpu_torch.models import build_vae_var
-    from var_tpu_torch.models.vae import img_to_idxBl
+    from var_tpu_torch.models.vae import make_tokenizer
 
     dev = resolve_device(args.device)
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
@@ -60,6 +63,9 @@ def main(argv=None):
     tf = make_transform(pns[-1] * vae_cfg.downsample, train=False)
     ds = FolderDataset(args.data_path)
     os.makedirs(args.out_dir, exist_ok=True)
+    smooth = make_smooth_sampler(args.n, cfg_scale=args.cfg, neighbor_threshold=args.threshold,
+                                 dtype=dtype, device=dev)
+    tokenize = make_tokenizer(dev)
 
     rng_np = np.random.default_rng(args.seed)
     for idx in range(min(args.limit, len(ds))):
@@ -67,10 +73,8 @@ def main(argv=None):
         img = torch.from_numpy(tf(path, rng_np))[None].to(dev)
         lab = args.label if args.label >= 0 else label
         with torch.inference_mode():
-            gt = torch.cat(img_to_idxBl(vae, img), dim=1)
-        res = smooth_sampling(var, vae, gt, n=args.n, label_b=torch.tensor([lab], device=dev),
-                              cfg_scale=args.cfg, neighbor_threshold=args.threshold,
-                              dtype=dtype)
+            gt = torch.cat(tokenize.static(vae, img), dim=1)
+        res = smooth(var, vae, gt, [lab])
         save_grid(res.image.cpu().numpy(),
                   os.path.join(args.out_dir, f"{idx}_smoothed_{lab}.png"), per_row=1)
         ll, dll = float(res.log_likelihood), float(res.distance_log_likelihood)

@@ -17,7 +17,10 @@ The zero-shot branches: token-mask inpainting (``gt_tokens`` +
 ``keep_mask``), embedding-space box editing (``gt_tokens`` +
 ``edit_mask``), ``kv_window`` pruning, the ``cache_impl`` representations,
 neighbour-constrained :func:`smooth_sampling` and the dispatch-batched
-:func:`make_scan_sampler`.
+:func:`make_scan_sampler`. :func:`make_sampler` (plain, inpainting and
+box editing) and :func:`make_smooth_sampler` are compiled: on CUDA each
+replays one CUDA graph (``engine/compiled.py``), as the JAX package jits
+them.
 
 Public outputs keep the JAX layouts: image (B, H, W, 3) in [0, 1], tokens
 (B, L), f_hat (B, h, w, Cvae).
@@ -34,13 +37,13 @@ global batch's draw, so the decode is the one-process decode.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from var_tpu_torch.device import fp32_exact, resolve_device
+from var_tpu_torch.engine.compiled import Compiled, CompiledEntry
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
@@ -269,105 +272,14 @@ def decode_cfg(
     return DecodeResult(*(gather_data(mesh, t) for t in (img, tokens, f_hat)))
 
 
-def _on(module: torch.nn.Module, dev: torch.device) -> bool:
-    p = next(module.parameters())
-    return p.device.type == dev.type and (dev.index is None or p.device.index == dev.index)
+class GraphDecode(CompiledEntry):
+    """One capture-ready CFG decode of a batch size, plain, inpainting or
+    box editing: a :class:`~var_tpu_torch.engine.compiled.CompiledEntry`
+    whose modules are (``var``, ``vae``) and whose static inputs are the
+    labels (and ``gt`` and the keep or edit mask)."""
 
-
-def _modules_key(var: var_mod.VAR, vae: vae_mod.VQVAE) -> tuple:
-    """What a captured decode is bound to: the modules, the addresses of
-    their parameters and buffers (the graph reads them by pointer), and the
-    TF32 switches (they choose the GEMM and convolution kernels it holds)."""
-    ptrs = tuple(t.data_ptr() for m in (var, vae) for t in (*m.parameters(), *m.buffers()))
-    return (id(var), id(vae), ptrs, torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-
-
-class GraphDecode:
-    """One capture-ready CFG decode of ``b`` rows, plain or inpainting,
-    bound to the modules it was made with: static input buffers (labels;
-    ``gt`` and ``mask`` for inpainting), static outputs, and on CUDA the
-    graph that replays :meth:`body`.
-
-    ``launches``: the kernel launches one decode makes, by wrapper name,
-    recorded at the capture (which launches nothing; each replay adds them
-    to the wrappers' counts). ``capture_s``: host seconds of the capture."""
-
-    def __init__(self, key: tuple, var, vae, b: int, inpainting: bool, run):
-        dev = var.pos_1LC.device
-        seq = var.cfg.seq_len
-        self.key, self.var, self.vae, self._run = key, var, vae, run
-        self.labels = torch.zeros(b, dtype=torch.int64, device=dev)
-        self.gt = torch.zeros(b, seq, dtype=torch.int64, device=dev) if inpainting else None
-        self.mask = torch.zeros(b, seq, dtype=torch.bool, device=dev) if inpainting else None
-        self.out: Optional[DecodeResult] = None
-        self.graph = None
-        self.generator: Optional[torch.Generator] = None  # the graph's own (CUDA)
-        self.launches: dict = {}
-        self.capture_s = 0.0
-
-    def load(self, labels: torch.Tensor, gt=None, mask=None) -> None:
-        self.labels.copy_(labels)
-        if self.gt is not None:
-            self.gt.copy_(gt)
-            self.mask.copy_(mask)
-
-    def body(self, generator: Optional[torch.Generator]) -> None:
-        """The whole decode and its render over the static buffers, into the
-        static outputs (the first run's outputs become them). It reads
-        nothing back to the host, so a graph can capture it."""
-        res = self._run(self.var, self.vae, self.labels, generator, self.gt, self.mask)
-        if self.out is None:
-            self.out = res
-        else:
-            for dst, src in zip(self.out, res):
-                dst.copy_(src)
-
-    def capture(self, generator: Optional[torch.Generator]) -> None:
-        """The first call on CUDA: one eager run of the body on a side
-        stream, drawing from ``generator`` as :func:`decode_cfg` would (it
-        builds the kernel library, lets cuBLAS and cuDNN settle, and its
-        outputs are this call's result), then the capture, drawing from the
-        graph's own generator."""
-        from var_tpu_torch.ops.cuda import counted_wrappers
-
-        dev = self.labels.device
-        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.body(generator)
-        main.wait_stream(side)
-        self.generator = torch.Generator(device=dev)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        kernels = counted_wrappers()
-        before = [fn.launches for fn in kernels]
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                self.body(self.generator)
-        finally:  # the capture launched nothing: its counts are each replay's
-            self.launches = {fn.__name__: fn.launches - n for fn, n in zip(kernels, before)}
-            for fn, n in zip(kernels, before):
-                fn.launches = n
-        self.capture_s = time.perf_counter() - t0
-        self.graph = graph
-
-    def replay(self, generator: Optional[torch.Generator]) -> None:
-        """Replay the decode, drawing what :func:`decode_cfg` would draw
-        from ``generator`` (the device's default one when None), and
-        advance ``generator`` as it would: its state goes into the graph's
-        generator, whose offset the replay advances by the decode's draws,
-        and comes back. No host synchronisation."""
-        from var_tpu_torch.ops.cuda import counted_wrappers
-
-        if generator is None:
-            generator = torch.cuda.default_generators[self.labels.device.index]
-        self.generator.set_state(generator.get_state())
-        self.graph.replay()
-        generator.set_state(self.generator.get_state())
-        for fn in counted_wrappers():
-            fn.launches += self.launches[fn.__name__]
+    var = property(lambda self: self.modules[0])
+    vae = property(lambda self: self.modules[1])
 
 
 def make_sampler(
@@ -384,78 +296,72 @@ def make_sampler(
     cache_impl: str = "chunked",
     approx_topk: bool = False,
     mesh: Optional[Mesh] = None,
+    editing: bool = False,
 ):
     """Compiled sampler ``(var, vae, generator, label_b) -> DecodeResult`` on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``; raises when
     CUDA is asked for and absent); with ``inpainting`` it is ``(var, vae,
     generator, label_b, gt, mask)``, ``gt`` (B, L) ids and ``mask`` (B, L)
-    bool. Sampling hyper-parameters are fixed here, as the JAX sampler fixes
-    them at compile time.
+    bool keep mask; with ``editing`` the same with ``mask`` the (ph, pw)
+    float edit mask of :func:`decode_cfg`'s box editing. Sampling
+    hyper-parameters are fixed here, as the JAX sampler fixes them at
+    compile time.
 
     On CUDA the whole decode (ten stages, sampling, the f_hat updates and
-    the render) is one CUDA graph, the counterpart of JAX's one jitted
-    program (``sampler.py:247``): the first call at a batch size warms up
-    eagerly (its result is that run's) and captures; later calls copy
-    their inputs into static buffers and replay. From the same generator
-    state a replay draws what the eager :func:`decode_cfg` draws and
-    leaves the generator where it would. ``sampler.graphs`` holds the
-    :class:`GraphDecode` of each (batch, inpainting). On the CPU the same
-    capture-ready body runs eagerly. Under a ``mesh`` the decode runs
-    eagerly: its gloo collectives cannot be captured. ``approx_topk`` and
-    ``mesh``: as :func:`decode_cfg`'s."""
+    the render) is one CUDA graph (``engine/compiled.py``), the counterpart
+    of JAX's one jitted program (``sampler.py:247``): the first call at a
+    batch size warms up eagerly (its result is that run's) and captures;
+    later calls copy their inputs into static buffers and replay, so one
+    capture serves every image of a box or a mask. From the same generator
+    state a replay draws what the eager :func:`decode_cfg` draws and leaves
+    the generator where it would. ``sampler.graphs`` holds the
+    :class:`GraphDecode` of each (batch, inpainting), or of each (batch,
+    edit mask shape) with ``editing``. On the CPU the same capture-ready
+    body runs eagerly. Under a ``mesh`` the decode runs eagerly: its gloo
+    collectives cannot be captured. ``approx_topk`` and ``mesh``: as
+    :func:`decode_cfg`'s."""
     del approx_topk
+    if inpainting and editing:
+        raise ValueError("sampler: inpainting and editing are two samplers")
     dev = resolve_device(device)
     _check_branches(None, None, None, kv_window, cache_impl)
     kw = dict(cfg_scale=cfg_scale, top_k=top_k, top_p=top_p, more_smooth=more_smooth,
               dtype=dtype, kv_window=kv_window, cache_impl=cache_impl, mesh=mesh)
+    conditioned = inpainting or editing
 
-    graphs: dict = {}
+    def run(var, vae, labels, gt, mask, *, generator) -> DecodeResult:
+        masks = {"edit_mask": mask} if editing else {"keep_mask": mask}
+        return decode_cfg(var, vae, labels, generator, gt_tokens=gt, **masks, **kw)
 
-    def run(var, vae, labels, generator, gt, mask) -> DecodeResult:
-        return decode_cfg(var, vae, labels, generator, gt_tokens=gt, keep_mask=mask, **kw)
+    def slot(labels, gt, mask) -> tuple:
+        return (labels.shape[0], tuple(mask.shape)) if editing else (labels.shape[0], inpainting)
+
+    program = Compiled(run, 2, dev, random=True, slot=slot, entry_cls=GraphDecode)
 
     def decode(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
         """The decode into a :class:`GraphDecode`'s static outputs (valid
-        until the next call). A call whose modules, parameter addresses or
-        TF32 switches differ from its entry's makes a new entry, which
-        captures again: a graph never replays pointers into another
-        model's weights. A capture or replay error raises."""
+        until the next call); see :class:`~var_tpu_torch.engine.compiled.
+        Compiled` for when an entry captures anew."""
         if var.cfg != var_cfg or vae.cfg != vae_cfg:
             raise ValueError("sampler: the modules' configs differ from the sampler's")
-        if not (_on(var, dev) and _on(vae, dev)):
-            raise ValueError(f"sampler: the modules must be on {dev}")
-        if inpainting != (gt is not None and mask is not None):
-            raise ValueError("sampler: gt and mask go together, with inpainting=True only")
+        if conditioned != (gt is not None and mask is not None):
+            raise ValueError("sampler: gt and mask go together, with inpainting=True or "
+                             "editing=True only")
         labels = torch.as_tensor(label_b, dtype=torch.int64, device=dev)
-        if inpainting:
+        if conditioned:
             gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
-            mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+            mask = torch.as_tensor(mask, dtype=torch.float32 if editing else torch.bool,
+                                   device=dev)
         if mesh is not None:
-            return run(var, vae, labels, generator, gt, mask)
-        key = _modules_key(var, vae)
-        slot = (labels.shape[0], inpainting)
-        entry = graphs.get(slot)
-        if entry is None or entry.key != key:
-            entry = graphs[slot] = GraphDecode(key, var, vae, labels.shape[0], inpainting, run)
-        entry.load(labels, gt, mask)
-        if dev.type == "cpu":
-            entry.body(generator)
-        elif entry.graph is None:
-            try:
-                entry.capture(generator)
-            except BaseException:
-                del graphs[slot]  # the next call starts afresh
-                raise
-        else:
-            entry.replay(generator)
-        return entry.out
+            return program.eager(var, vae, labels, gt, mask, generator=generator)
+        return program.static(var, vae, labels, gt, mask, generator=generator)
 
     def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
         with torch.inference_mode():
-            res = decode(var, vae, generator, label_b, gt, mask)
-            return DecodeResult(*(t.clone() for t in res))
+            return DecodeResult(*(t.clone() for t in decode(var, vae, generator, label_b, gt,
+                                                            mask)))
 
-    sampler.graphs, sampler.static_decode = graphs, decode
+    sampler.graphs, sampler.static_decode = program.graphs, decode
     return sampler
 
 
@@ -599,3 +505,20 @@ def smooth_sampling(
                 ntm = _next_input(var, nxt, lvl_pos, cur, b)
         img = vae_mod.fhat_to_img(vae, f_hat) * 0.5 + 0.5
     return SmoothResult(img, torch.cat(token_segs, dim=1), sum_ll, sum_dll)
+
+
+def make_smooth_sampler(n: int, cfg_scale: float = 1.5,
+                        neighbor_threshold: Optional[float] = None,
+                        dtype: torch.dtype = torch.bfloat16, device="cuda") -> Compiled:
+    """Compiled :func:`smooth_sampling` ``(var, vae, gt_tokens, label_b) ->
+    SmoothResult`` on ``device``, with ``n``, the scale, the threshold and
+    the dtype fixed, as ``var_tpu/apps/smooth.py:57`` jits it. On CUDA one
+    CUDA graph a batch size replays the whole decode, the neighbour tables
+    (recomputed in each run, as JAX's program recomputes them) and the
+    render; the log-likelihood sums come back as 0-d static outputs."""
+
+    def run(var, vae, gt_tokens, label_b) -> SmoothResult:
+        return smooth_sampling(var, vae, gt_tokens, n, label_b, cfg_scale, neighbor_threshold,
+                               dtype)
+
+    return Compiled(run, 2, device)

@@ -12,6 +12,7 @@ takes f_hat (B, h, w, Cvae) and returns the image (B, H, W, 3);
 ``img_to_fhat`` and ``idxBl_to_img`` are the classifier's round trips;
 ``embed_to_img`` decodes per-scale embeddings and
 ``img_to_reconstructed_img`` is the tokenize-and-decode round trip;
+``make_tokenizer`` compiles ``img_to_idxBl``;
 ``vae_train_forward`` is the tokenizer-training forward. ``gn_impl`` picks
 the GroupNorm formulation of every function that runs the networks
 (:func:`group_norm`): "dot" by default, "pallas" through row 7's kernel.
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from var_tpu_torch.config import VAEConfig
 from var_tpu_torch.device import fp32_exact
+from var_tpu_torch.engine.compiled import Compiled
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
@@ -319,6 +321,16 @@ def img_to_idxBl(vae: VQVAE, img: torch.Tensor,
     with fp32_exact():
         idx_bl, _ = q.f_to_idxBl(vae.quantize, vae.cfg, img_to_f(vae, img), v_patch_nums)
     return idx_bl
+
+
+def make_tokenizer(device="cuda"):
+    """Compiled :func:`img_to_idxBl` ``(vae, img) -> [ids per scale]`` on
+    ``device``, as the JAX apps jit their tokenizers
+    (``var_tpu/apps/inpaint.py:87``, ``smooth.py:60``, ``classify.py:89``):
+    on CUDA one CUDA graph an image shape replays the encoder and the
+    quantizer's encode loop (``engine/compiled.py``); on the CPU the same
+    body runs eagerly."""
+    return Compiled(img_to_idxBl, 1, device)
 
 
 def img_to_fhat(vae: VQVAE, img: torch.Tensor,
