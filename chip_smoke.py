@@ -75,6 +75,21 @@ just after:
   2) trains one counted warm-up step and five timed steps for ``"dot"`` and
   for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
   with each;
+* the compiled training, eval and FID programs (``engine/compiled.py``
+  with ``train=True``; every earlier training, eval and scoring phase runs
+  through them too): the d16 training step at 256px batch 32 (``auto``,
+  row 6) and at 512px batch 8 (``auto``; ``pallas``, row 5), the ch160
+  tokenizer step (``gn_impl`` dot and pallas, row 7) from record_hit 98
+  across the EMA decay switch at 100, and the eval step at 256px batch 32,
+  512px batch 8 and 1024px batch 2 (row 5): replays against the eager
+  body from the same state and generator state, bit for bit (parameters,
+  moments, count, metrics, EMA hits, eval sums) under deterministic
+  algorithms; then peak reserved GB of an eager step beside the compiled
+  first call and what its pool holds, a fresh capture and replays beside
+  eager steps in turns, with launches a run, capture s, pool GB and the
+  idle share of a profiled replay. The ImageNet resume must capture anew
+  after its checkpoint load and still end bit-equal, and the CLI's peak
+  reserved GB is printed beside the same run with its steps eager;
 * multi-GPU (``parallel/``), on the one card: two ranks joined by gloo
   over CUDA tensors (NCCL refuses two ranks on one device) through
   ``apps/dryrun_multigpu.py``, the d16 width (C 1024, 16 heads, V 4096) at
@@ -92,7 +107,9 @@ just after:
   both rounds of a chunk replays of one captured decode), packed into an
   ``arr_0`` npz and scored against itself (~0) and a second seed's set
   (> 0) with both extractors, with the sampling img/s beside main_path's
-  and the scorer's ms an image;
+  and the scorer's ms an image; each compiled extractor against its eager
+  body, bit for bit, on two full batches and a ragged one, and ms an image
+  both ways;
 * the quality loop (``apps/quality_loop.py``) at the JAX script's default
   scale over in-memory gratings: the tokenizer's recon must fall below
   0.8x its first value and the held-out val loss must fall; the FID proxy
@@ -1262,31 +1279,28 @@ def _kernel_of(event: str):
 
 
 def profiled_call(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
+    """One call of ``fn`` under ``torch.profiler``
+    (``utils/profiling.py::device_events``): its wall ms (host clock,
     ending in a synchronise), device-busy ms (the device events' self
-    time), idle share, device events, and the decode kernels' launches by
-    wrapper name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    time), idle share, device events, the decode kernels' launches by
+    wrapper name, and device ms by kind (``apps/profile_train.py``'s
+    grouping: convolutions, GEMMs, the attention rows, the rest)."""
+    from var_tpu_torch.apps.profile_train import _kind
+    from var_tpu_torch.utils.profiling import device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, events, launches = 0.0, 0, {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        busy_us += ev.self_device_time_total
-        events += ev.count
-        name = _kernel_of(ev.key)
+    wall_ms, rows = device_events(fn)
+    busy_us, events, launches, by_kind = 0.0, 0, {}, {}
+    for key, count, us in rows:
+        busy_us += us
+        events += count
+        kind = _kind(key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        name = _kernel_of(key)
         if name is not None:
-            launches[name] = launches.get(name, 0) + ev.count
+            launches[name] = launches.get(name, 0) + count
     busy_ms = busy_us / 1e3
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "device_events": events, "launches": launches}
+            "device_events": events, "launches": launches, "busy_ms_by_kind": by_kind}
 
 
 def phase_graph_main_path(dev):
@@ -1607,12 +1621,12 @@ def _imagenet_run(train_app, args, dev, vae, var, kill_after=None):
 
 
 def _resume_var(dev, args):
-    """Run B's VAR: the d16 width (C 1024, 16 heads) at RESUME_DEPTH, seeded."""
+    """A seeded VAR of the d16 width (C 1024, 16 heads) at ``args.depth``."""
     from var_tpu_torch.config import VARConfig
     from var_tpu_torch.models import var as var_mod
 
-    cfg = VARConfig(depth=RESUME_DEPTH, embed_dim=C, num_heads=HEADS, attn_l2_norm=args.anorm,
-                    drop_path_rate=0.1 * RESUME_DEPTH / 24, patch_nums=PATCH_NUMS)
+    cfg = VARConfig(depth=args.depth, embed_dim=C, num_heads=HEADS, attn_l2_norm=args.anorm,
+                    drop_path_rate=0.1 * args.depth / 24, patch_nums=PATCH_NUMS)
     var = var_mod.init_var_params(var_mod.VAR(cfg).to(dev), torch.Generator(dev).manual_seed(3),
                                   init_std=args.ini, init_head=args.hd, init_adaln=args.aln,
                                   init_adaln_gamma=args.alng)
@@ -1628,10 +1642,15 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
     epochs of 3 steps, eval every epoch, a checkpoint every 2 steps (run A,
     counted). Then run A' (RESUME_DEPTH, uninterrupted) and run B (the same,
     stopped in the data fetch after its first mid-epoch checkpoint, then
-    resumed by a fresh call through ``auto_resume``), both under
-    ``torch.use_deterministic_algorithms``: B's final parameters and AdamW
-    state must equal A''s bit for bit. Everything is written to a temporary
-    directory that is removed."""
+    resumed by a fresh call through ``auto_resume``, whose compiled step
+    captures anew after the load), both under ``_Reproducible``
+    (deterministic algorithms, as before the steps were compiled): B's
+    final parameters and AdamW state must equal A''s bit for bit; the free
+    memory and pool of every capture in A' and B are printed. Memory: run
+    A's peak reserved GB beside the same run with its steps called eagerly
+    (``Compiled.eager``, the steps before they were compiled; no
+    checkpoint writes). Everything is written to a temporary directory
+    that is removed."""
     import shutil
     import tempfile
 
@@ -1639,6 +1658,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
     from var_tpu_torch.config import VAEConfig, resolve_attn
     from var_tpu_torch.engine import checkpoint as ckpt
     from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.engine.compiled import Compiled, CompiledEntry
     from var_tpu_torch.models import vae as vae_mod
 
     tmp = tempfile.mkdtemp(prefix="var_imagenet_")
@@ -1655,7 +1675,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
         vae, var = train_app.build_models(args, dev)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
+        _fresh_peak(dev)
         kernels = _all_kernels()
         _zero_counts(kernels)
         t0 = time.perf_counter()
@@ -1670,6 +1690,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
         if eval_attn == "pallas":  # the 256px eval keeps the dense path (L 680)
             want["flash_attention_fwd"] += DEPTH * n_eval
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        memory = {"peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
         finite = all(bool(torch.isfinite(p).all()) for p in state.var.parameters())
         with open(args.log_txt_path) as f:
             epoch_lines = f.read().splitlines()[1:]
@@ -1679,27 +1700,58 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
         share = [d / s for d, s in zip(times["data_t"][1:], steady)]
         eval_ms = [1e3 * sec / nb for sec, nb in times["eval_s"]]
         del state, var
+
+        # the same run with its steps called eagerly: its peak reserved GB
+        args_e = _imagenet_args(os.path.join(tmp, "runE"), DEPTH)
+        os.makedirs(args_e.local_out_dir_path)  # which the first checkpoint write makes
+        var_e = _resume_var(dev, args_e)
+        _fresh_peak(dev)
+        save, static = ckpt.save_checkpoint, Compiled.static
+        ckpt.save_checkpoint = lambda *a, **k: None
+        Compiled.static = lambda program, *a, generator=None: program.eager(*a,
+                                                                           generator=generator)
+        try:
+            _imagenet_run(train_app, args_e, dev, vae, var_e)
+        finally:
+            ckpt.save_checkpoint, Compiled.static = save, static
+        torch.cuda.synchronize()
+        memory["eager_steps_peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        del var_e
         torch.cuda.empty_cache()
 
         # resume equality at RESUME_DEPTH, deterministic algorithms
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-        torch.use_deterministic_algorithms(True)
+        captures = {"A2": [], "B": [], "B_resumed": []}  # (free GB before, pool GB)
+
+        def capture_logged(run):
+            def cap(entry, *a):
+                free = torch.cuda.mem_get_info(dev)[0] / 1e9
+                capture(entry, *a)
+                captures[run].append([free, entry.pool_bytes / 1e9])
+            return cap
+
+        capture = CompiledEntry.capture
         try:
-            # eval at the last epoch only: fewer checkpoints to write
-            args_a = _imagenet_args(os.path.join(tmp, "runA2"), RESUME_DEPTH, val_freq_ep=2)
-            state_a, _ = _imagenet_run(train_app, args_a, dev, vae, _resume_var(dev, args_a))
-            args_b = _imagenet_args(os.path.join(tmp, "runB"), RESUME_DEPTH, val_freq_ep=2)
-            try:
-                _imagenet_run(train_app, args_b, dev, vae, _resume_var(dev, args_b),
-                              kill_after=args_b.ckpt_iters * args_b.ac)
-                raise AssertionError("run B was not stopped")
-            except _Killed:
-                pass
-            stopped_at = ckpt.load_meta(args_b.last_ckpt_path)
-            state_b, times_b = _imagenet_run(train_app, args_b, dev, vae, _resume_var(dev, args_b))
-            torch.cuda.synchronize()
+            with _Reproducible():
+                # eval at the last epoch only: fewer checkpoints to write
+                args_a = _imagenet_args(os.path.join(tmp, "runA2"), RESUME_DEPTH, val_freq_ep=2)
+                CompiledEntry.capture = capture_logged("A2")
+                state_a, _ = _imagenet_run(train_app, args_a, dev, vae, _resume_var(dev, args_a))
+                args_b = _imagenet_args(os.path.join(tmp, "runB"), RESUME_DEPTH, val_freq_ep=2)
+                CompiledEntry.capture = capture_logged("B")
+                try:
+                    _imagenet_run(train_app, args_b, dev, vae, _resume_var(dev, args_b),
+                                  kill_after=args_b.ckpt_iters * args_b.ac)
+                    raise AssertionError("run B was not stopped")
+                except _Killed:
+                    pass
+                stopped_at = ckpt.load_meta(args_b.last_ckpt_path)
+                CompiledEntry.capture = capture_logged("B_resumed")
+                state_b, times_b = _imagenet_run(train_app, args_b, dev, vae,
+                                                 _resume_var(dev, args_b))
+                torch.cuda.synchronize()
         finally:
-            torch.use_deterministic_algorithms(False)
+            CompiledEntry.capture = capture
+        resumed_captures = len(captures["B_resumed"])
         sa, sb = state_a.var.state_dict(), state_b.var.state_dict()
         diverged = [k for k in sa if not torch.equal(sa[k], sb[k])]
         oa, ob = state_a.opt.opt.state_dict()["state"], state_b.opt.opt.state_dict()["state"]
@@ -1707,7 +1759,8 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
                      if not torch.equal(oa[i][k], ob[i][k])]
         resume = {"depth": RESUME_DEPTH, "deterministic": True,
                   "stopped_at": [stopped_at.get("epoch"), stopped_at.get("iter")],
-                  "resumed_steps": len(times_b["step_t"]), "steps_a": state_a.step,
+                  "resumed_steps": len(times_b["step_t"]), "resumed_captures": resumed_captures,
+                  "captures_free_gb_pool_gb": captures, "steps_a": state_a.step,
                   "steps_b": state_b.step, "tensors": len(sa) + sum(len(v) for v in oa.values()),
                   "diverged": diverged[:8]}
         del state_a, state_b
@@ -1726,6 +1779,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
           "attn": "auto", "eval_attn": eval_attn, "train_images": IMAGENET_TRAIN,
           "val_images": IMAGENET_VAL, "steps": n_steps, "eval_batches": n_eval,
           "launches": launches, "want": want, "setup_s": setup_s, "run_s": run_s,
+          "run_s_eager_steps": EAGER_IMAGENET_RUN_S,
           "step_s": times["step_t"], "step_s_median": median_s,
           "img_per_s": TRAIN_BATCH / median_s,
           "train_main_path_step_s_median": train_main_step_s,
@@ -1733,6 +1787,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
           "data_t_s": times["data_t"], "data_share_median": float(np.median(share)),
           "eval_ms_per_batch": eval_ms, "ckpt_save_s": times["save_s"],
           "ckpt_gb": ckpt_gb, "ckpt_saves": len(times["save_s"]), "peak_mem_gb": peak_gb,
+          "memory": memory,
           "epoch_lines": epoch_lines, "final_meta": [meta["epoch"], meta["iter"]],
           "resume": resume})
     if launches != want:
@@ -1741,6 +1796,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
         raise AssertionError(f"imagenet run incomplete: finite {finite}, log.txt "
                              f"{epoch_lines}, meta {meta}, steps {n_steps}")
     if resume["stopped_at"] != [0, 2] or resume["resumed_steps"] != 4 or diverged \
+            or resume["resumed_captures"] != 2 \
             or not resume["steps_a"] == resume["steps_b"] == 6:
         raise AssertionError(f"resumed run differs from the uninterrupted one: {resume}")
     if torch.distributed.is_available() and torch.distributed.is_initialized():
@@ -2554,6 +2610,393 @@ def phase_long_main_path(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the compiled training, eval and FID programs (engine/compiled.py, train=True)
+
+# the same runs with eager training, eval and FID steps (H100 80GB HBM3, 700.00 W)
+EAGER_SCRIPT_S, EAGER_IMAGENET_RUN_S, EAGER_QLOOP_WALL_S = 303.2, 28.113, 25.924
+HOLD_STEPS = 4  # steps held bit for bit: the capture's eager run, then 3 replays
+COMPILED_TRAIN_CELLS = (("256", TRAIN_BATCH, "auto", 10), ("512", LONG_BATCH, "auto", 5),
+                        ("512", LONG_BATCH, "pallas", 5))  # (preset, batch, --attn, timed n)
+COMPILED_EVAL_CELLS = (("256", TRAIN_BATCH, 5), ("512", LONG_BATCH, 5),
+                       ("1024", EVAL_1024_BATCH, 3))
+
+
+def _tensor_fields(metrics) -> list:
+    """The tensors of a step's metrics (StepMetrics or the tokenizer's dict)."""
+    vals = metrics.values() if isinstance(metrics, dict) else metrics
+    return [v for v in vals if isinstance(v, torch.Tensor)]
+
+
+def _bits_equal(a, b) -> bool:
+    """Two lists of tensors equal bit for bit (NaN where NaN)."""
+    def eq(x, y):
+        if x.is_floating_point():
+            return torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                                     y.nan_to_num())
+        return torch.equal(x, y)
+    return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
+
+
+class _Reproducible:
+    """Inside the block: deterministic algorithms and cuBLAS's fixed
+    workspace, the settings under which the training CLI's runs repeat bit
+    for bit. cuDNN keeps its default plan choice (no benchmark mode)."""
+
+    def __enter__(self):
+        self.env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        if self.env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.env
+
+
+def _hold_steps(dev, step, sa, sb, args_of, n: int):
+    """n steps of state ``sa`` through the compiled ``step`` (the first
+    captures, the rest replay) beside ``sb`` through ``step.eager``, each
+    pair from the same generator state: rows of bit-equality (metrics,
+    every state tensor, the generator afterwards). ``args_of(i, g)``: step
+    i's arguments after the state."""
+    rows = []
+    for i in range(n):
+        ga, gb = (torch.Generator(device=dev).manual_seed(500 + i) for _ in range(2))
+        sa, ma = step(sa, *args_of(i, ga))
+        sb, mb = step.eager(sb, *args_of(i, gb))
+        torch.cuda.synchronize()
+        rows.append({"step": i, "replay": i > 0,
+                     "metrics_equal": _bits_equal(_tensor_fields(ma), _tensor_fields(mb)),
+                     "state_equal": _bits_equal(sa.tensors(), sb.tensors()),
+                     "generator_equal": bool(torch.equal(ga.get_state(), gb.get_state()))})
+    return sa, sb, rows
+
+
+def _held(rows) -> bool:
+    return all(r["metrics_equal"] and r["state_equal"] and r["generator_equal"] for r in rows)
+
+
+def _step_turns(dev, kernels, step, sa, sb, args_of, n: int, seed: int) -> dict:
+    """n replays of ``step`` on ``sa`` and n eager steps on ``sb`` in turns
+    (``_eager_vs_replay``), then one profiled replay and one profiled eager
+    step: ms a step both ways, launches, wall / busy ms and idle share."""
+    st = {"replay": sa, "eager": sb}
+
+    def run(name):
+        fn = step if name == "replay" else step.eager
+
+        def go(s):
+            st[name] = fn(st[name], *args_of(s, torch.Generator(device=dev).manual_seed(s)))[0]
+        return go
+
+    turns = _eager_vs_replay(kernels, run("replay"), run("eager"), n, seed)
+    prof = {k: profiled_call(lambda: run(k)(seed + 2 * n)) for k in ("replay", "eager")}
+    return {"ms": {k: 1e3 * float(np.median(v)) for k, v in turns["times"].items()},
+            "step_s": turns["times"], "launches": turns["launches"],
+            "profiled": {k: {f: v[f] for f in ("wall_ms", "busy_ms", "idle_share",
+                                                "device_events", "busy_ms_by_kind")}
+                         for k, v in prof.items()}}
+
+
+def _per_run(launches: dict, n: int) -> dict:
+    return {k: v // n for k, v in launches.items()} if all(v % n == 0 for v in
+                                                           launches.values()) else launches
+
+
+def _fresh_peak(dev) -> float:
+    """Empty the allocator's cache and restart its peak: the GB reserved
+    now, from which the next peak is read."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_reserved(dev) / 1e9
+
+
+def _pool_held(entry) -> dict:
+    """What a captured entry's memory pool holds: its segments, their GB,
+    the GB live tensors take (static outputs, gradients; the rest is the
+    capture's temporaries, activations and workspaces, which each replay
+    reuses) and the largest segment's GB."""
+    pool = tuple(entry.graph.pool())
+    sizes = [(s["total_size"], s["allocated_size"]) for s in torch.cuda.memory_snapshot()
+             if tuple(s.get("segment_pool_id", ())) == pool]
+    return {"segments": len(sizes), "gb": sum(t for t, _ in sizes) / 1e9,
+            "live_gb": sum(a for _, a in sizes) / 1e9,
+            "largest_gb": max((t for t, _ in sizes), default=0) / 1e9}
+
+
+def phase_compiled_train_main_path(dev):
+    """``make_train_step``'s compiled step (``trainer.py:312``'s jit) at the
+    published d16 (nothing cut), bf16 compute, fp32 state, remat 2, tclip
+    2, fp16=1, seeded weights and images: 256px batch 32 through ``auto``
+    (row 6), 512px batch 8 through ``auto`` and ``pallas`` (row 5). From one
+    state and one generator state, HOLD_STEPS steps whose lr, wd and
+    prog_wp differ (the first captures, the rest replay) must equal the
+    eager step's bit for bit: parameters, Adam's moments and count, the
+    metrics and the generator, under ``_Reproducible`` (the graph is then
+    dropped). Then a fresh capture without them (its launches
+    recorded as one step's) and replays beside eager steps in turns (n 10
+    at 256px, 5 at 512px), each launching one step's kernels; one profiled
+    replay and one profiled eager step; capture s and pool GB."""
+    import copy
+
+    from var_tpu_torch.config import PATCH_NUM_PRESETS, TrainArgs, resolve_attn
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import build_vae_var_train
+
+    kernels = _all_kernels()
+    out, built = {}, None
+    for preset, batch, choice, n in COMPILED_TRAIN_CELLS:
+        t_cell = time.perf_counter()
+        if built is None or built[0] != preset:
+            built = None
+            torch.cuda.empty_cache()
+            vae_cfg, var_cfg, vae, var0 = build_vae_var_train(
+                device=dev, seed=0, depth=DEPTH, patch_nums=PATCH_NUM_PRESETS[preset])
+            g = torch.Generator(device=dev).manual_seed(21)
+            reso = var_cfg.patch_nums[-1] * vae_cfg.downsample
+            imgs = torch.rand(1, batch, reso, reso, 3, generator=g, device=dev) * 2 - 1
+            labels = torch.randint(0, var_cfg.num_classes, (1, batch), generator=g, device=dev)
+            built = (preset, vae_cfg, var_cfg, vae, var0, imgs, labels)
+        _, vae_cfg, var_cfg, vae, var0, imgs, labels = built
+        impl = resolve_attn(choice, dev)
+        args = TrainArgs(depth=DEPTH, bs=batch, ac=1, ep=200, fp16=1, tclip=2.0, remat=2,
+                         seed=0, pn=preset).finalize(world_size=1)
+        init_state, step = tr.make_train_step(var_cfg, vae_cfg, args, iters_per_ep=1000,
+                                              dtype=torch.bfloat16, attn_impl=impl)
+        want = _train_want(DEPTH, impl)
+
+        def args_of(i, g):  # lr and wd move with g_it; prog_wp differs too
+            return vae, imgs, labels, g, 10 * i, 0.25 + 0.25 * (i % 4)
+
+        sa, sb = init_state(copy.deepcopy(var0)), init_state(copy.deepcopy(var0))
+        with _Reproducible():
+            sa, sb, held = _hold_steps(dev, step, sa, sb, args_of, HOLD_STEPS)
+        held_launches = dict(next(iter(step.program.graphs.values())).launches)
+        step.program.graphs.clear()  # that graph holds the deterministic kernels
+        # peak reserved GB of one eager step, then of the compiled step's
+        # first call (its eager run and its capture), each from an emptied cache
+        reserved0 = _fresh_peak(dev)
+        sb, _ = step.eager(sb, *args_of(HOLD_STEPS, torch.Generator(device=dev).manual_seed(7)))
+        torch.cuda.synchronize()
+        mem = {"resident_gb": reserved0,
+               "eager_step_peak_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+        _fresh_peak(dev)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        sa, _ = step(sa, *args_of(HOLD_STEPS, torch.Generator(device=dev).manual_seed(7)))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        mem["compiled_first_call_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        mem["compiled_held_gb"] = _fresh_peak(dev)  # the state and the graph's pool
+        first = _counts(kernels)
+        (entry,) = step.program.graphs.values()
+        mem["pool"] = _pool_held(entry)
+        turns = _step_turns(dev, kernels, step, sa, sb, args_of, n, 100)
+        row = {"phase": "compiled_train_main_path", "run": f"{preset}px_{choice}", "attn": impl,
+               "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
+               "remat": 2, "fp16": 1, "held_steps": held, "held_reproducible": True,
+               "launches_captured": {k: v for k, v in entry.launches.items() if v},
+               "launches_first_call": {k: v for k, v in first.items() if v},
+               "launches_replay": _per_run(turns["launches"]["replay"], n),
+               "launches_eager": _per_run(turns["launches"]["eager"], n),
+               "first_call_s": first_s, "capture_s": entry.capture_s,
+               "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
+               "replay_ms": turns["ms"]["replay"], "eager_ms": turns["ms"]["eager"],
+               "replay_img_per_s": 1e3 * batch / turns["ms"]["replay"],
+               "eager_img_per_s": 1e3 * batch / turns["ms"]["eager"],
+               "step_s": turns["step_s"], "profiled": turns["profiled"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "seconds": time.perf_counter() - t_cell}
+        emit(row)
+        out[row["run"]] = row
+        failures = []
+        if not _held(held):
+            failures.append(f"replay differs from the eager step: {held}")
+        if held_launches != want or entry.launches != want or first != want:
+            failures.append(f"captured {held_launches} / {entry.launches}, first call {first}, "
+                            f"want {want}")
+        if turns["launches"]["replay"] != {k: n * v for k, v in want.items()} \
+                or turns["launches"]["eager"] != {k: n * v for k, v in want.items()}:
+            failures.append(f"timed launches {turns['launches']}, want {n} x {want}")
+        if failures:
+            raise AssertionError(f"compiled {preset}px {choice} step: " + "; ".join(failures))
+        del sa, sb, step, init_state, entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_compiled_vae_train_main_path(dev):
+    """``make_vae_train_step``'s compiled step (``vae_trainer.py:53``'s
+    jit): the published ch160 tokenizer, fp32, batch VAE_BATCH, lr 3e-4,
+    tclip 2, seeded weights and images, for ``gn_impl`` dot and pallas
+    (row 7). From record_hit 98, HOLD_STEPS steps (the capture's eager run
+    at 98, replays at 99, 100 and 101: the EMA decay switches to 0.99
+    inside the replays) must equal the eager step's bit for bit
+    (parameters, moments, count, ema_hits, record_hit, metrics), under
+    ``_Reproducible`` (the graph is then dropped); then a fresh capture,
+    and replays and eager steps in turns, n 5, with row 7's launches."""
+    import copy
+
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.engine.vae_trainer import make_vae_train_step
+    from var_tpu_torch.models import build_vae_train
+
+    cfg = VAEConfig()
+    g = torch.Generator(device=dev).manual_seed(16)
+    reso = cfg.v_patch_nums[-1] * cfg.downsample
+    img = torch.rand(VAE_BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
+    kernels = _all_kernels()
+    zero = dict.fromkeys(_counts(kernels), 0)
+    out = {}
+    for impl in ("dot", "pallas"):
+        t_cell = time.perf_counter()
+        vae0 = build_vae_train(device=dev, seed=0, cfg=cfg)
+        n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae0.modules())
+        want = {**zero, "gn_channel_stats": n_gn if impl == "pallas" else 0}
+        init_state, step = make_vae_train_step(cfg, lr=3e-4, tclip=2.0, gn_impl=impl)
+        sa, sb = init_state(copy.deepcopy(vae0)), init_state(copy.deepcopy(vae0))
+        for s in (sa, sb):
+            s.record_hit.fill_(98)
+        _zero_counts(kernels)
+        with _Reproducible():
+            sa, sb, held = _hold_steps(dev, step, sa, sb, lambda i, g: (img,), HOLD_STEPS)
+        held_counts = _counts(kernels)  # HOLD_STEPS compiled steps + as many eager ones
+        held_launches = dict(next(iter(step.program.graphs.values())).launches)
+        record_hit = int(sa.record_hit)
+        step.program.graphs.clear()  # that graph holds the deterministic kernels
+        # peak reserved GB of one eager step, then of a fresh capture without
+        # them (the first call: its eager run and the capture)
+        mem = {"resident_gb": _fresh_peak(dev)}
+        sb, _ = step.eager(sb, img)
+        torch.cuda.synchronize()
+        mem["eager_step_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        _fresh_peak(dev)
+        sa, _ = step(sa, img)
+        torch.cuda.synchronize()
+        mem["compiled_first_call_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        mem["compiled_held_gb"] = _fresh_peak(dev)  # the state and the graph's pool
+        (entry,) = step.program.graphs.values()
+        mem["pool"] = _pool_held(entry)
+        turns = _step_turns(dev, kernels, step, sa, sb, lambda i, g: (img,), 5, 200)
+        row = {"phase": "compiled_vae_train_main_path", "run": f"train_{impl}",
+               "gn_impl": impl, "ch": cfg.ch, "batch": VAE_BATCH, "dtype": "float32",
+               "held_steps": held, "record_hit_from_to": [98, record_hit],
+               "held_reproducible": True, "group_norms": n_gn,
+               "launches_captured": {k: v for k, v in entry.launches.items() if v},
+               "launches_replay": _per_run(turns["launches"]["replay"], 5),
+               "launches_eager": _per_run(turns["launches"]["eager"], 5),
+               "capture_s": entry.capture_s, "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
+               "replay_ms": turns["ms"]["replay"], "eager_ms": turns["ms"]["eager"],
+               "replay_img_per_s": 1e3 * VAE_BATCH / turns["ms"]["replay"],
+               "eager_img_per_s": 1e3 * VAE_BATCH / turns["ms"]["eager"],
+               "step_s": turns["step_s"], "profiled": turns["profiled"],
+               "seconds": time.perf_counter() - t_cell}
+        emit(row)
+        out[row["run"]] = row
+        failures = []
+        if not _held(held) or record_hit != 98 + HOLD_STEPS:
+            failures.append(f"replay differs from the eager step: {held}, record_hit {record_hit}")
+        if entry.launches != want or held_launches != want \
+                or held_counts != {k: 2 * HOLD_STEPS * v for k, v in want.items()}:
+            failures.append(f"captured {held_launches} / {entry.launches}, held {held_counts}, "
+                            f"want {want}")
+        if turns["launches"]["replay"] != {k: 5 * v for k, v in want.items()} \
+                or turns["launches"]["eager"] != {k: 5 * v for k, v in want.items()}:
+            failures.append(f"timed launches {turns['launches']}, want 5 x {want}")
+        if failures:
+            raise AssertionError(f"compiled tokenizer step ({impl}): " + "; ".join(failures))
+        del sa, sb, step, init_state, entry, vae0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_compiled_eval_main_path(dev):
+    """``make_eval_step``'s compiled program (``trainer.py:342``'s jit) at
+    d16, bf16, seeded weights: 256px batch 32 (dense, as ``pick_eval_attn``
+    picks for ``auto``), 512px batch 8 and 1024px batch 2 (row 5's
+    forward). Three batches (the last padded: valid 0 on its last row) on
+    one entry must give the eager body's sums bit for bit under
+    ``_Reproducible``; then a fresh capture, and replays and eager batches
+    in turns (n 5, 5, 3) with their launches."""
+    from var_tpu_torch.config import PATCH_NUM_PRESETS, resolve_attn
+    from var_tpu_torch.engine import trainer as tr
+    from var_tpu_torch.models import build_vae_var_train
+
+    kernels = _all_kernels()
+    out = {}
+    for preset, batch, n in COMPILED_EVAL_CELLS:
+        t_cell = time.perf_counter()
+        vae_cfg, var_cfg, vae, var = build_vae_var_train(
+            device=dev, seed=0, depth=DEPTH, patch_nums=PATCH_NUM_PRESETS[preset])
+        var.eval()
+        eval_attn = tr.pick_eval_attn(resolve_attn("auto", dev), var_cfg.seq_len)
+        ev = tr.make_eval_step(var_cfg, vae_cfg, dtype=torch.bfloat16, attn_impl=eval_attn)
+        want = {**_train_want(DEPTH, "xla"),
+                "flash_attention_fwd": DEPTH if eval_attn == "pallas" else 0}
+        g = torch.Generator(device=dev).manual_seed(22)
+        reso = var_cfg.patch_nums[-1] * vae_cfg.downsample
+        batches = []
+        for i in range(3):
+            valid = torch.ones(batch, device=dev)
+            if i == 2:
+                valid[-1] = 0.0
+            batches.append((torch.rand(batch, reso, reso, 3, generator=g, device=dev) * 2 - 1,
+                            torch.randint(0, var_cfg.num_classes, (batch,), generator=g,
+                                          device=dev), valid))
+        _zero_counts(kernels)
+        held = []
+        with _Reproducible():
+            for b in batches:
+                got, eager = ev(var, vae, *b), ev.eager(var, vae, *b)
+                held.append(bool(torch.equal(got, eager)) and bool(torch.isfinite(got).all()))
+        torch.cuda.synchronize()
+        held_counts = _counts(kernels)
+        ev.graphs.clear()  # that graph holds the deterministic kernels
+        # peak reserved GB of an eager batch, then of a fresh capture without
+        # them (the first call: its eager run and the capture)
+        mem = {"resident_gb": _fresh_peak(dev)}
+        ev.eager(var, vae, *batches[0])
+        torch.cuda.synchronize()
+        mem["eager_batch_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        _fresh_peak(dev)
+        ev(var, vae, *batches[0])
+        torch.cuda.synchronize()
+        mem["compiled_first_call_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        mem["compiled_held_gb"] = _fresh_peak(dev)  # the model and the graph's pool
+        (entry,) = ev.graphs.values()
+        mem["pool"] = _pool_held(entry)
+        turns = _eager_vs_replay(kernels, lambda s: ev(var, vae, *batches[s % 3]),
+                                 lambda s: ev.eager(var, vae, *batches[s % 3]), n, 0)
+        ms = {k: 1e3 * float(np.median(v)) for k, v in turns["times"].items()}
+        row = {"phase": "compiled_eval_main_path", "run": f"eval_{preset}px", "attn": eval_attn,
+               "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
+               "held_batches": held, "launches_captured": {k: v for k, v in
+                                                            entry.launches.items() if v},
+               "launches_replay": _per_run(turns["launches"]["replay"], n),
+               "launches_eager": _per_run(turns["launches"]["eager"], n),
+               "capture_s": entry.capture_s, "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
+               "replay_ms": ms["replay"], "eager_ms": ms["eager"],
+               "replay_img_per_s": 1e3 * batch / ms["replay"],
+               "eager_img_per_s": 1e3 * batch / ms["eager"], "batch_s": turns["times"],
+               "seconds": time.perf_counter() - t_cell}
+        emit(row)
+        out[row["run"]] = row
+        if not all(held) or entry.launches != want \
+                or held_counts != {k: 6 * v for k, v in want.items()} \
+                or turns["launches"]["replay"] != {k: n * v for k, v in want.items()} \
+                or turns["launches"]["eager"] != {k: n * v for k, v in want.items()}:
+            raise AssertionError(f"compiled {preset}px eval: held {held}, captured "
+                                 f"{entry.launches}, counted {held_counts}, timed "
+                                 f"{turns['launches']}, want {want} a batch")
+        del ev, entry, vae, var, batches
+        torch.cuda.empty_cache()
+    return out
+
+
 VAE_PARITY_BATCH = 2
 
 
@@ -2858,10 +3301,10 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
         for name, arr in (("seed0", first), ("seed1", second)):
             paths.append(os.path.join(tmp, f"{name}.npz"))
             np.savez(paths[-1], arr_0=arr)
-        scores = {}
+        scores, compiled = {}, {}
         for name, ex in (("vae", F.make_vae_extractor(vae=vae, device=dev)),
                          ("pixel", F.make_pixel_extractor(device=dev))):
-            ex(first[:FID_BATCH])  # warm-up
+            ex(first[:FID_BATCH])  # warm-up and capture
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             stats = [F.path_stats(p, ex, batch=FID_BATCH) for p in paths]
@@ -2869,6 +3312,7 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
             scores[name] = {"fid_self": F.frechet_distance(*stats[0], *stats[0]),
                             "fid_other_seed": F.frechet_distance(*stats[0], *stats[1]),
                             "scorer_ms_per_image": 1e3 * score_s / (2 * len(labels))}
+            compiled[name] = _extractor_replays(ex, first)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "fid_main_path", "depth": DEPTH, "dtype": "bfloat16", "cfg": CFG,
@@ -2879,11 +3323,39 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
           "replayed_chunks_img_per_s": replay_img_per_s,
           "main_path_img_per_s": main_path_img_per_s,
           "distinct_pixels_first": int(np.unique(first.reshape(-1, 3), axis=0).shape[0]),
-          "scores": scores, "fid_self_atol": FID_SELF_ATOL,
+          "scores": scores, "fid_self_atol": FID_SELF_ATOL, "compiled_extractors": compiled,
           "seconds": time.perf_counter() - t_phase})
     for name, s in scores.items():
         if not (abs(s["fid_self"]) < FID_SELF_ATOL and s["fid_other_seed"] > 0):
             raise AssertionError(f"fid {name}: self {s['fid_self']}, other {s['fid_other_seed']}")
+    for name, c in compiled.items():
+        if not all(c["features_equal"]) or c["entries"] != 2:
+            raise AssertionError(f"compiled {name} extractor differs from its eager body: {c}")
+
+
+def _extractor_replays(ex, imgs: np.ndarray) -> dict:
+    """A compiled FID extractor (``metrics/fid.py``, the JAX extractors'
+    jit) against its eager body on two full batches of FID_BATCH and a
+    ragged one of 3 (its own entry; its first call and a replay), features
+    bit for bit under ``_Reproducible``; then, captured afresh, 5 replays
+    and 5 eager batches in turns: ms an image both ways."""
+    chunks = [imgs[:FID_BATCH], imgs[FID_BATCH:2 * FID_BATCH], imgs[:3]]
+    ex.program.graphs.clear()
+    with _Reproducible():
+        equal = [bool(np.array_equal(ex(c), ex.eager(c))) for c in chunks]
+        equal.append(bool(np.array_equal(ex(chunks[2]), ex.eager(chunks[2]))))  # a replay
+    entries = len(ex.program.graphs)
+    ex.program.graphs.clear()  # those graphs hold the deterministic kernels
+    torch.cuda.empty_cache()
+    ex(chunks[0])  # a fresh capture
+    turns = _eager_vs_replay(_all_kernels(), lambda s: ex(chunks[s % 2]),
+                             lambda s: ex.eager(chunks[s % 2]), 5, 0)
+    captured = list(ex.program.graphs.values())
+    return {"features_equal": equal, "entries": entries,
+            "capture_s": sum(e.capture_s for e in captured),
+            "pool_gb": sum(e.pool_bytes for e in captured) / 1e9,
+            **{f"{k}_ms_per_image": 1e3 * float(np.median(v)) / FID_BATCH
+               for k, v in turns["times"].items()}}
 
 
 # JAX's recorded CPU run at the script's defaults (scripts/quality_loop.py:30-34)
@@ -2989,7 +3461,7 @@ def phase_quality_loop(dev):
         + [result["fid_init"], result["fid_trained"]]
     emit({"phase": "quality_loop", **result, "jax_cpu_recorded": QLOOP_JAX_CPU,
           "launches": launches, "kernel_checks": checks, "kernel_checks_s": checks_s,
-          "log": lines, "wall_s": seconds})
+          "log": lines, "wall_s": seconds, "wall_s_eager_steps": EAGER_QLOOP_WALL_S})
     r0, r1 = result["vae_recon_first_last"]
     failures = []
     if launches != want:
@@ -3152,6 +3624,7 @@ def main() -> None:
     sys.path.insert(0, root)
     import var_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     phase_device()
     phase_build()
@@ -3186,12 +3659,20 @@ def main() -> None:
     launches["gn_channel_stats"] = phase_vae_train_main_path(dev)["train_pallas"][
         "gn_channel_stats"]
     torch.cuda.empty_cache()
+    phase_compiled_train_main_path(dev)
+    torch.cuda.empty_cache()
+    phase_compiled_vae_train_main_path(dev)
+    torch.cuda.empty_cache()
+    phase_compiled_eval_main_path(dev)
+    torch.cuda.empty_cache()
     phase_multigpu_parity(dev)
     torch.cuda.empty_cache()
     phase_fid_parity(dev)
     phase_fid_main_path(dev, main_path_img_per_s)
     torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     phase_quality_loop(dev)
+    torch.cuda.empty_cache()
     phase_analysis_parity(dev, root)
     phase_analysis_main_path(dev)
     meta = {
@@ -3214,6 +3695,8 @@ def main() -> None:
         "gn_channel_stats": ("var_tpu_torch/ops/cuda/csrc/gn_stats.cu",
                              "var_tpu/ops/pallas/gn_stats.py:51"),
     }
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script,
+          "seconds_eager_steps": EAGER_SCRIPT_S})
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": meta[r["name"]][0],
                        "replaces": meta[r["name"]][1], "launches": launches[r["name"]],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],

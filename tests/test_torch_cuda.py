@@ -821,3 +821,93 @@ def test_cuda_two_gloo_ranks_decode_at_mp2_equals_one_process(cuda, tmp_path):
             launches = case["launches"]
             assert launches[row] == 2 * 3 and launches["modulated_layernorm"] == 2 * 2 * 3
             assert launches["topk_topp_bound"] == 3
+
+
+class _LinearState:
+    """A training state for a compiled body: one Linear and its optimizer."""
+
+    def __init__(self, dev, seed):
+        from var_tpu_torch.engine.trainer import ClippedAdamW
+
+        torch.manual_seed(seed)
+        self.m = torch.nn.Linear(16, 16).to(dev)
+        self.opt = ClippedAdamW(self.m, 1.0)
+
+    def tensors(self):
+        return [*self.m.parameters(), *self.opt.tensors()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planted", [False, True])
+def test_cuda_training_body_captures_or_raises_at_a_host_read(cuda, planted):
+    """``Compiled(train=True)`` on the card: a body that reads its loss back
+    to the host runs once eagerly (the first call's warm-up), then its
+    capture raises; the call raises and drops its entry, and nothing runs
+    the body eagerly in the capture's place. Without the read, three calls
+    (a capture, two replays) give the eager body's losses, parameters and
+    moments bit for bit."""
+    from var_tpu_torch.engine.compiled import Compiled
+
+    calls = []
+
+    def body(state, x):
+        calls.append(1)
+        state.opt.zero_grad()
+        loss = state.m(x).square().mean()
+        loss.backward()
+        if planted and float(loss) > 1e30:  # the planted host read
+            loss = loss * 2
+        state.opt.step(1e-2, 0.1, skip_nonfinite=True)
+        return loss.detach()
+
+    prog = Compiled(body, 1, cuda, train=True)
+    xs = [torch.randn(8, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(i))
+          for i in range(3)]
+    if planted:
+        stream = torch.cuda.current_stream(cuda)
+        with pytest.raises(Exception):
+            prog(_LinearState(cuda, 0), xs[0])
+        assert prog.graphs == {} and len(calls) == 2  # the warm-up and the capture
+        assert torch.cuda.current_stream(cuda) == stream  # the capture's is not left current
+        return
+    a, b = _LinearState(cuda, 0), _LinearState(cuda, 0)
+    for x in xs:
+        got, want = prog(a, x), prog.eager(b, x)
+        assert torch.equal(got, want)
+        for ta, tb in zip(a.tensors(), b.tensors()):
+            assert torch.equal(ta, tb)
+    (entry,) = prog.graphs.values()
+    assert entry.graph is not None and len(calls) == 2 + 3  # warm-up, capture, 3 eager
+
+
+@pytest.mark.cuda
+def test_cuda_programs_sharing_a_pool_match_their_eager_bodies(cuda):
+    """A training program and an inference program in one
+    ``torch.cuda.MemPool``, as the training CLI's step and eval share one:
+    called in turns (each first call runs eagerly in the pool, then
+    captures), every call gives its eager body's outputs and state bit for
+    bit, though each graph's replay writes over memory the other's freed."""
+    from var_tpu_torch.engine.compiled import Compiled
+
+    def train(state, x):
+        state.opt.zero_grad()
+        loss = state.m(x).square().mean()
+        loss.backward()
+        state.opt.step(1e-2, 0.1, skip_nonfinite=True)
+        return loss.detach()
+
+    def infer(m, x):
+        return torch.relu(m(x)).sum(-1)
+
+    pool = torch.cuda.MemPool()
+    step = Compiled(train, 1, cuda, train=True, pool=pool)
+    score = Compiled(infer, 1, cuda, pool=pool)
+    a, b = _LinearState(cuda, 0), _LinearState(cuda, 0)
+    gen = torch.Generator(cuda).manual_seed(3)
+    for _ in range(3):
+        x, y = (torch.randn(64, 16, device=cuda, generator=gen) for _ in range(2))
+        assert torch.equal(step(a, x), step.eager(b, x))
+        assert torch.equal(score(a.m, y), score.eager(b.m, y))
+        for ta, tb in zip(a.tensors(), b.tensors()):
+            assert torch.equal(ta, tb)
+    assert len(step.graphs) == len(score.graphs) == 1

@@ -10,12 +10,15 @@ fp32 parameters, remat 2, tclip 2, fp16=1; ``--attn`` resolved as the
 training CLI resolves it), runs two warm-up steps on seeded random images,
 then:
 
-* times steps and the frozen tokenizer alone (host clock around work that
-  ends in ``torch.cuda.synchronize()``);
-* traces one step under ``torch.profiler`` and prints one JSON line: wall
-  time, device-busy time (the device events' self time) and idle share,
-  device time grouped by kind (the training-attention kernels of rows 5 and
-  6, GEMMs, convolutions, the rest) and the top kernels by device time.
+* times steps (replays of the compiled step's CUDA graph) and the frozen
+  tokenizer alone (host clock around work that ends in
+  ``torch.cuda.synchronize()``);
+* traces one replayed step under ``torch.profiler`` and prints one JSON
+  line: wall time, device-busy time (the device events' self time) and
+  idle share, device time grouped by kind (the training-attention kernels
+  of rows 5 and 6, GEMMs, convolutions, the rest) and the top kernels by
+  device time; under ``eager``, the same step run eagerly (``step.eager``):
+  its median ms, one traced step's wall, busy ms and idle share.
 
 Needs an NVIDIA GPU.
 """
@@ -55,13 +58,12 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from var_tpu_torch.config import TrainArgs, parse_patch_nums, resolve_attn
     from var_tpu_torch.device import resolve_device
     from var_tpu_torch.engine import trainer as tr
     from var_tpu_torch.models import build_vae_var_train
+    from var_tpu_torch.utils.profiling import device_events
 
     dev = resolve_device("cuda")
     attn = resolve_attn(args.attn, dev)
@@ -79,13 +81,13 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(2)
     it = 0
 
-    def run_step():
+    def run_step(eager: bool = False):
         nonlocal state, it
-        state, m = step(state, vae, imgs, labels, gen, it, 1.0)
+        state, m = (step.eager if eager else step)(state, vae, imgs, labels, gen, it, 1.0)
         it += 1
         return m
 
-    for _ in range(2):  # warm-up (cuBLAS/cuDNN plans, kernel build)
+    for _ in range(2):  # warm-up (cuBLAS/cuDNN plans, kernel build), then the capture
         run_step()
     torch.cuda.synchronize()
     times = []
@@ -99,18 +101,17 @@ def main(argv=None):
     torch.cuda.synchronize()
     tokenize_ms = (time.perf_counter() - t0) * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    rows = []  # device-side events only: kernels, memcpy, memset (no annotation ranges)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-            rows.append((ev.key, ev.count, ev.self_device_time_total))
-    rows.sort(key=lambda r: -r[2])
+    wall_ms, rows = device_events(run_step)
     busy_ms = sum(r[2] for r in rows) / 1e3
+    eager_wall_ms, eager_rows = device_events(lambda: run_step(eager=True))
+    eager_busy_ms = sum(r[2] for r in eager_rows) / 1e3
+    eager_times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        run_step(eager=True)
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    eager_times.sort()
     by_kind: dict = {}
     for name, count, us in rows:
         k = by_kind.setdefault(_kind(name), {"ms": 0.0, "launches": 0})
@@ -125,6 +126,10 @@ def main(argv=None):
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "by_kind": by_kind,
         "device_events": sum(r[1] for r in rows),
+        "eager": {"step_ms_median": eager_times[len(eager_times) // 2] * 1e3,
+                  "profiled_wall_ms": eager_wall_ms, "device_busy_ms": eager_busy_ms,
+                  "idle_share": max(0.0, 1.0 - eager_busy_ms / eager_wall_ms),
+                  "device_events": sum(r[1] for r in eager_rows)},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "top": [{"name": n[:90], "count": c, "ms": us / 1e3} for n, c, us in rows[:args.top]],
     }))

@@ -9,11 +9,12 @@ and the chip-smoke training configuration (lr 3e-4, tclip 2; ``--gn`` the
 GroupNorm impl, "pallas" through row 7's kernel), runs two warm-up steps on
 seeded random 256px images, then:
 
-* times ``--steps`` steps (host clock around work that ends in
-  ``torch.cuda.synchronize()``);
-* traces one step under ``torch.profiler`` and prints one JSON line: wall
-  time, device-busy time (the device events' self time) and idle share,
-  device time grouped by kind (convolutions, GroupNorm, elementwise,
+* times ``--steps`` steps, replays of the compiled step's CUDA graph (host
+  clock around work that ends in ``torch.cuda.synchronize()``);
+* traces one replayed step under ``torch.profiler`` and prints one JSON
+  line (under ``eager``, the same for the step run eagerly): wall time,
+  device-busy time (the device events' self time) and idle share, device
+  time grouped by kind (convolutions, GroupNorm, elementwise,
   optimizer, the rest; GroupNorm holds row 7 and ``F.group_norm``'s own
   kernels, while the "pallas" apply step counts as elementwise) and the top
   kernels by device time, with the TF32 flags and peak memory.
@@ -53,12 +54,11 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from var_tpu_torch.config import VAEConfig
     from var_tpu_torch.engine.vae_trainer import make_vae_train_step
     from var_tpu_torch.models import build_vae_train
+    from var_tpu_torch.utils.profiling import device_events
 
     cfg = VAEConfig()
     vae = build_vae_train(device="cuda", seed=0, cfg=cfg)
@@ -69,12 +69,12 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(1)
     img = torch.rand(args.batch, reso, reso, 3, generator=g, device=dev) * 2 - 1
 
-    def run_step():
+    def run_step(eager: bool = False):
         nonlocal state
-        state, m = step(state, img)
+        state, m = (step.eager if eager else step)(state, img)
         return m
 
-    for _ in range(2):  # warm-up (cuDNN plans, kernel build)
+    for _ in range(2):  # warm-up (cuDNN plans, kernel build), then the capture
         run_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -85,18 +85,17 @@ def main(argv=None):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    rows = []  # device-side events only: kernels, memcpy, memset (no annotation ranges)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-            rows.append((ev.key, ev.count, ev.self_device_time_total))
-    rows.sort(key=lambda r: -r[2])
+    wall_ms, rows = device_events(run_step)
     busy_ms = sum(r[2] for r in rows) / 1e3
+    eager_wall_ms, eager_rows = device_events(lambda: run_step(eager=True))
+    eager_busy_ms = sum(r[2] for r in eager_rows) / 1e3
+    eager_times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        run_step(eager=True)
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    eager_times.sort()
     by_kind: dict = {}
     for name, count, us in rows:
         k = by_kind.setdefault(_kind(name), {"ms": 0.0, "launches": 0})
@@ -114,6 +113,10 @@ def main(argv=None):
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "by_kind": by_kind,
         "device_events": sum(r[1] for r in rows),
+        "eager": {"step_ms_median": eager_times[len(eager_times) // 2] * 1e3,
+                  "profiled_wall_ms": eager_wall_ms, "device_busy_ms": eager_busy_ms,
+                  "idle_share": max(0.0, 1.0 - eager_busy_ms / eager_wall_ms),
+                  "device_events": sum(r[1] for r in eager_rows)},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "top": [{"name": n[:90], "count": c, "ms": us / 1e3} for n, c, us in rows[:args.top]],
     }))

@@ -20,7 +20,12 @@ the plain PyTorch path) and ``--attn`` (``auto|xla|pallas|hybrid|paired``;
 ``auto`` is ``paired`` on the GPU and ``xla`` on the CPU, as ``train.py``
 resolves it). The eval step's attention is ``trainer.pick_eval_attn`` of
 the training impl: the streaming kernel for a ``paired`` run at 512px and
-1024px.
+1024px. On one GPU the training step (one per progressive stage) and the
+eval step are CUDA graphs (``engine/compiled.py``) in one memory pool: the
+first step captures after its eager run, later steps replay; a resumed run
+loads its checkpoint before the first step, so the capture sees the
+restored state. Under
+torchrun (a process group) they run eagerly.
 
 ``--data_path`` holds ``train/`` and ``val/`` folders of class
 subdirectories. The frozen tokenizer is the ``.pth`` that
@@ -196,16 +201,26 @@ def train(args: TrainArgs, dev: torch.device, attn: str, vae: vae_mod.VQVAE,
     init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
                                        attn_impl=attn, mesh=mesh)
     steps = {}
+    # one memory pool for the steps' and the eval's first calls and graphs,
+    # which run one after another: their activations and cuDNN workspaces
+    # share memory
+    pool = torch.cuda.MemPool() if dev.type == "cuda" else None
 
     def step_for(prog_si: int):
+        """The compiled step of a progressive stage (one CUDA graph each, as
+        JAX compiles one program each). Stages only advance, so an earlier
+        stage's graph is dropped; its temporaries stay in the pool that the
+        steps and the eval share, for the next stage's capture."""
         if prog_si not in steps:
+            steps.clear()
             steps[prog_si] = tr.make_train_step(var_cfg, vae_cfg, args, iters_train,
                                                 prog_si=prog_si, dtype=dtype, attn_impl=attn,
-                                                mesh=mesh)[1]
+                                                mesh=mesh, pool=pool)[1]
         return steps[prog_si]
 
     eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype,
-                                  attn_impl=tr.pick_eval_attn(attn, var_cfg.seq_len), mesh=mesh)
+                                  attn_impl=tr.pick_eval_attn(attn, var_cfg.seq_len), mesh=mesh,
+                                  pool=pool)
     state = init_state(var)
     if resume_path:
         state = ckpt.load_checkpoint(resume_path, state)
@@ -402,15 +417,25 @@ def local_debug(args: TrainArgs, dev: torch.device, attn: str,
     init_state, _ = tr.make_train_step(var_cfg, vae_cfg, args, iters_train, dtype=dtype,
                                        attn_impl=attn, mesh=mesh)
     steps = {}
+    # one memory pool for the steps' and the eval's first calls and graphs,
+    # which run one after another: their activations and cuDNN workspaces
+    # share memory
+    pool = torch.cuda.MemPool() if dev.type == "cuda" else None
 
     def step_for(prog_si: int):
+        """The compiled step of a progressive stage (one CUDA graph each, as
+        JAX compiles one program each). Stages only advance, so an earlier
+        stage's graph is dropped; its temporaries stay in the pool that the
+        steps and the eval share, for the next stage's capture."""
         if prog_si not in steps:
+            steps.clear()
             steps[prog_si] = tr.make_train_step(var_cfg, vae_cfg, args, iters_train,
                                                 prog_si=prog_si, dtype=dtype, attn_impl=attn,
-                                                mesh=mesh)[1]
+                                                mesh=mesh, pool=pool)[1]
         return steps[prog_si]
 
-    eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype, attn_impl=eval_attn, mesh=mesh)
+    eval_step = tr.make_eval_step(var_cfg, vae_cfg, dtype=dtype, attn_impl=eval_attn, mesh=mesh,
+                                  pool=pool)
 
     state = init_state(var)
     max_it, wp_it = args.ep * iters_train, args.wp * iters_train

@@ -35,12 +35,16 @@ def save_checkpoint(path: str, state, meta: Optional[dict] = None) -> None:
 
 def load_checkpoint(path: str, state):
     """Restore ``path`` into ``state`` in place (its modules keep their
-    device) and return it."""
+    device) and return it. The optimizer's load makes new moment tensors,
+    so a compiled step captures again on its next call; the loss-scale
+    state is copied into the state's own device scalars."""
     ckpt = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     state.var.load_state_dict(ckpt["var"])
     state.opt.opt.load_state_dict(ckpt["opt"])
     state.step = int(ckpt["step"])
-    state.scaler = ckpt["scaler"]
+    if state.scaler is not None and ckpt["scaler"] is not None:
+        for k, t in state.scaler.items():
+            t.copy_(torch.as_tensor(ckpt["scaler"][k]))
     return state
 
 

@@ -22,6 +22,11 @@ caller passes ``"cpu"``):
 - ``pixel``: 32x32 area-downsampled RGB, flattened. An extractor-free
   sanity baseline for tests and protocol plumbing.
 
+The vae and pixel extractors are compiled programs (``engine/compiled.py``,
+the JAX extractors' jit): on CUDA the first batch of a shape runs eagerly
+and captures a CUDA graph, later batches of that shape replay it; a ragged
+last batch captures its own.
+
 Statistics are the classic (mu, Sigma) in float64 on the host; the distance
 is ``|mu1-mu2|^2 + tr(S1 + S2 - 2 sqrtm(S1 S2))`` with the symmetric-product
 eigenvalue form of the cross term. The numpy half is a copy of the JAX
@@ -165,13 +170,17 @@ def make_vae_extractor(vae=None, vae_cfg: Optional[VAEConfig] = None, vae_ckpt: 
                                           torch.Generator().manual_seed(seed))
     vae = vae.to(dev)
 
-    @torch.inference_mode()
-    def extract(imgs_u8: np.ndarray) -> np.ndarray:
-        with fp32_exact():
-            f = vae_mod.img_to_f(vae, _to_pm1(imgs_u8, dev))  # (B, h, w, Cvae)
-        feats = torch.cat([f.mean(dim=(1, 2)), f.std(dim=(1, 2), correction=0)], dim=-1)
-        return feats.double().cpu().numpy()
+    def features(vae, x):
+        f = vae_mod.img_to_f(vae, x)  # (B, h, w, Cvae)
+        return torch.cat([f.mean(dim=(1, 2)), f.std(dim=(1, 2), correction=0)], dim=-1)
 
+    def run(call):
+        def extract(imgs_u8: np.ndarray) -> np.ndarray:
+            with fp32_exact():  # TF32 off: part of the compiled entry's key
+                return call(vae, _to_pm1(imgs_u8, dev)).double().cpu().numpy()
+        return extract
+
+    extract = _compiled_extractor(features, 1, dev, run)
     # scores from checkpoint features and from seeded random-projection
     # features live in different spaces: the label lets callers
     # (apps/fid_score.py) name the metric accordingly
@@ -185,11 +194,29 @@ def make_pixel_extractor(size: int = 32, device="cuda") -> Extractor:
 
     dev = resolve_device(device)
 
-    @torch.inference_mode()
-    def extract(imgs_u8: np.ndarray) -> np.ndarray:
-        y = resize_area(_to_pm1(imgs_u8, dev), (size, size))
-        return y.reshape(y.shape[0], -1).double().cpu().numpy()
+    def pixels(x):
+        y = resize_area(x, (size, size))
+        return y.reshape(y.shape[0], -1)
 
+    def run(call):
+        def extract(imgs_u8: np.ndarray) -> np.ndarray:
+            return call(_to_pm1(imgs_u8, dev)).double().cpu().numpy()
+        return extract
+
+    return _compiled_extractor(pixels, 0, dev, run)
+
+
+def _compiled_extractor(body: Callable, n_modules: int, dev: torch.device, run: Callable):
+    """``run(call)``'s extractor over ``body`` compiled (``engine/compiled.py``,
+    the JAX extractors' jit): one entry a batch shape, so a ragged last
+    batch captures its own graph. ``extract.eager`` runs the body directly;
+    ``extract.program`` is the :class:`Compiled`."""
+    from var_tpu_torch.engine.compiled import Compiled
+
+    program = Compiled(body, n_modules, dev)
+    extract = run(program.static)  # the host copy reads the static output before the next call
+    extract.eager = run(program.eager)
+    extract.program = program
     return extract
 
 

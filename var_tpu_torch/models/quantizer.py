@@ -238,13 +238,17 @@ def quantizer_forward(quant: VectorQuantizer2, cfg: VAEConfig, f_bhwc: torch.Ten
     return QuantResult(f_hat_ste, vq_loss / sn, torch.stack(hits), idx_bl)
 
 
-def update_ema_hits(ema_sv: torch.Tensor, hits_sv: torch.Tensor, record_hit: int) -> torch.Tensor:
+def update_ema_hits(ema_sv: torch.Tensor, hits_sv: torch.Tensor, record_hit) -> torch.Tensor:
     """EMA codebook-usage update (``quant.py:88-93``): the first recorded
     step replaces outright, then decay 0.9 until 100 recorded steps and 0.99
-    after. ``record_hit`` is a Python int, so the update reads nothing back
-    from the device. ``1 - decay`` is taken in float32, as JAX takes it."""
-    decay = np.float32(0.0 if record_hit == 0 else (0.9 if record_hit < 100 else 0.99))
-    return ema_sv * float(decay) + hits_sv * float(np.float32(1.0) - decay)
+    after, by JAX's nested ``where`` on a device ``record_hit`` (an int
+    tensor; a Python int is moved to the device), so a captured step
+    switches the decay as it counts, with no host read. ``1 - decay`` is
+    taken in float32, as JAX takes it."""
+    if not isinstance(record_hit, torch.Tensor):
+        record_hit = torch.tensor(record_hit, device=ema_sv.device)
+    decay = torch.where(record_hit == 0, 0.0, torch.where(record_hit < 100, 0.9, 0.99))
+    return ema_sv * decay + hits_sv * (1.0 - decay)
 
 
 def vocab_usage(ema_sv: torch.Tensor, cfg: VAEConfig, world_size: int, tokens_per_img: int,
