@@ -214,13 +214,26 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.reshape(b, l, num_heads, c // num_heads)
 
 
+def _stats_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype of the plain versions' softmax statistics: float64 on the
+    CPU, where a float32 ``logsumexp`` gave another value for one intra-op
+    thread's rows in some processes, so that the CPU path repeats bit for
+    bit; float32 on CUDA, where these functions are the kernels' oracles at
+    full size."""
+    return torch.float64 if t.device.type == "cpu" else torch.float32
+
+
 def paired_train_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                            ends: Optional[Tuple[int, ...]]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward: (out (B, L, C) in the input dtype, lse (B, H, L)
-    float32) of block-causal attention over merged tensors, q pre-scaled."""
+    float32) of block-causal attention over merged tensors, q pre-scaled.
+    The float32 logits' lse is taken in :func:`_stats_dtype` and rounded to
+    float32 before p = exp(s - lse) uses it, as the backward uses it: a
+    float64 sum's last bits still vary between processes, its float32
+    rounding does not."""
     qh, kh, vh = (_heads(t, num_heads) for t in (qs, k, v))
-    logits = block_causal_logits(qh, kh, 1.0, ends)
-    lse = torch.logsumexp(logits, dim=-1)
+    logits = block_causal_logits(qh, kh, 1.0, ends).to(_stats_dtype(qs))
+    lse = torch.logsumexp(logits, dim=-1).float()
     p = torch.exp(logits - lse[..., None]).to(v.dtype)
     out = torch.einsum("bhlm,bmhd->blhd", p, vh).to(qs.dtype)
     return out.reshape(qs.shape), lse
@@ -231,10 +244,12 @@ def paired_train_bwd_plain(qs, k, v, do, lse, delta, num_heads: int,
     """Plain PyTorch backward from the saved lse: p = exp(s - lse),
     ds = p * (do v^T - delta), dq = ds k, dk = ds^T q, dv = p^T do, with p
     and ds rounded to the input dtype before their products, as the kernels
-    (and the TPU kernels) do. ``delta``: (B, H, L) float32."""
+    (and the TPU kernels) do; p in :func:`_stats_dtype` before that.
+    ``delta``: (B, H, L) float32."""
     dt = qs.dtype
     qh, kh, vh, doh = (_heads(t, num_heads) for t in (qs, k, v, do))
-    p = torch.exp(block_causal_logits(qh, kh, 1.0, ends) - lse[..., None])  # 0 where masked
+    logits = block_causal_logits(qh, kh, 1.0, ends).to(_stats_dtype(qs))
+    p = torch.exp(logits - lse[..., None])  # 0 where masked
     dp = torch.einsum("blhd,bmhd->bhlm", doh.float(), vh.float())
     ds = p * (dp - delta[..., None])
     p, ds = p.to(dt).float(), ds.to(dt).float()
