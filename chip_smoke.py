@@ -98,7 +98,16 @@ just after:
   (chunked and prealloc, rows 1-4 at 8 heads) at both, each against the
   same call in one process on the card at the JAX dry run's tolerances,
   with each rank's launch counts. Gloo through host memory is no
-  throughput figure, so none is printed;
+  throughput figure, so none is printed. Gloo programs run eagerly; then
+  ``mesh_graph_parity`` runs them under a live NCCL process group: a
+  one-process NCCL world through a file store, a mesh with a one-rank
+  NCCL group on each axis, the same width, depth and cases (a training
+  step with cond-drop and drop-path, an eval batch, the chunked and
+  prealloc greedy decodes) through their compiled programs, three calls
+  each (a capture, two replays) held bit for bit against the eager body,
+  a replay launching what an eager call launches, the last call within
+  the dry run's tolerances of one process; captured entries, capture s,
+  pool GB beside the one-process capture's, replay and eager ms;
 * FID (``metrics/fid.py``, ``apps/fid_sample.py``): the vae extractor (the
   ch160 tokenizer, seeded weights) and the pixel extractor on two sets of 8
   seeded 256px images on the card against the CPU (features and the
@@ -1834,10 +1843,13 @@ def _multigpu_spec() -> dict:
 def _multigpu_want(case: str) -> dict:
     """Launches of one case on one rank: a remat-0 step runs row 6 once
     forward and once backward a block; a decode of the ten scales runs row
-    1 twice a block a scale, its attention row once, row 3 once a scale."""
+    1 twice a block a scale, its attention row once, row 3 once a scale; a
+    256px eval batch (the dense attention) none."""
     want = dict.fromkeys(_decode_want(MULTIGPU_DEPTH, 0), 0)
     want.pop("gn_channel_stats")
     sn = len(PATCH_NUMS)
+    if case == "eval":
+        return want
     if case.startswith("train"):
         want.update(paired_train_fwd=MULTIGPU_DEPTH, paired_train_bwd=MULTIGPU_DEPTH)
     else:
@@ -1896,6 +1908,81 @@ def phase_multigpu_parity(dev):
           "cases": summary, "seconds": seconds})
     if bad:
         raise AssertionError("multigpu parity failed:\n" + "\n".join(bad))
+
+
+MESH_GRAPH_TIMEOUT_S = 120  # the one-rank NCCL group's collective timeout
+
+
+def phase_mesh_graph_parity(dev):
+    """The compiled programs under a live NCCL process group, on the one
+    card: a one-process NCCL world joined through a file store, and a
+    ``Mesh`` whose data and model groups are two one-rank NCCL groups
+    (``make_mesh`` makes no group for an axis of size 1; the mesh is built
+    directly, and the port takes it). At ``multigpu_parity``'s d16 width
+    and depth 4, fp32, through ``apps/dryrun_multigpu.py``'s held cases
+    under ``_Reproducible``: a ``paired`` training step with cond-drop and
+    drop-path, an eval batch (the last row padding), and the chunked and
+    prealloc greedy decodes, each HOLD_CALLS calls of its compiled program
+    (the first captures: every group's first collective is in its eager
+    run) beside its eager body from the same state and generator state.
+    Every call must be bit-equal, each program must have captured, a
+    replay must launch what an eager call launches (``_multigpu_want``),
+    and the last call must give the one-process programs' (run first, mesh
+    None) at the dry run's tolerances. Prints the captured entries, capture
+    s, pool GB beside the one-process capture's, and replay / eager ms of
+    each."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from var_tpu_torch.apps import dryrun_multigpu as dry
+    from var_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    spec = dict(_multigpu_spec(), backend="nccl", hold=True)
+    tmp = tempfile.mkdtemp(prefix="var_mesh_graph_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=MESH_GRAPH_TIMEOUT_S))
+    try:
+        mesh = pm.Mesh(1, 1, 0, 0, dist.new_group([0]), dist.new_group([0]))
+        backends = [str(dist.get_backend(g)) for g in (mesh.data_group, mesh.model_group)]
+        if not pm.capturable(mesh):
+            raise AssertionError(f"an NCCL mesh is not capturable: {backends}")
+        vae, var = dry.build_models(spec, dev)
+        with _Reproducible():
+            ref = dry.run_cases(spec, None, vae, var, dev)
+            report = dry.compare(ref, dry.run_cases(spec, mesh, vae, var, dev))
+        del vae, var, ref
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad, rows = [], {}
+    for name, c in report.items():
+        p = c.get("program")
+        if p is None:
+            bad.append(f"{name}: ran eagerly under an NCCL mesh")
+            continue
+        rows[name] = {k: p[k] for k in ("held", "captured", "capture_s", "pool_gb",
+                                        "pool_gb_one_process", "replay_ms", "eager_ms",
+                                        "launches_replay")}
+        rows[name].update({k: c[k] for k in ("loss_rel_err", "param_max_abs_err",
+                                             "grad_rel_err_max", "tokens_differ",
+                                             "acc_abs_err") if k in c})
+        if not c["ok"]:
+            bad.append(f"{name}: {c}")
+        want = _multigpu_want(name)
+        if p["launches_replay"] != want or p["launches_eager"] != want:
+            bad.append(f"{name}: launches replay {p['launches_replay']}, eager "
+                       f"{p['launches_eager']}, want {want}")
+    emit({"phase": "mesh_graph_parity", "ranks": 1, "backend": "nccl", "groups": backends,
+          "mesh": "dp 1, mp 1, a one-rank NCCL group on each axis", "depth": MULTIGPU_DEPTH,
+          "width": C, "heads": HEADS, "vocab": V, "batch": MULTIGPU_BATCH, "dtype": "float32",
+          "calls": dry.HOLD_CALLS, "reproducible": True, "cases": rows,
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError("mesh graph parity failed:\n" + "\n".join(bad))
 
 
 ZEROSHOT_RTOL = 1e-4  # card vs CPU log-likelihoods and classifier scores
@@ -2628,16 +2715,6 @@ def _tensor_fields(metrics) -> list:
     return [v for v in vals if isinstance(v, torch.Tensor)]
 
 
-def _bits_equal(a, b) -> bool:
-    """Two lists of tensors equal bit for bit (NaN where NaN)."""
-    def eq(x, y):
-        if x.is_floating_point():
-            return torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
-                                                                     y.nan_to_num())
-        return torch.equal(x, y)
-    return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
-
-
 class _Reproducible:
     """Inside the block: deterministic algorithms and cuBLAS's fixed
     workspace, the settings under which the training CLI's runs repeat bit
@@ -2662,6 +2739,8 @@ def _hold_steps(dev, step, sa, sb, args_of, n: int):
     pair from the same generator state: rows of bit-equality (metrics,
     every state tensor, the generator afterwards). ``args_of(i, g)``: step
     i's arguments after the state."""
+    from var_tpu_torch.apps.dryrun_multigpu import _bits_equal
+
     rows = []
     for i in range(n):
         ga, gb = (torch.Generator(device=dev).manual_seed(500 + i) for _ in range(2))
@@ -3666,6 +3745,8 @@ def main() -> None:
     phase_compiled_eval_main_path(dev)
     torch.cuda.empty_cache()
     phase_multigpu_parity(dev)
+    torch.cuda.empty_cache()
+    phase_mesh_graph_parity(dev)
     torch.cuda.empty_cache()
     phase_fid_parity(dev)
     phase_fid_main_path(dev, main_path_img_per_s)

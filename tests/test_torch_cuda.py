@@ -911,3 +911,65 @@ def test_cuda_programs_sharing_a_pool_match_their_eager_bodies(cuda):
         for ta, tb in zip(a.tensors(), b.tensors()):
             assert torch.equal(ta, tb)
     assert len(step.graphs) == len(score.graphs) == 1
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-process NCCL world joined through a file store, and a (1, 1)
+    mesh whose data and model groups are two one-rank NCCL groups."""
+    import torch.distributed as dist
+
+    from var_tpu_torch.parallel import mesh as pm
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        yield pm.Mesh(1, 1, 0, 0, dist.new_group([0]), dist.new_group([0]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["train", "eval", "decode"])
+def test_cuda_programs_under_a_one_rank_nccl_mesh_replay_their_eager_bodies(cuda, nccl_mesh,
+                                                                           program):
+    """Under NCCL groups the training step (cond-drop, drop-path, row 6),
+    the eval step and the chunked greedy decode (rows 1-3) are CUDA
+    graphs: ``apps/dryrun_multigpu.py``'s held case, three calls (the first
+    captures: each group's first collective is in its eager run, then two
+    replays) beside the eager body from the same state and generator
+    state, bit for bit under deterministic algorithms, a replay launching
+    what an eager call launches."""
+    import os
+
+    from var_tpu_torch.apps import dryrun_multigpu as dry
+    from var_tpu_torch.parallel import mesh as pm
+
+    assert pm.capturable(nccl_mesh)
+    spec = dry.tiny_spec(1, "cuda", "nccl")
+    assert spec["hold"]
+    vae, var = dry.build_models(spec, cuda)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        if program == "train":
+            got = dry.train_case(spec, spec["train"][0], nccl_mesh, vae, var, cuda)
+        elif program == "eval":
+            got = dry.eval_case(spec, nccl_mesh, vae, var, cuda)
+        else:
+            got = dry.decode_case(spec, "chunked", nccl_mesh, vae, var, cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    p = got["program"]
+    assert p["held"] == [True] * dry.HOLD_CALLS and p["captured"] == 1, p
+    assert p["launches_replay"] == p["launches_eager"], p
+    if program == "train":  # remat 0, ac 2: row 6 once forward, once backward a block
+        ac = spec["train"][0]["ac"]
+        assert p["launches_replay"]["paired_train_fwd"] == ac * spec["var"]["depth"]
+    if program == "decode":
+        assert p["launches_replay"]["flash_decode"] == spec["var"]["depth"] * 3

@@ -292,6 +292,8 @@ def test_parallel_modules_import_no_jax_and_no_process_group():
     ("quality_loop", ["--vae_steps", "1"]),
     ("analysis", ["--depths", "2", "--pn", "1_2", "--data_path", "imgs"]),
     ("dryrun_multigpu", ["--n", "2"]),
+    ("profile_train_ranks", []),
+    ("probe_nccl_capture", []),
 ])
 def test_new_app_default_device_raises_without_gpu(app, argv, tmp_path, monkeypatch):
     """The FID, quality-loop, analysis and multi-GPU dry-run CLIs default to

@@ -24,8 +24,9 @@ the training impl: the streaming kernel for a ``paired`` run at 512px and
 eval step are CUDA graphs (``engine/compiled.py``) in one memory pool: the
 first step captures after its eager run, later steps replay; a resumed run
 loads its checkpoint before the first step, so the capture sees the
-restored state. Under
-torchrun (a process group) they run eagerly.
+restored state. Under torchrun on GPUs (NCCL) each rank replays them the
+same way, in its one pool, the gradient all-reduce and the eval's sum in
+the graphs; with ``--device cpu`` (gloo) they run eagerly.
 
 ``--data_path`` holds ``train/`` and ``val/`` folders of class
 subdirectories. The frozen tokenizer is the ``.pth`` that

@@ -50,7 +50,7 @@ from var_tpu_torch.models import var as var_mod
 from var_tpu_torch.ops.resize import resize_bilinear
 from var_tpu_torch.ops.sampling import gumbel_softmax, sample_with_top_k_top_p
 from var_tpu_torch.parallel import shard_attn as sa
-from var_tpu_torch.parallel.mesh import Mesh, data_rows, gather_data
+from var_tpu_torch.parallel.mesh import Mesh, capturable, data_rows, gather_data
 
 CACHE_IMPLS = ("chunked", "prealloc", "concat")
 
@@ -317,9 +317,10 @@ def make_sampler(
     the generator where it would. ``sampler.graphs`` holds the
     :class:`GraphDecode` of each (batch, inpainting), or of each (batch,
     edit mask shape) with ``editing``. On the CPU the same capture-ready
-    body runs eagerly. Under a ``mesh`` the decode runs eagerly: its gloo
-    collectives cannot be captured. ``approx_topk`` and ``mesh``: as
-    :func:`decode_cfg`'s."""
+    body runs eagerly. Under a ``mesh`` of NCCL groups the decode is one
+    graph too, the gathers over the data and model groups among its nodes;
+    under a gloo mesh it runs eagerly (``parallel/mesh.py::capturable``).
+    ``approx_topk`` and ``mesh``: as :func:`decode_cfg`'s."""
     del approx_topk
     if inpainting and editing:
         raise ValueError("sampler: inpainting and editing are two samplers")
@@ -337,6 +338,7 @@ def make_sampler(
         return (labels.shape[0], tuple(mask.shape)) if editing else (labels.shape[0], inpainting)
 
     program = Compiled(run, 2, dev, random=True, slot=slot, entry_cls=GraphDecode)
+    call = program.static if capturable(mesh) else program.eager
 
     def decode(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
         """The decode into a :class:`GraphDecode`'s static outputs (valid
@@ -352,9 +354,7 @@ def make_sampler(
             gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
             mask = torch.as_tensor(mask, dtype=torch.float32 if editing else torch.bool,
                                    device=dev)
-        if mesh is not None:
-            return program.eager(var, vae, labels, gt, mask, generator=generator)
-        return program.static(var, vae, labels, gt, mask, generator=generator)
+        return call(var, vae, labels, gt, mask, generator=generator)
 
     def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
         with torch.inference_mode():
@@ -384,8 +384,9 @@ def make_scan_sampler(var_cfg, vae_cfg, rounds: int, device="cuda",
     of :func:`make_sampler`'s captured decode, issued back to back into the
     stacked outputs with no host synchronisation between them: the port's
     counterpart of the JAX package's one-program ``lax.scan``
-    (``sampler.py:300``). On the CPU, and under a ``mesh`` (each round
-    split as :func:`decode_cfg` splits it), the rounds run eagerly."""
+    (``sampler.py:300``). Under a ``mesh`` each round is split as
+    :func:`decode_cfg` splits it, and replays under NCCL groups; on the
+    CPU, and under a gloo mesh, the rounds run eagerly."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     sampler = make_sampler(var_cfg, vae_cfg, device=device, mesh=mesh, **sampler_kw)

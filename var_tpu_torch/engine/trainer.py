@@ -27,9 +27,10 @@ Like the JAX package's jitted steps, :func:`make_train_step`'s step and
 CUDA the first call of a shape runs eagerly and captures a CUDA graph,
 later calls replay it; every value that changes from step to step (lr, wd,
 prog_wp, the generator state) goes in as a device input, and the body reads
-nothing back to the host. On the CPU the same bodies run eagerly. A mesh
-with a process group stays eager (a collective over gloo cannot be
-captured).
+nothing back to the host. On the CPU the same bodies run eagerly. Under a
+mesh whose groups are NCCL's they are compiled too, their collectives in
+the graph; a gloo mesh runs them eagerly (``parallel/mesh.py::capturable``:
+a host collective cannot be captured).
 
 ``mesh`` (``parallel/mesh.py``): each data rank steps on its rows of the
 global batch; after the micro-batches one flat all-reduce over the data
@@ -151,6 +152,12 @@ class ClippedAdamW:
         self.params = [p for _, p in named]
         self.sharded = [pm.is_sharded(n) for n, _ in named]
         self.mesh = mesh
+        if mesh is not None and mesh.model_group is not None:
+            # the sharded and the replicated tensors' indices, on the device
+            # once: a captured step makes no tensor from host data
+            dev = self.params[0].device
+            self._split = [torch.tensor([i for i, s in enumerate(self.sharded) if s == want],
+                                        dtype=torch.long, device=dev) for want in (True, False)]
         self.tclip = tclip
         self.opt = AdamState([{"params": [p for n, p in named if mask[n]]},
                               {"params": [p for n, p in named if not mask[n]]}])
@@ -176,8 +183,9 @@ class ClippedAdamW:
         if group is None:
             return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
         sq = torch.stack([g.float().pow(2).sum() for g in grads])
-        shard = torch.tensor(self.sharded, device=sq.device)
-        parts = torch.stack([sq[shard].sum(), sq[~shard].sum() / self.mesh.mp])
+        shard, rep = self._split
+        parts = torch.stack([sq.index_select(0, shard).sum(),
+                             sq.index_select(0, rep).sum() / self.mesh.mp])
         return pm.all_reduce_(parts, group).sum().sqrt()
 
     def step(self, lr: Scalar, wd: Scalar, skip_nonfinite: bool):
@@ -296,12 +304,6 @@ class TrainState:
                 *(self.scaler or {}).values()]
 
 
-def capturable(mesh: Optional[pm.Mesh]) -> bool:
-    """Whether a step under ``mesh`` can be one CUDA graph: not when it
-    has a process group (a gloo collective cannot be captured)."""
-    return mesh is None or (mesh.data_group is None and mesh.model_group is None)
-
-
 @torch.no_grad()
 def tokenize(vae: vae_mod.VQVAE, img: torch.Tensor, args: TrainArgs) -> List[torch.Tensor]:
     """Frozen tokenizer: image batch (B, H, W, 3) -> token pyramid. ``vae_bf16``
@@ -386,8 +388,10 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
     ``mesh``: ``imgs`` and ``labels`` are this data rank's B rows, ``var``
     holds this model rank's shards, and every rank passes a generator in
     the same state (cond-drop and drop-path draw for the global batch);
-    ``init_state`` gives every data rank data rank 0's parameters; a mesh
-    with a process group runs the body eagerly (``step.program`` None).
+    ``init_state`` gives every data rank data rank 0's parameters, outside
+    the graph. Under a mesh of NCCL groups the gradient all-reduce, the
+    model group's norm and the metrics' mean are nodes of the graph; a gloo
+    mesh runs the body eagerly (``step.program`` None).
     ``pool``: a ``torch.cuda.MemPool`` shared with other programs
     (``Compiled``'s)."""
     skip_nonfinite = args.fp16 == 1
@@ -433,7 +437,7 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
                 m["per_scale_L"], m["per_scale_acc"], m["pred_hist"])
 
     program = Compiled(body, 2, None, random=True, train=True,
-                       pool=pool) if capturable(mesh) else None
+                       pool=pool) if pm.capturable(mesh) else None
 
     def make_step(call):
         def step(state: TrainState, vae, imgs, labels, generator, g_it: int,
@@ -473,9 +477,10 @@ def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = 
     program on the modules' device (``trainer.py:342``'s jit), one entry a
     batch shape: ``valid`` is an input, so a padded last batch replays the
     same graph. ``mesh`` with a process group: each data rank passes its
-    rows, and the sums come back summed over the data group, on every rank,
-    from the eager body. ``pool``: a ``torch.cuda.MemPool`` shared with
-    other programs (``Compiled``'s)."""
+    rows, and the sums come back summed over the data group, on every rank
+    (a node of the graph under NCCL groups; a gloo mesh returns the eager
+    body). ``pool``: a ``torch.cuda.MemPool`` shared with other programs
+    (``Compiled``'s)."""
     last_l = var_cfg.patch_nums[-1] ** 2
 
     @torch.no_grad()
@@ -497,4 +502,4 @@ def make_eval_step(var_cfg: VARConfig, vae_cfg: VAEConfig, dtype: torch.dtype = 
         ])
         return sums if mesh is None else pm.all_reduce_(sums, mesh.data_group)
 
-    return Compiled(step, 2, None, pool=pool) if capturable(mesh) else step
+    return Compiled(step, 2, None, pool=pool) if pm.capturable(mesh) else step

@@ -94,6 +94,16 @@ def make_mesh(model_parallel: int = 1) -> Mesh:
     return Mesh(dp, mp, d, m, data_group, model_group)
 
 
+def capturable(mesh: Optional[Mesh]) -> bool:
+    """Whether programs under ``mesh`` can be CUDA graphs: without a mesh,
+    and when every process group it has (an axis of size 1 has none) is
+    NCCL's, whose collectives a graph holds as kernels. A gloo group's
+    collectives run on the host, so its programs run eagerly. It reads the
+    groups' backends and nothing else."""
+    groups = () if mesh is None else (mesh.data_group, mesh.model_group)
+    return all(dist.get_backend(g) == "nccl" for g in groups if g is not None)
+
+
 def process_is_master() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
