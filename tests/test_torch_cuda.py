@@ -361,6 +361,57 @@ def test_cuda_prealloc_decode_equals_cpu(cuda, l2):
 
 
 @pytest.mark.cuda
+def test_cuda_captured_sampler_with_stamps_replays_the_eager_decode(cuda):
+    """A captured sampler, span stamps in its graph (``utils/profiling.py``),
+    gives what the eager decode draws from the same generator state, bit for
+    bit; each replay writes 4 stamps a stage and 4 more into the device's
+    ring, and the spans rebuilt from it tile the replay on the device's
+    clock, the decode's layers one after another inside the program's own."""
+    from var_tpu_torch.config import VAEConfig, VARConfig
+    from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+    from var_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pns = (1, 2, 3, 4)
+    gen = torch.Generator().manual_seed(3)
+    vae = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(
+        vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
+    var = var_mod.init_var_params(var_mod.VAR(VARConfig(
+        num_classes=10, depth=2, embed_dim=128, num_heads=2, patch_nums=pns, vocab_size=64,
+        z_channels=8, cond_drop_rate=0.0)), gen, init_head=2.0)
+    vae, var = vae.to(dev).eval(), var.to(dev).eval()
+    kw = dict(cfg_scale=1.5, top_k=8, top_p=0.9, dtype=torch.bfloat16)
+    labels = [1, 7, 3]
+    sampler = make_sampler(var.cfg, vae.cfg, device=dev, **kw)
+    sampler(var, vae, torch.Generator(device=dev).manual_seed(0), labels)  # the capture
+    profiling.reset()
+    for seed in (1, 2, 3):
+        g_eager, g_replay = (torch.Generator(device=dev).manual_seed(seed) for _ in range(2))
+        with torch.inference_mode():
+            want = decode_cfg(var, vae, torch.tensor(labels, device=dev), g_eager, **kw)
+        got = sampler(var, vae, g_replay, labels)
+        assert torch.equal(got.tokens, want.tokens) and torch.equal(got.image, want.image)
+        assert torch.equal(g_replay.get_state(), g_eager.get_state())
+    stamps = 4 * len(pns) + 4
+    assert sampler.graphs[(3, False)].layout.n == stamps
+    assert profiling._RINGS[dev.index].head % stamps == 0
+    found = profiling.spans()
+    c = profiling.counters()
+    assert (c["compiled.replays"], c["sampler.calls"], c["compiled.captures"]) == (3, 3, 0)
+    assert len(found) == 3 * (stamps - 1) and len({s.call for s in found}) == 3
+    for call in {s.call for s in found}:
+        root, *layers = [s for s in found if s.call == call]
+        assert root.name == "sample" and root.parent is None
+        assert [s.name for s in layers] == ["start", *["transformer", "head", "filter",
+                                                       "next_input"] * len(pns), "render"]
+        assert layers[0].start_ns == root.start_ns and layers[-1].end_ns <= root.end_ns
+        assert all(s.start_ns <= s.end_ns and s.parent == "sample" for s in layers)
+        assert all(b.start_ns == a.end_ns for a, b in zip(layers, layers[1:]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(cuda, dtype):
     """Row 5's forward and backward kernels against their plain versions at

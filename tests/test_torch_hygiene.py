@@ -257,14 +257,6 @@ def test_zeroshot_app_default_device_raises_without_gpu(app, tmp_path):
         main(["--depth", "2", "--pn", "1_2", "--data_path", str(tmp_path)])
 
 
-def test_decode_host_cost_raises_without_gpu():
-    _no_gpu()
-    from var_tpu_torch.apps.decode_host_cost import main
-
-    with pytest.raises(RuntimeError, match="cuda"):
-        main(["--iters", "1"])
-
-
 _IMPORT_PARALLEL = """
 import sys
 import torch.distributed as dist

@@ -202,6 +202,31 @@ def test_mesh_train_body_reads_nothing_back_to_the_host(mesh, models, monkeypatc
         entry.body(torch.Generator().manual_seed(1))
 
 
+def test_mesh_train_body_marks_the_allreduce(mesh, models, monkeypatch):
+    """Under a data group the step's body marks the flat gradient all-reduce
+    between the backward and the optimizer: a host range of the eager step
+    under a profiler (gloo), and one stamp more than one process's seven
+    where a capture records the body (NCCL)."""
+    from torch.profiler import profile
+
+    from var_tpu_torch.utils.profiling import Recording
+
+    vae, _ = models
+    step, init_state, var, x = _train(mesh, models)
+    with profile() as prof:
+        step(init_state(var), vae, *x, torch.Generator().manual_seed(0), 0, 1.0)
+    assert "allreduce" in {e.name for e in prof.events()}
+    _as(monkeypatch, "nccl")
+    step, init_state, var, (imgs, labels) = _train(mesh, models)
+    launched = []
+    with Recording(CPU, "train_step", launch=lambda: launched.append(1)) as layout:
+        step.program.eager(init_state(var), vae, imgs, labels, torch.tensor([1e-4, 0.05, 1.0]),
+                           generator=torch.Generator().manual_seed(0))
+    assert [s[0] for s in layout.spans] == ["train_step", "tokenize", "forward", "backward",
+                                            "allreduce", "optimizer", "metrics"]
+    assert len(launched) == layout.n == 8
+
+
 def test_model_group_norm_sums_as_the_mask_did(mesh, models):
     """The clipping norm under a model group sums the sharded and the
     replicated squares by device index lists made with the optimizer: the

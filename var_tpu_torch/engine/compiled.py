@@ -53,6 +53,14 @@ ranks paired:
   watchdog thread, which queries the events of earlier collectives while
   a capture runs, spoiled none of 144 captures in that mode
   (``apps/probe_nccl_capture.py``; torch 2.11, NCCL 2.28, one H100).
+
+Tracing (``utils/profiling.py``): every call, capture and replay counts in
+its counters; a capture records the device spans that the body marks with
+``profiling.span`` (the program's own span, named by ``fn``, around them),
+and each replay where their stamps land. Loading the inputs, the first
+call's eager run, the capture and the replay are host spans
+(``compiled.load``, ``compiled.first_run``, ``compiled.capture``,
+``compiled.replay``) while a profiler runs.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from typing import Callable, Optional
 import torch
 
 from var_tpu_torch.device import resolve_device
+from var_tpu_torch.utils import profiling
 
 
 def _tensors(obj) -> list:
@@ -143,6 +152,8 @@ class CompiledEntry:
     recorded at the capture (which launches nothing; each replay adds them
     to the wrappers' counts). ``capture_s``: host seconds of the capture.
     ``pool_bytes``: the memory the capture reserved (the graph's pool).
+    ``layout``: the device spans each replay writes
+    (``utils/profiling.py``), recorded at the capture.
     ``pool``: the ``torch.cuda.MemPool`` the first call's eager run and
     capture allocate in (None: the capture in a pool of its own)."""
 
@@ -161,6 +172,7 @@ class CompiledEntry:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.generator: Optional[torch.Generator] = None
         self.launches: dict = {}
+        self.layout: Optional[profiling.Layout] = None
         self.capture_s = 0.0
         self.pool_bytes = 0
 
@@ -194,7 +206,7 @@ class CompiledEntry:
         side.wait_stream(main)
         in_pool = (contextlib.nullcontext() if self.pool is None
                    else torch.cuda.use_mem_pool(self.pool, dev))
-        with torch.cuda.stream(side), in_pool:
+        with profiling.span("compiled.first_run"), torch.cuda.stream(side), in_pool:
             self.body(generator)
         main.wait_stream(side)
         for t in _leaves(self.out):  # made on the side stream, used on the main one
@@ -212,11 +224,14 @@ class CompiledEntry:
         kernels = counted_wrappers()
         before = [fn.launches for fn in kernels]
         pool_id = torch.cuda.graph_pool_handle() if self.pool is None else self.pool.id
+        spans = profiling.Recording(dev, self._fn.__name__)  # its ring outside the pool
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=pool_id, stream=side):  # which first empties
+            with profiling.span("compiled.capture"), \
+                    torch.cuda.graph(graph, pool=pool_id, stream=side):  # which first empties
                 reserved = torch.cuda.memory_reserved(dev)         # the allocator's cache
-                self.body(self.generator)
+                with spans:
+                    self.body(self.generator)
         except BaseException:
             _abandon_capture(pool_id, dev, main)
             raise
@@ -225,8 +240,10 @@ class CompiledEntry:
             for fn, n in zip(kernels, before):
                 fn.launches = n
         self.capture_s = time.perf_counter() - t0
+        profiling.COUNTERS["compiled.captures"] += 1
+        profiling.COUNTERS["compiled.capture_s"] += self.capture_s
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.graph = graph
+        self.graph, self.layout = graph, spans.layout
         for t, g in grads:
             if t.grad is not None and t.grad is not g:
                 t.grad.copy_(g)
@@ -244,6 +261,7 @@ class CompiledEntry:
                 generator = torch.cuda.default_generators[self.device.index]
             self.generator.set_state(generator.get_state())
         self.graph.replay()
+        profiling.replayed(self.layout, self.device)
         if self._random:
             generator.set_state(self.generator.get_state())
         for fn in counted_wrappers():
@@ -311,14 +329,17 @@ class Compiled:
                 entry = self.graphs[slot] = self._entry_cls(key, modules, inputs, self.fn,
                                                             self.random, self.device)
                 entry.pool = self.pool
+            profiling.COUNTERS["compiled.calls"] += 1
             try:
-                entry.load(inputs)
+                with profiling.span("compiled.load"):
+                    entry.load(inputs)
                 if self.device.type == "cpu":
                     entry.body(generator)
                 elif entry.graph is None:
                     entry.capture(generator)
                 else:
-                    entry.replay(generator)
+                    with profiling.span("compiled.replay"):
+                        entry.replay(generator)
             except BaseException:
                 self.graphs.pop(slot, None)  # the next call starts afresh
                 raise

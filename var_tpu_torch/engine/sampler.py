@@ -51,6 +51,8 @@ from var_tpu_torch.ops.resize import resize_bilinear
 from var_tpu_torch.ops.sampling import gumbel_softmax, sample_with_top_k_top_p
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, capturable, data_rows, gather_data
+from var_tpu_torch.utils.profiling import call as profiled_call
+from var_tpu_torch.utils.profiling import span
 
 CACHE_IMPLS = ("chunked", "prealloc", "concat")
 
@@ -183,39 +185,44 @@ def _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p, more_smo
     sn = len(pns)
     quant = vae.quantize
     device = var.pos_1LC.device
-    cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype, mesh)
-
-    f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
-    lmax = None if kv_window is None else window_len(pns, kv_window)
-    paired = cache_impl != "chunked" or kv_window is not None
-    cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired, mesh)
+    with span("start"):
+        cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype, mesh)
+        f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
+        lmax = None if kv_window is None else window_len(pns, kv_window)
+        paired = cache_impl != "chunked" or kv_window is not None
+        cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired, mesh)
     cur = 0
     token_segs = []
     for si, pn in enumerate(pns):
         ratio = si / var_cfg.num_stages_minus_1
         seg = lens[si]
-        if kv_window is not None:
-            _slide_window(cache, lens, si, kv_window)
-        x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype, mesh)
-        lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio, mesh)
-        idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator,
+        with span("transformer"):
+            if kv_window is not None:
+                _slide_window(cache, lens, si, kv_window)
+            x, cache = var_mod.transformer_stage(var, ntm, ctx, cache, dtype, mesh)
+        with span("head"):
+            lg = var_mod.get_logits_cfg(var, x, cond_bd, cfg_scale * ratio, mesh)
+        with span("filter"):
+            idx = sample_with_top_k_top_p(lg, top_k=top_k, top_p=top_p, generator=generator,
+                                          rows=rows)
+            if keep_mask is not None:  # kept positions take the ground-truth ids
+                idx = torch.where(keep_mask[:, cur:cur + seg], gt_tokens[:, cur:cur + seg], idx)
+            token_segs.append(idx)
+            if more_smooth:  # gumbel-softmax codebook mixing (var.py:178-180)
+                gum_t = max(0.27 * (1 - ratio * 0.95), 0.005)
+                soft = gumbel_softmax(lg * (1.0 + ratio), tau=gum_t, generator=generator,
                                       rows=rows)
-        if keep_mask is not None:  # kept positions take the ground-truth ids
-            idx = torch.where(keep_mask[:, cur:cur + seg], gt_tokens[:, cur:cur + seg], idx)
-        token_segs.append(idx)
-        if more_smooth:  # gumbel-softmax codebook mixing (var.py:178-180)
-            gum_t = max(0.27 * (1 - ratio * 0.95), 0.005)
-            soft = gumbel_softmax(lg * (1.0 + ratio), tau=gum_t, generator=generator, rows=rows)
-            h = soft @ quant.embedding.weight.float()
-        else:
-            h = q.embed(quant, idx)
-        h = h.reshape(b, pn, pn, vae_cfg.z_channels)
-        if edit_mask is not None:
-            h = _edit_blend(quant, gt_tokens[:, cur:cur + seg], edit_mask, h, pn)
-        f_hat, nxt = q.get_next_autoregressive_input(quant, vae_cfg, si, f_hat, h, pns)
-        cur += seg
-        if si != sn - 1:
-            ntm = _next_input(var, nxt, lvl_pos, cur, b)
+                h = soft @ quant.embedding.weight.float()
+            else:
+                h = q.embed(quant, idx)
+            h = h.reshape(b, pn, pn, vae_cfg.z_channels)
+            if edit_mask is not None:
+                h = _edit_blend(quant, gt_tokens[:, cur:cur + seg], edit_mask, h, pn)
+        with span("next_input"):
+            f_hat, nxt = q.get_next_autoregressive_input(quant, vae_cfg, si, f_hat, h, pns)
+            cur += seg
+            if si != sn - 1:
+                ntm = _next_input(var, nxt, lvl_pos, cur, b)
     return torch.cat(token_segs, dim=1), f_hat
 
 
@@ -268,7 +275,8 @@ def decode_cfg(
     tokens, f_hat = _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p,
                                  more_smooth, dtype, gt_tokens, keep_mask, edit_mask, kv_window,
                                  cache_impl, mesh)
-    img = render_fhat(vae, f_hat, dtype)
+    with span("render"):
+        img = render_fhat(vae, f_hat, dtype)
     return DecodeResult(*(gather_data(mesh, t) for t in (img, tokens, f_hat)))
 
 
@@ -320,7 +328,14 @@ def make_sampler(
     body runs eagerly. Under a ``mesh`` of NCCL groups the decode is one
     graph too, the gathers over the data and model groups among its nodes;
     under a gloo mesh it runs eagerly (``parallel/mesh.py::capturable``).
-    ``approx_topk`` and ``mesh``: as :func:`decode_cfg`'s."""
+    ``approx_topk`` and ``mesh``: as :func:`decode_cfg`'s.
+
+    Tracing (``utils/profiling.py``): the decode marks its layers (``start``;
+    per stage ``transformer``, ``head``, ``filter``, ``next_input``; then
+    ``render``), device spans of each replay, 4 stamps a stage and 4 more; a
+    call is the host span ``sampler.call`` (``sampler.inputs``, the
+    program's load and replay, ``sampler.outputs``) and, when it replayed,
+    counts in ``sampler.calls`` and ``sampler.host_s``."""
     del approx_topk
     if inpainting and editing:
         raise ValueError("sampler: inpainting and editing are two samplers")
@@ -330,14 +345,14 @@ def make_sampler(
               dtype=dtype, kv_window=kv_window, cache_impl=cache_impl, mesh=mesh)
     conditioned = inpainting or editing
 
-    def run(var, vae, labels, gt, mask, *, generator) -> DecodeResult:
+    def sample(var, vae, labels, gt, mask, *, generator) -> DecodeResult:
         masks = {"edit_mask": mask} if editing else {"keep_mask": mask}
         return decode_cfg(var, vae, labels, generator, gt_tokens=gt, **masks, **kw)
 
     def slot(labels, gt, mask) -> tuple:
         return (labels.shape[0], tuple(mask.shape)) if editing else (labels.shape[0], inpainting)
 
-    program = Compiled(run, 2, dev, random=True, slot=slot, entry_cls=GraphDecode)
+    program = Compiled(sample, 2, dev, random=True, slot=slot, entry_cls=GraphDecode)
     call = program.static if capturable(mesh) else program.eager
 
     def decode(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
@@ -349,17 +364,20 @@ def make_sampler(
         if conditioned != (gt is not None and mask is not None):
             raise ValueError("sampler: gt and mask go together, with inpainting=True or "
                              "editing=True only")
-        labels = torch.as_tensor(label_b, dtype=torch.int64, device=dev)
-        if conditioned:
-            gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
-            mask = torch.as_tensor(mask, dtype=torch.float32 if editing else torch.bool,
-                                   device=dev)
+        with span("sampler.inputs"):
+            labels = torch.as_tensor(label_b, dtype=torch.int64, device=dev)
+            if conditioned:
+                gt = torch.as_tensor(gt, dtype=torch.int64, device=dev)
+                mask = torch.as_tensor(mask, dtype=torch.float32 if editing else torch.bool,
+                                       device=dev)
         return call(var, vae, labels, gt, mask, generator=generator)
 
     def sampler(var, vae, generator, label_b, gt=None, mask=None) -> DecodeResult:
-        with torch.inference_mode():
-            return DecodeResult(*(t.clone() for t in decode(var, vae, generator, label_b, gt,
-                                                            mask)))
+        with profiled_call("sampler.call", "sampler.calls", "sampler.host_s"), \
+                torch.inference_mode():
+            res = decode(var, vae, generator, label_b, gt, mask)
+            with span("sampler.outputs"):
+                return DecodeResult(*(t.clone() for t in res))
 
     sampler.graphs, sampler.static_decode = program.graphs, decode
     return sampler

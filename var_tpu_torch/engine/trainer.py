@@ -58,6 +58,8 @@ from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models import vae as vae_mod
 from var_tpu_torch.models import var as var_mod
 from var_tpu_torch.parallel import mesh as pm
+from var_tpu_torch.utils.profiling import call as profiled_call
+from var_tpu_torch.utils.profiling import span
 
 NOWD_NAMES = ("pos_1LC", "pos_start", "lvl_embed", "ada_gss", "scale_mul")
 
@@ -393,7 +395,14 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
     model group's norm and the metrics' mean are nodes of the graph; a gloo
     mesh runs the body eagerly (``step.program`` None).
     ``pool``: a ``torch.cuda.MemPool`` shared with other programs
-    (``Compiled``'s)."""
+    (``Compiled``'s).
+
+    Tracing (``utils/profiling.py``): the body marks ``tokenize``,
+    ``forward``, ``backward`` (each micro-batch), ``allreduce`` (under a data
+    group), ``optimizer`` and ``metrics``, device spans of each replay; a
+    step is the host span ``train.step`` (``train.hyper``, the program's load
+    and replay) and, when it replayed, counts in ``train.steps`` and
+    ``train.host_s``."""
     skip_nonfinite = args.fp16 == 1
     dynamic_scale = bool(args.dscale) and args.fp16 == 1
     scaler_init, scaler_update = make_grad_scaler()
@@ -406,7 +415,7 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
         return TrainState(var, make_adamw(var, args.tclip, mesh),
                           scaler=scaler_init(dev) if dynamic_scale else None)
 
-    def body(state: TrainState, vae, imgs, labels, hyper, generator=None):
+    def train_step(state: TrainState, vae, imgs, labels, hyper, generator=None):
         """One step over device inputs only: ``hyper`` is (lr, wd, prog_wp)."""
         lr, wd, prog_wp = hyper[0], hyper[1], hyper[2]
         ac = imgs.shape[0]
@@ -414,47 +423,58 @@ def make_train_step(var_cfg: VARConfig, vae_cfg: VAEConfig, args: TrainArgs,
         state.opt.zero_grad()  # the capture's backward makes the gradients in its pool
         loss_acc = torch.zeros((), device=imgs.device)
         for i in range(ac):
-            idx_bl = tokenize(vae, imgs[i], args)
-            loss, m = teacher_loss(state.var, vae, args, idx_bl, labels[i], generator, prog_si,
-                                   prog_wp, dtype, attn_impl, mesh)
-            # loss scaled before backward (amp_sc.py:43)
-            (loss * (scale / ac) if dynamic_scale else loss * (1.0 / ac)).backward()
-            loss_acc += loss.detach() / ac
+            with span("tokenize"):
+                idx_bl = tokenize(vae, imgs[i], args)
+            with span("forward"):
+                loss, m = teacher_loss(state.var, vae, args, idx_bl, labels[i], generator,
+                                       prog_si, prog_wp, dtype, attn_impl, mesh)
+            with span("backward"):
+                # loss scaled before backward (amp_sc.py:43)
+                (loss * (scale / ac) if dynamic_scale else loss * (1.0 / ac)).backward()
+                loss_acc += loss.detach() / ac
         if mesh is not None and mesh.data_group is not None:  # one flat all-reduce
-            grads = state.opt.grads()
-            flat = pm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.data_group)
-            for g, f in zip(grads, flat.div_(mesh.dp).split([g.numel() for g in grads])):
-                g.copy_(f.view_as(g))
-        if dynamic_scale:  # unscale (GradScaler.unscale_)
-            torch._foreach_div_(state.opt.grads(), scale)
-        gnorm, _ = state.opt.step(lr, wd, skip_nonfinite)
-        if dynamic_scale:  # not skip-guarded: an overflow must halve the scale
-            for k, v in scaler_update(state.scaler, torch.isfinite(gnorm)).items():
-                state.scaler[k].copy_(v)
-        # metrics of the last micro-batch, as the reference logs them
-        m, loss_acc = _mean_over_data(mesh, m, loss_acc)
-        return (loss_acc, m["Lm"], m["Lt"], m["accm"], m["acct"], gnorm, scale,
-                m["per_scale_L"], m["per_scale_acc"], m["pred_hist"])
+            with span("allreduce"):
+                grads = state.opt.grads()
+                flat = pm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                                      mesh.data_group)
+                for g, f in zip(grads, flat.div_(mesh.dp).split([g.numel() for g in grads])):
+                    g.copy_(f.view_as(g))
+        with span("optimizer"):
+            if dynamic_scale:  # unscale (GradScaler.unscale_)
+                torch._foreach_div_(state.opt.grads(), scale)
+            gnorm, _ = state.opt.step(lr, wd, skip_nonfinite)
+            if dynamic_scale:  # not skip-guarded: an overflow must halve the scale
+                for k, v in scaler_update(state.scaler, torch.isfinite(gnorm)).items():
+                    state.scaler[k].copy_(v)
+        with span("metrics"):
+            # metrics of the last micro-batch, as the reference logs them
+            m, loss_acc = _mean_over_data(mesh, m, loss_acc)
+            return (loss_acc, m["Lm"], m["Lt"], m["accm"], m["acct"], gnorm, scale,
+                    m["per_scale_L"], m["per_scale_acc"], m["pred_hist"])
 
-    program = Compiled(body, 2, None, random=True, train=True,
+    program = Compiled(train_step, 2, None, random=True, train=True,
                        pool=pool) if pm.capturable(mesh) else None
 
     def make_step(call):
         def step(state: TrainState, vae, imgs, labels, generator, g_it: int,
                  prog_wp: float = 1.0):
-            lr = args.tlr * lr_factor(args.sche, g_it, wp_it, max_it, args.wp0, args.wpe)
-            wd = wd_value(g_it, max_it, args.twd, args.twde)
-            hyper = _host_scalars((lr, wd, prog_wp), imgs.device)
-            (loss, lm, lt, accm, acct, gnorm, scale, per_l, per_a,
-             hist) = call(state, vae, imgs, labels, hyper, generator=generator)
-            state.step += 1
-            return state, StepMetrics(loss=loss, Lm=lm, Lt=lt, accm=accm, acct=acct,
-                                      grad_norm=gnorm, lr=lr, wd=wd, scale=scale,
-                                      per_scale_L=per_l, per_scale_acc=per_a, pred_hist=hist)
+            with profiled_call("train.step", "train.steps", "train.host_s"):
+                with span("train.hyper"):
+                    lr = args.tlr * lr_factor(args.sche, g_it, wp_it, max_it, args.wp0,
+                                              args.wpe)
+                    wd = wd_value(g_it, max_it, args.twd, args.twde)
+                    hyper = _host_scalars((lr, wd, prog_wp), imgs.device)
+                (loss, lm, lt, accm, acct, gnorm, scale, per_l, per_a,
+                 hist) = call(state, vae, imgs, labels, hyper, generator=generator)
+                state.step += 1
+                return state, StepMetrics(loss=loss, Lm=lm, Lt=lt, accm=accm, acct=acct,
+                                          grad_norm=gnorm, lr=lr, wd=wd, scale=scale,
+                                          per_scale_L=per_l, per_scale_acc=per_a,
+                                          pred_hist=hist)
         return step
 
-    step = make_step(program if program is not None else body)
-    step.eager = make_step(program.eager if program is not None else body)
+    step = make_step(program if program is not None else train_step)
+    step.eager = make_step(program.eager if program is not None else train_step)
     step.program = program
     return init_state, step
 

@@ -71,8 +71,6 @@
 
 #include <float.h>
 
-#include <chrono>
-
 #include "common.cuh"
 
 using namespace vtt;
@@ -497,21 +495,6 @@ static int launch_decode_attention(const void* q, long long q_bs, long long q_rs
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// Host microseconds of the two tensor-map encodings one bf16 launch makes,
-// averaged over n pairs: the measurement of a launch's host cost reads it
-// (apps/decode_host_cost.py); no kernel path calls it. -1 on failure.
-extern "C" double var_decode_tensor_maps_us(const void* k, const void* v, long long kv_bs,
-                                            long long kv_rs, int B, int Lk, int H, int n) {
-  CUtensorMap tm_k, tm_v;
-  const auto t0 = std::chrono::steady_clock::now();
-  for (int i = 0; i < n; ++i)
-    if (tile_tensor_map(&tm_k, k, kv_bs, kv_rs, B, Lk, H) != cudaSuccess ||
-        tile_tensor_map(&tm_v, v, kv_bs, kv_rs, B, Lk, H) != cudaSuccess)
-      return -1.0;
-  const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
-  return n > 0 ? dt.count() / n : 0.0;
 }
 
 // Row 2: q read from the fused qkv, optional in-kernel q L2 norm, post-dot scale.
