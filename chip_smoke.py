@@ -150,6 +150,14 @@ version at every GroupNorm input shape of that tokenizer at batch 8 and at
 ragged shapes, in fp32 and bf16, with its VJP. No path before tokenizer
 training launches it.
 
+``gn_silu`` (the decoder's channels-last GroupNorm-SiLU, no row in the
+table: it replaces no JAX kernel) is held against its plain version at
+every GroupNorm input shape of the ch160 decoder at batches 8 and 50, bf16,
+with and without SiLU and a convolution's bias taken in, and timed at the
+level-0 shape (160 channels, 256 x 256) at both batches. Every bf16 render
+launches its three kernels once a decoder GroupNorm (RENDER_GN_LAUNCHES);
+fp32 renders, the training forward and ``gn_impl="pallas"`` none.
+
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
 of the JAX package.
@@ -217,6 +225,15 @@ VAE_BATCH = 8
 GN_SHAPES = ((640, 16), (160, 256), (160, 128), (320, 64), (320, 32), (160, 64), (320, 16),
              (640, 32), (320, 128))
 GN_RAGGED = ((3, 7, 15, 15), (2, 5, 7, 5), (2, 3, 1, 1))  # odd C, H * W no multiple of 16 bytes
+# (C, H = W) of every GroupNorm input of the ch160 decoder at 256px (39 norms)
+DECODER_GN_SHAPES = ((640, 16), (640, 32), (320, 32), (320, 64), (320, 128), (160, 128),
+                     (160, 256))
+DECODER_GN = 39
+RENDER_GN_LAUNCHES = 3 * DECODER_GN  # gn_silu's statistics, finalize and apply kernels a norm
+# gn_silu against its plain version on the same bf16 inputs: |got - want| <=
+# atol + rtol |want|, rtol one bf16 rounding (the same float32 arithmetic
+# summed in another order, then rounded once)
+GN_SILU_TOL = (1e-4, 2.0 ** -7)
 
 
 def emit(obj) -> None:
@@ -1123,6 +1140,88 @@ def phase_kernel_gn_stats(dev):
             "dtype": "float32"}
 
 
+def check_gn_silu(dev, batches=(VAE_BATCH, 50)) -> dict:
+    """gn_silu against its plain version at every decoder GroupNorm shape
+    and each batch, bf16: the resnet blocks' norm-SiLU (with and without
+    the bias of the convolution before) and the attention blocks' norm
+    alone; three launches a call, a channels-last bf16 output, within
+    GN_SILU_TOL. Raises on any violation; returns {batch: worst error}."""
+    from var_tpu_torch.ops.cuda.gn_silu import gn_silu, gn_silu_plain
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    atol, rtol = GN_SILU_TOL
+    errs, failures = {}, []
+    for b in batches:
+        worst = 0.0
+        for c, h in DECODER_GN_SHAPES:
+            x = (torch.randn(b, c, h, h, generator=g, device=dev) * 2 + 0.5).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            w = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+            bias = 0.3 * torch.randn(c, generator=g, device=dev)
+            bias_in = torch.randn(c, generator=g, device=dev)
+            for silu, b_in in ((True, None), (True, bias_in), (False, None)):
+                before = gn_silu.launches
+                got = gn_silu(x, w, bias, 32, 1e-6, silu, b_in)
+                launched = gn_silu.launches - before
+                want = gn_silu_plain(x, w, bias, 32, 1e-6, silu, b_in)
+                err, ok = max_violation(got, want, atol, rtol)  # NaN fails too
+                worst = max(worst, err)
+                if not ok or launched != 3 or got.dtype != torch.bfloat16 \
+                        or not got.is_contiguous(memory_format=torch.channels_last):
+                    failures.append(f"({b}, {c}, {h}, {h}) silu {silu} bias_in "
+                                    f"{b_in is not None}: max err {err}, {launched} launches, "
+                                    f"{got.dtype} {got.stride()}")
+                del got, want
+            del x
+        errs[str(b)] = worst
+    if failures:
+        raise AssertionError("gn_silu differs from its plain version: " + "; ".join(failures))
+    return errs
+
+
+def phase_kernel_gn_silu(dev):
+    """gn_silu at every decoder shape (check_gn_silu); timed at the
+    level-0 shape, (b, 160, 256, 256) bf16 with SiLU, at batches 8 and 50
+    (the first row of ``by_batch`` is the row's own): device ms by kernel,
+    against its bound by bytes (read twice and written once, 6 bytes an
+    element), its plain version and the library chain it replaced
+    (``F.group_norm`` then ``F.silu`` on the same channels-last input)."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.ops.cuda.gn_silu import gn_silu, gn_silu_plain
+
+    errs = check_gn_silu(dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    c, h = DECODER_GN_SHAPES[-1]
+    w = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    bias = 0.3 * torch.randn(c, generator=g, device=dev)
+    by_batch = {}
+    for b in (VAE_BATCH, 50):
+        x = (torch.randn(b, c, h, h, generator=g, device=dev) * 2 + 0.5).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        split = device_ms_by_name(lambda: gn_silu(x, w, bias, 32, 1e-6), 20)
+        wb, bb = w.bfloat16(), bias.bfloat16()
+        bound_ms, bound_by = bound(6.0 * x.numel(), 10.0 * x.numel(), FP32_FLOPS)
+        by_batch[str(b)] = {
+            "shape": [b, c, h, h], "ms": sum(split.values()),
+            "call_ms": call_ms(lambda: gn_silu(x, w, bias, 32, 1e-6), 20),
+            "plain_ms": device_ms(lambda: gn_silu_plain(x, w, bias, 32, 1e-6), 5),
+            "library_ms": device_ms(lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6)), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "split": split}
+        del x
+        torch.cuda.empty_cache()
+    first = by_batch[str(VAE_BATCH)]
+    return {"name": "gn_silu", "max_abs_err": max(errs.values()), "errors": errs,
+            "tol": f"{GN_SILU_TOL[0]} + {GN_SILU_TOL[1]} |want|, bf16, want from the plain "
+                   "version on the same inputs",
+            "shapes": [list(s) for s in DECODER_GN_SHAPES], "batches": list(errs),
+            "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library": "F.silu(F.group_norm(x, 32, w, b, 1e-6)), x channels-last",
+            "shape": first["shape"], "dtype": "bfloat16", "by_batch": by_batch}
+
+
 def _prod_models(root):
     """fp32 VAR and full VQVAE at the var_prod.npz geometry (d16 width,
     depth 2, 16 heads, 1000 classes, the 256px pyramid) with the weights
@@ -1241,7 +1340,7 @@ def phase_main_path(dev):
     first_s = time.perf_counter() - t0
     launches = _counts(kernels)
     sn = len(PATCH_NUMS)
-    want = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
+    want = {**_decode_want(DEPTH, sn, render=True), "flash_decode": DEPTH * sn}
     if launches != want:
         raise AssertionError(f"main path launches {launches}, want {want}")
     img, tokens = res.image, res.tokens
@@ -1284,6 +1383,8 @@ def _kernel_of(event: str):
         return "modulated_layernorm"
     if "topk_topp_bound" in n:
         return "topk_topp_bound"
+    if "gn_silu_" in n:  # its statistics, finalize and apply kernels
+        return "gn_silu"
     return None
 
 
@@ -1350,7 +1451,7 @@ def phase_graph_main_path(dev):
     pool_gb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e9
     entry = sampler.graphs[(BATCH, False)]
     sn = len(PATCH_NUMS)
-    want = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
+    want = {**_decode_want(DEPTH, sn, render=True), "flash_decode": DEPTH * sn}
     decode_kernels = {k: v for k, v in want.items() if v}
     if entry.launches != want:
         raise AssertionError(f"captured decode launches {entry.launches}, want {want}")
@@ -1436,12 +1537,15 @@ def _counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
 
 
-def _decode_want(depth: int, sn: int) -> dict:
+def _decode_want(depth: int, sn: int, render: bool = False) -> dict:
     """Launches of one CFG decode of ``sn`` scales over ``depth`` blocks with
-    the attention kernels at 0: the caller sets the one its cache uses."""
+    the attention kernels at 0: the caller sets the one its cache uses.
+    ``render``: the decode renders its images in bf16 (gn_silu's kernels
+    once a decoder GroupNorm); an fp32 render launches none of them."""
     return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
             "flash_decode_paired": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "paired_train_fwd": 0, "paired_train_bwd": 0, "gn_channel_stats": 0}
+            "paired_train_fwd": 0, "paired_train_bwd": 0, "gn_channel_stats": 0,
+            "gn_silu": RENDER_GN_LAUNCHES if render else 0}
 
 
 def _train_want(depth: int, impl: str = "paired") -> dict:
@@ -1846,7 +1950,8 @@ def _multigpu_want(case: str) -> dict:
     1 twice a block a scale, its attention row once, row 3 once a scale; a
     256px eval batch (the dense attention) none."""
     want = dict.fromkeys(_decode_want(MULTIGPU_DEPTH, 0), 0)
-    want.pop("gn_channel_stats")
+    for name in ("gn_channel_stats", "gn_silu"):  # apps/dryrun_multigpu.py counts neither
+        want.pop(name)
     sn = len(PATCH_NUMS)
     if case == "eval":
         return want
@@ -2224,10 +2329,11 @@ def phase_zeroshot_main_path(dev):
     setup_s = time.perf_counter() - t0
     kernels = _all_kernels()
     sn = len(PATCH_NUMS)
-    chunked = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
-    paired = {**_decode_want(DEPTH, sn), "flash_decode_paired": DEPTH * sn}
+    chunked = {**_decode_want(DEPTH, sn, render=True), "flash_decode": DEPTH * sn}
+    paired = {**_decode_want(DEPTH, sn, render=True), "flash_decode_paired": DEPTH * sn}
     wants = {"inpaint": chunked, "edit": chunked, "kv_window": paired, "prealloc": paired,
-             "smooth": {**chunked, "topk_topp_bound": 0},  # no top-k/top-p filter
+             # no top-k/top-p filter; the smooth sampler renders in float32
+             "smooth": {**chunked, "topk_topp_bound": 0, "gn_silu": 0},
              "classify": {**_train_want(DEPTH), "paired_train_fwd": DEPTH,
                           "paired_train_bwd": 0}}
     total = dict.fromkeys(_counts(kernels), 0)
@@ -2376,7 +2482,10 @@ def phase_zeroshot_cli(dev):
     kernels = _all_kernels()
     sn = len(PATCH_NUMS)
     decode = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
-    wants = {"inpaint": decode, "smooth": {**decode, "topk_topp_bound": 0},
+    # the inpainting CLI renders in bf16; smooth (its float32 render) and the
+    # classifier (float32) launch no gn_silu
+    wants = {"inpaint": {**decode, "gn_silu": RENDER_GN_LAUNCHES},
+             "smooth": {**decode, "topk_topp_bound": 0},
              "classify_bayesian": {**dict.fromkeys(decode, 0), "paired_train_fwd": DEPTH},
              "classify_gen": {k: CLF_CLASSES * v for k, v in decode.items()}}
     rows, failures = {}, []
@@ -3164,7 +3273,8 @@ def phase_vae_train_main_path(dev):
     gn_impl, counters set to 0 before one warm-up step and read after it
     (row 7 once per GroupNorm with "pallas", never with "dot", no other
     kernel), then 5 timed steps; then one bf16 decoder render of a batch
-    through each impl (row 7 once per decoder GroupNorm with "pallas").
+    through each impl (row 7 once per decoder GroupNorm with "pallas",
+    gn_silu's three kernels once per decoder GroupNorm with "dot").
     Returns {run: launches}."""
     from var_tpu_torch.config import VAEConfig
     from var_tpu_torch.engine.vae_trainer import make_vae_train_step, vocab_usage_percent
@@ -3231,7 +3341,8 @@ def phase_vae_train_main_path(dev):
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
             launches = _counts(kernels)
-            want = {**zero, "gn_channel_stats": n_dec if impl == "pallas" else 0}
+            want = {**zero, "gn_channel_stats": n_dec if impl == "pallas" else 0,
+                    "gn_silu": 3 * n_dec if impl == "dot" else 0}
             if launches != want:
                 raise AssertionError(f"render {impl} launches {launches}, want {want}")
             times = _timed(lambda i: fhat_to_img(vae, f_hat, impl), 5)
@@ -3353,7 +3464,7 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
     launches = _counts(kernels)
     batches = len(labels) // FID_BATCH
     sn = len(PATCH_NUMS)
-    want = {k: batches * v for k, v in {**_decode_want(DEPTH, sn),
+    want = {k: batches * v for k, v in {**_decode_want(DEPTH, sn, render=True),
                                         "flash_decode": DEPTH * sn}.items()}
     if launches != want:
         raise AssertionError(f"fid_sample launches {launches}, want {want}")
@@ -3713,6 +3824,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += phase_kernel_ptrain(dev)
     rows.append(phase_kernel_gn_stats(dev))
+    torch.cuda.empty_cache()
+    rows.append(phase_kernel_gn_silu(dev))
+    torch.cuda.empty_cache()
     for row in rows:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
@@ -3775,6 +3889,7 @@ def main() -> None:
                              "var_tpu/ops/pallas/flash_attention.py:1071"),
         "gn_channel_stats": ("var_tpu_torch/ops/cuda/csrc/gn_stats.cu",
                              "var_tpu/ops/pallas/gn_stats.py:51"),
+        "gn_silu": ("var_tpu_torch/ops/cuda/csrc/gn_silu.cu", None),  # replaces no JAX kernel
     }
     emit({"phase": "script", "seconds": time.perf_counter() - t_script,
           "seconds_eager_steps": EAGER_SCRIPT_S})

@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from var_tpu_torch.ops.attention import attention
 from var_tpu_torch.ops.cuda.flash_attention import (flash_attention, flash_attention_bwd,
@@ -25,6 +26,7 @@ from var_tpu_torch.ops.cuda.flash_attention import (flash_attention, flash_atten
 
 ROOT = Path(__file__).resolve().parent.parent
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
+from var_tpu_torch.ops.cuda.gn_silu import gn_silu, gn_silu_plain
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats, gn_channel_stats_plain
 from var_tpu_torch.ops.cuda.select import (bound_mass_gap, topk_topp_bound,
                                            topk_topp_bound_plain)
@@ -800,6 +802,166 @@ def test_cuda_gn_channel_stats_refuses_other_layouts(cuda):
         gn_channel_stats(x.half())
 
 
+# every GroupNorm input shape of the ch160 decoder: (C, H = W)
+DECODER_GN_SHAPES = [(640, 16), (640, 32), (320, 32), (320, 64), (320, 128), (160, 128),
+                     (160, 256)]
+
+
+def _gn_params(c, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (1 + 0.3 * torch.randn(c, generator=g, device=dev),
+            0.3 * torch.randn(c, generator=g, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu,with_bias_in", [(True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("b", [1, 8, 50])
+@pytest.mark.parametrize("c,hw", DECODER_GN_SHAPES)
+def test_cuda_gn_silu_matches_plain(cuda, c, hw, b, silu, with_bias_in):
+    """The channels-last GroupNorm-SiLU kernels against their plain version at
+    every decoder GroupNorm shape and batches 1, 8, 50, bf16, with and
+    without a convolution's bias taken in: one launch of each kernel, a
+    channels-last output within one bf16 rounding of the plain version's
+    (the same float32 arithmetic summed in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(c + hw + b)
+    x = (torch.randn(b, c, hw, hw, generator=g, device=cuda) * 2 + 0.5).to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    w, bias = _gn_params(c, cuda, c)
+    bias_in = torch.randn(c, generator=g, device=cuda) if with_bias_in else None
+    before = gn_silu.launches
+    got = gn_silu(x, w, bias, 32, 1e-6, silu, bias_in)
+    torch.cuda.synchronize()
+    assert gn_silu.launches == before + 3
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+    want = gn_silu_plain(x, w, bias, 32, 1e-6, silu, bias_in)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mean,std", [(torch.bfloat16, 64.0, 1.0),
+                                            (torch.float16, 1000.0, 2.0),
+                                            (torch.float16, -300.0, 0.05)])
+@pytest.mark.parametrize("c,hw", [(160, 256), (640, 16)])
+def test_cuda_gn_silu_large_mean_beside_a_small_spread(cuda, dtype, mean, std, c, hw):
+    """Groups whose mean is 60 to 6000 times their spread (327,680 elements
+    a group at level 0, batch 8), where E[x^2] - mean^2 in float32 would
+    lose the variance: against GroupNorm (then SiLU) in float64 on the same
+    inputs, the kernels' error is at most twice the plain version's
+    (torch.var_mean's statistics, the same float32 apply), or one output
+    rounding where that is larger."""
+    g = torch.Generator(device=cuda).manual_seed(int(abs(mean)))
+    x = (torch.randn(8, c, hw, hw, generator=g, device=cuda) * std + mean).to(
+        dtype, memory_format=torch.channels_last)
+    w, bias = _gn_params(c, cuda, 7)
+    for silu in (True, False):
+        ref = F.group_norm(x.double(), 32, w.double(), bias.double(), 1e-6)
+        if silu:
+            ref = F.silu(ref)
+        err = [float((t.double() - ref).abs().max()) for t in
+               (gn_silu(x, w, bias, 32, 1e-6, silu), gn_silu_plain(x, w, bias, 32, 1e-6, silu))]
+        one_rounding = float(ref.abs().max()) * torch.finfo(dtype).eps
+        assert err[0] <= 2 * max(err[1], one_rounding), (silu, err, one_rounding)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_silu_reruns_bit_identical_and_refuses_other_inputs(cuda):
+    """No atomics: two launches give the same bits. No quiet copy: float32,
+    dense NCHW, a width the vectors do not divide or bf16 weights are
+    refused."""
+    x = torch.randn(8, 160, 64, 64, device=cuda).to(torch.bfloat16,
+                                                     memory_format=torch.channels_last)
+    w, bias = _gn_params(160, cuda, 1)
+    assert torch.equal(gn_silu(x, w, bias, 32, 1e-6), gn_silu(x, w, bias, 32, 1e-6))
+    with pytest.raises(TypeError):
+        gn_silu(x.float(), w, bias, 32, 1e-6)
+    with pytest.raises(ValueError, match="channels-last"):
+        gn_silu(x.contiguous(), w, bias, 32, 1e-6)
+    with pytest.raises(ValueError, match="36 channels"):
+        x36 = x[:, :36].contiguous(memory_format=torch.channels_last)
+        gn_silu(x36, w[:36].contiguous(), bias[:36].contiguous(), 4, 1e-6)
+    with pytest.raises(ValueError, match="weight"):
+        gn_silu(x, w.bfloat16(), bias, 32, 1e-6)
+
+
+def _ch160_render_setup(dev, b=2):
+    """The published tokenizer (ch160) with seeded weights, norms that do
+    something, and a seeded bf16 f_hat (b, 16, 16, 32)."""
+    from var_tpu_torch.config import VAEConfig
+    from var_tpu_torch.models import vae as tv
+
+    vae = tv.init_vae_params(tv.VQVAE(VAEConfig()), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in vae.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g))
+    vae = vae.to(dev).eval().requires_grad_(False)
+    f_hat = torch.randn(b, 16, 16, 32, generator=g).to(dev) * 0.5
+    return tv, vae, f_hat
+
+
+@pytest.mark.cuda
+def test_cuda_channels_last_render_matches_the_nchw_chain(cuda, monkeypatch):
+    """A bf16 ``fhat_to_img`` of the ch160 decoder on the card, channels-last
+    through the kernels (39 GroupNorms counted under ``vae.gn_nhwc``),
+    against the same render through the NCHW ``F.group_norm`` chain
+    (``vae.gn_plain``), both against the float32 render with TF32 off: no
+    less precise, and within a few bf16 steps of the chain."""
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.utils import profiling
+
+    tv, vae, f_hat = _ch160_render_setup(cuda)
+    with torch.inference_mode():
+        with fp32_exact():
+            ref = tv.fhat_to_img(vae, f_hat)
+        profiling.reset()
+        new = tv.fhat_to_img(vae, f_hat.bfloat16())
+        assert profiling.counters()["vae.gn_nhwc"] == 39
+        monkeypatch.setattr(tv, "_NHWC_DEVICES", ())
+        old = tv.fhat_to_img(vae, f_hat.bfloat16())
+        c = profiling.counters()
+        assert (c["vae.gn_nhwc"], c["vae.gn_plain"]) == (39, 39)
+    torch.cuda.synchronize()
+    assert new.is_contiguous()
+    err_new, err_old = ((t.float() - ref).abs() for t in (new, old))
+    print(f"render err vs fp32: nhwc max {float(err_new.max()):.5f} mean "
+          f"{float(err_new.mean()):.6f}; nchw max {float(err_old.max()):.5f} mean "
+          f"{float(err_old.mean()):.6f}")
+    assert float(err_new.mean()) <= 1.25 * float(err_old.mean())
+    assert float(err_new.max()) <= 1.25 * float(err_old.max())
+    assert float((new.float() - old.float()).abs().max()) <= 4 * float(err_old.max())
+
+
+@pytest.mark.cuda
+def test_cuda_render_body_counts_39_channels_last_norms_a_run(cuda):
+    """The sampler's render (``render_fhat``) as a compiled program: its
+    first call runs the body eagerly and again for the capture, 39
+    GroupNorms channels-last each time and none plain; the capture records
+    the 117 kernel launches of those norms (three a norm); a replay runs no
+    Python and counts no norm, adds the recorded launches to
+    ``gn_silu.launches``, and gives the first call's image bit for bit."""
+    from var_tpu_torch.engine.compiled import Compiled
+    from var_tpu_torch.engine.sampler import render_fhat
+    from var_tpu_torch.utils import profiling
+
+    _, vae, f_hat = _ch160_render_setup(cuda, b=8)
+    prog = Compiled(lambda v, f: render_fhat(v, f, torch.bfloat16), 1, cuda)
+    profiling.reset()
+    first = prog(vae, f_hat).clone()
+    c = profiling.counters()
+    assert (c["vae.gn_nhwc"], c["vae.gn_plain"], c["compiled.captures"]) == (78, 0, 1)
+    (entry,) = prog.graphs.values()
+    assert entry.launches["gn_silu"] == 3 * 39
+    before = gn_silu.launches
+    again = prog(vae, f_hat)
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    assert (c["vae.gn_nhwc"], c["compiled.replays"]) == (78, 1)
+    assert gn_silu.launches == before + 3 * 39
+    assert torch.equal(first, again)
+
+
 @pytest.mark.cuda
 def test_cuda_tokenizer_training_step_equals_cpu(cuda):
     """One fp32 tokenizer-training forward and backward of a tiny VQVAE
@@ -849,6 +1011,17 @@ def test_planted_fault_fails_the_gn_stats_check(cuda, tmp_path):
     rc, last = _run_check(tmp_path, "check_gn_stats")
     print(json.dumps({"mutant": "gn_stats_drop_tail", "rc": rc, "error": last[:3000]}))
     assert rc != 0 and "gn_channel_stats differs from its plain version" in last
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_the_gn_silu_check(cuda, tmp_path):
+    """A copy of gn_silu's finalize kernel that merges the partials of every
+    tile but the last, built in tmp_path, must fail chip_smoke.check_gn_silu."""
+    _planted_copy(tmp_path, "gn_silu.cu", "for (int i = lane; i < tiles; i += 32)",
+                  "for (int i = lane; i < tiles - 1; i += 32)", min_count=1)
+    rc, last = _run_check(tmp_path, "check_gn_silu")
+    print(json.dumps({"mutant": "gn_silu_drop_last_tile", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "gn_silu differs from its plain version" in last
 
 
 @pytest.mark.cuda

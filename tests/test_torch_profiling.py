@@ -168,7 +168,8 @@ def test_a_decode_and_a_step_record_one_stamp_a_boundary(models):
 def test_counters_of_programs_on_the_cpu(models):
     """On the CPU a compiled program runs its body eagerly: its calls
     count, and no capture or replay does; a sampler call that replayed
-    nothing adds no host time."""
+    nothing adds no host time; each call's float32 render counts its
+    decoder's GroupNorms on the plain path."""
     profiling.reset()
     lin = torch.nn.Linear(2, 2)
     prog = Compiled(lambda m, x: m(x), 1, "cpu")
@@ -178,7 +179,9 @@ def test_counters_of_programs_on_the_cpu(models):
     sampler = tsm.make_sampler(var.cfg, vae.cfg, top_k=1, dtype=torch.float32, device="cpu")
     for _ in range(2):
         sampler(var.eval(), vae, torch.Generator().manual_seed(0), [1, 2])
-    assert profiling.counters() == {**{k: 0 for k in profiling.COUNTERS}, "compiled.calls": 5}
+    n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.decoder.modules())
+    assert profiling.counters() == {**{k: 0 for k in profiling.COUNTERS}, "compiled.calls": 5,
+                                    "vae.gn_plain": 2 * n_gn}
 
 
 def test_a_call_counts_its_host_time_when_it_replayed():

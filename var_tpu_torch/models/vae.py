@@ -1,10 +1,12 @@
 """VQVAE tokenizer: encoder, quantizer and decoder (counterpart of
 ``var_tpu/models/vae.py``).
 
-NCHW inside, with the reference module names (``models/basic_vae.py``,
-``models/vqvae.py``) so a whole reference state dict loads with
-``load_state_dict``: ``encoder.*``, ``quant_conv.*``, ``quantize.*``,
-``post_quant_conv.*``, ``decoder.*``. Convolutions cast their float32
+NCHW inside (a bf16 or fp16 decode without gradients on CUDA keeps
+channels-last memory throughout: :func:`channels_last_decode`), with the
+reference module names (``models/basic_vae.py``, ``models/vqvae.py``) so a
+whole reference state dict loads with ``load_state_dict``: ``encoder.*``,
+``quant_conv.*``, ``quantize.*``, ``post_quant_conv.*``, ``decoder.*``.
+Convolutions cast their float32
 weights to the input dtype at use, as the JAX package does, so the networks
 run in the compute dtype. Public tensors are NHWC: ``img_to_idxBl`` takes an
 image (B, H, W, 3) in [-1, 1] and returns the token pyramid; ``fhat_to_img``
@@ -32,7 +34,9 @@ from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.engine.compiled import Compiled
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
+from var_tpu_torch.ops.cuda.gn_silu import gn_silu
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
+from var_tpu_torch.utils.profiling import COUNTERS
 
 
 class Conv2d(nn.Conv2d):
@@ -40,6 +44,14 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+    def channels_last(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The same convolution with the weights cast to channels-last
+        memory too, so that cuDNN takes channels-last ``x`` as it is.
+        ``bias=False`` leaves the bias to the caller: PyTorch adds it in a
+        broadcasting pass of its own, which a norm's kernel can take in."""
+        w = self.weight.to(x.dtype, memory_format=torch.channels_last)
+        return self._conv_forward(x, w, self.bias.to(x.dtype) if bias else None)
 
 
 GN_IMPLS = ("dot", "xla", "pallas")
@@ -57,6 +69,7 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor, impl: str = "dot") -> torch.
     mean^2`` unclamped, the affine folded into one per-(batch, channel)
     scale and shift in float32, cast to x's dtype, applied as
     ``x * scale + shift``."""
+    COUNTERS["vae.gn_plain"] += 1
     if impl in ("dot", "xla"):
         return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
                             norm.eps)
@@ -72,6 +85,43 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor, impl: str = "dot") -> torch.
     g_shift = norm.bias.float().reshape(1, g, -1) - mean * g_scale
     return (x * g_scale.reshape(b, c, 1, 1).to(x.dtype)
             + g_shift.reshape(b, c, 1, 1).to(x.dtype))
+
+
+_NHWC_DEVICES = ("cuda",)  # where gn_silu has a kernel
+
+
+def channels_last_decode(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str) -> bool:
+    """Whether :func:`fhat_to_img` of ``f_hat`` runs channels-last: its
+    GroupNorms through ``ops/cuda/gn_silu.py`` (norm and SiLU in three
+    kernels: statistics, finalize, apply), its convolutions with
+    channels-last weights, its upsamples, adds and attention over NHWC
+    memory. Taken from the input
+    alone: ``f_hat`` on CUDA, bfloat16 or float16, no gradient wanted
+    (autograd off, or neither ``f_hat`` nor a parameter of
+    ``post_quant_conv`` or the decoder requiring one) and ``gn_impl`` "dot"
+    or "xla". Every other decode (float32, under autograd,
+    ``gn_impl="pallas"``, the CPU), the training forward and the encoder run
+    :func:`group_norm` over NCHW as before."""
+    trainable = (p.requires_grad for m in (vae.post_quant_conv, vae.decoder)
+                 for p in m.parameters())
+    return (f_hat.device.type in _NHWC_DEVICES
+            and f_hat.dtype in (torch.bfloat16, torch.float16) and gn_impl in ("dot", "xla")
+            and not (torch.is_grad_enabled() and (f_hat.requires_grad or any(trainable))))
+
+
+def gn_nhwc(norm: nn.GroupNorm, x: torch.Tensor, silu: bool = True,
+            bias_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``swish(group_norm(x + bias_in))`` (``silu=False``: the norm alone)
+    over channels-last ``x`` through the kernels of
+    ``ops/cuda/gn_silu.py``; ``bias_in``: the bias of the convolution that
+    made ``x``, left out of it (``Conv2d.channels_last(bias=False)``)."""
+    COUNTERS["vae.gn_nhwc"] += 1
+    return gn_silu(x, norm.weight.float(), norm.bias.float(), norm.num_groups, norm.eps, silu,
+                   None if bias_in is None else bias_in.float())
+
+
+def _conv(conv: Conv2d, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+    return conv.channels_last(x) if nhwc else conv(x)
 
 
 def _norm(c: int) -> nn.GroupNorm:
@@ -222,19 +272,34 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def resnet_block(blk: ResnetBlock, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
-    """norm-swish-conv x2 with a (1x1-projected) residual (``basic_vae.py:40-60``)."""
-    h = blk.conv1(swish(group_norm(blk.norm1, x, gn_impl)))
-    h = blk.conv2(swish(group_norm(blk.norm2, h, gn_impl)))
+def resnet_block(blk: ResnetBlock, x: torch.Tensor, gn_impl: str = "dot",
+                 nhwc: bool = False) -> torch.Tensor:
+    """norm-swish-conv x2 with a (1x1-projected) residual (``basic_vae.py:40-60``).
+    ``nhwc`` (:func:`channels_last_decode`): channels-last, conv1's bias
+    added inside norm2's kernel."""
+    if nhwc:
+        h = blk.conv1.channels_last(gn_nhwc(blk.norm1, x), bias=False)
+        h = blk.conv2.channels_last(gn_nhwc(blk.norm2, h, bias_in=blk.conv1.bias))
+    else:
+        h = blk.conv1(swish(group_norm(blk.norm1, x, gn_impl)))
+        h = blk.conv2(swish(group_norm(blk.norm2, h, gn_impl)))
     if blk.nin_shortcut is not None:
-        x = blk.nin_shortcut(x)
+        x = _conv(blk.nin_shortcut, x, nhwc)
     return x + h
 
 
-def attn_block(blk: AttnBlock, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
+def attn_block(blk: AttnBlock, x: torch.Tensor, gn_impl: str = "dot",
+               nhwc: bool = False) -> torch.Tensor:
     """Single-head self-attention over the spatial grid, in float32
-    (``basic_vae.py:63-92``); qkv channel blocks are q | k | v."""
+    (``basic_vae.py:63-92``); qkv channel blocks are q | k | v. ``nhwc``:
+    the same products over channels-last memory, (B, HW, C) a row a pixel."""
     b, c, h, w = x.shape
+    if nhwc:
+        qkv = blk.qkv.channels_last(gn_nhwc(blk.norm, x, silu=False))
+        q, k, v = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3, c).float().unbind(2)
+        attn = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (c ** -0.5), dim=-1)
+        out = torch.bmm(attn, v).to(x.dtype).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return x + blk.proj_out.channels_last(out)
     qkv = blk.qkv(group_norm(blk.norm, x, gn_impl)).reshape(b, 3, c, h * w).float()
     q, k, v = qkv.unbind(1)  # (B, C, HW) each
     attn = torch.softmax(torch.bmm(q.transpose(1, 2), k) * (c ** -0.5), dim=-1)
@@ -247,9 +312,9 @@ def downsample2x(ds: Downsample2x, x: torch.Tensor) -> torch.Tensor:
     return ds.conv(F.pad(x, (0, 1, 0, 1)))
 
 
-def upsample2x(up: Upsample2x, x: torch.Tensor) -> torch.Tensor:
+def upsample2x(up: Upsample2x, x: torch.Tensor, nhwc: bool = False) -> torch.Tensor:
     """Nearest 2x then a 3x3 conv (``basic_vae.py:22-28``)."""
-    return up.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+    return _conv(up.conv, F.interpolate(x, scale_factor=2.0, mode="nearest"), nhwc)
 
 
 def encoder_apply(enc: Encoder, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
@@ -269,22 +334,26 @@ def encoder_apply(enc: Encoder, x: torch.Tensor, gn_impl: str = "dot") -> torch.
     return enc.conv_out(swish(group_norm(enc.norm_out, h, gn_impl)))
 
 
-def decoder_apply(dec: Decoder, z: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
-    """(B, Cvae, h, w) -> (B, 3, 16h, 16w), NCHW (``basic_vae.py:210-226``)."""
-    h = dec.conv_in(z)
-    h = resnet_block(dec.mid.block_1, h, gn_impl)
+def decoder_apply(dec: Decoder, z: torch.Tensor, gn_impl: str = "dot",
+                  nhwc: bool = False) -> torch.Tensor:
+    """(B, Cvae, h, w) -> (B, 3, 16h, 16w), NCHW (``basic_vae.py:210-226``);
+    ``nhwc`` (:func:`channels_last_decode`): channels-last ``z`` in, the
+    whole decoder over channels-last memory."""
+    h = _conv(dec.conv_in, z, nhwc)
+    h = resnet_block(dec.mid.block_1, h, gn_impl, nhwc)
     if dec.mid.attn_1 is not None:
-        h = attn_block(dec.mid.attn_1, h, gn_impl)
-    h = resnet_block(dec.mid.block_2, h, gn_impl)
+        h = attn_block(dec.mid.attn_1, h, gn_impl, nhwc)
+    h = resnet_block(dec.mid.block_2, h, gn_impl, nhwc)
     for i in reversed(range(len(dec.up))):
         level = dec.up[i]
         for j, blk in enumerate(level.block):
-            h = resnet_block(blk, h, gn_impl)
+            h = resnet_block(blk, h, gn_impl, nhwc)
             if len(level.attn):
-                h = attn_block(level.attn[j], h, gn_impl)
+                h = attn_block(level.attn[j], h, gn_impl, nhwc)
         if level.upsample is not None:
-            h = upsample2x(level.upsample, h)
-    return dec.conv_out(swish(group_norm(dec.norm_out, h, gn_impl)))
+            h = upsample2x(level.upsample, h, nhwc)
+    h = gn_nhwc(dec.norm_out, h) if nhwc else swish(group_norm(dec.norm_out, h, gn_impl))
+    return _conv(dec.conv_out, h, nhwc)
 
 
 def _nchw(t: torch.Tensor, gn_impl: str) -> torch.Tensor:
@@ -300,8 +369,11 @@ def _nchw(t: torch.Tensor, gn_impl: str) -> torch.Tensor:
 def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """post_quant_conv + decoder, clamped to [-1, 1] (``vqvae.py:62-63``).
     f_hat: (B, h, w, Cvae) -> image (B, 16h, 16w, 3), in f_hat's dtype."""
-    z = vae.post_quant_conv(_nchw(f_hat, gn_impl))
-    img = decoder_apply(vae.decoder, z, gn_impl).clamp(-1.0, 1.0)
+    nhwc = channels_last_decode(vae, f_hat, gn_impl)
+    z = _conv(vae.post_quant_conv, _nchw(f_hat, gn_impl), nhwc)
+    if nhwc:
+        z = z.contiguous(memory_format=torch.channels_last)
+    img = decoder_apply(vae.decoder, z, gn_impl, nhwc).clamp(-1.0, 1.0)
     return img.permute(0, 2, 3, 1)
 
 

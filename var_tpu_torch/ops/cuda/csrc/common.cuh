@@ -3,6 +3,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -10,15 +11,19 @@
 namespace vtt {
 
 // dtype codes passed from Python (see ops/cuda/build.py::dtype_code)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as astype/.to() do
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Round a float through T: the value one elementwise op computed in T gives.

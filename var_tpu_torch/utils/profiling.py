@@ -53,6 +53,8 @@ COUNTERS: Dict[str, float] = {
     "sampler.host_s": 0.0,  # ... and their host seconds from entry to return
     "train.steps": 0,  # make_train_step's steps that replayed ...
     "train.host_s": 0.0,  # ... and theirs
+    "vae.gn_nhwc": 0,  # VQVAE GroupNorms run channels-last through ops/cuda/gn_silu.py ...
+    "vae.gn_plain": 0,  # ... and through models/vae.py::group_norm, as a body runs
 }
 
 
