@@ -158,6 +158,13 @@ level-0 shape (160 channels, 256 x 256) at both batches. Every bf16 render
 launches its three kernels once a decoder GroupNorm (RENDER_GN_LAUNCHES);
 fp32 renders, the training forward and ``gn_impl="pallas"`` none.
 
+The same checks and timings run again at the shapes of VAR-d36-s's 512px
+decode at batch 16 (``phase_kernel_d36_512``: C 2304, 36 heads, depth 36,
+the 512px pyramid, L 2240; rows 1-4 and ``gn_silu`` at the 512 x 512
+render), at the same tolerances, the decode checks at 8 rows; their rows
+carry ``config`` "d36-512" in the ``kernels`` line, with each stage's ms
+and bound.
+
 Each phase prints one JSON line; the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero. Imports nothing of JAX or
 of the JAX package.
@@ -234,6 +241,16 @@ RENDER_GN_LAUNCHES = 3 * DECODER_GN  # gn_silu's statistics, finalize and apply 
 # atol + rtol |want|, rtol one bf16 rounding (the same float32 arithmetic
 # summed in another order, then rounded once)
 GN_SILU_TOL = (1e-4, 2.0 ** -7)
+# VAR-d36-s at 512px (benchmark/configs/var-d36-512.json: C 2304, 36 heads of
+# 64, depth 36, the 512px pyramid, L 2240) as the cell d36-512-fid16 decodes
+# it, batch 16, rendering 512 x 512
+PATCH_NUMS_512 = (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)
+D36_C, D36_HEADS, D36_DEPTH, D36_BATCH = 2304, 36, 36, 16
+# rows of the d36 decode checks: the fp32 plain version's logits at the last
+# stage (Lq 1024 over Lk 2240, 36 heads) take 2.6 GB a copy at 8 rows; the
+# timings run the decode's own 2B = 32
+D36_CHECK_B2 = 8
+DECODER_GN_SHAPES_512 = tuple((c, 2 * h) for c, h in DECODER_GN_SHAPES)
 
 
 def emit(obj) -> None:
@@ -357,34 +374,36 @@ def check_ln(dev, b2: int, lens, c: int, dtypes=(torch.float32, torch.bfloat16))
     return errs
 
 
-def phase_kernel_ln(dev):
-    """Row 1 at every stage shape of the d16 CFG decode, (2B, pn^2, C) with
-    strided modulation rows as on the main path: held against the plain
-    version in fp32 and bf16, timed in bf16 at each stage; ``per_batch_ms``
-    sums 2 x depth launches per stage; ``ms`` is the last stage's."""
+def phase_kernel_ln(dev, batch: int = BATCH, patch_nums=PATCH_NUMS, c: int = C,
+                    depth: int = DEPTH):
+    """Row 1 at every stage shape of a CFG decode (default d16's), (2B,
+    pn^2, c) with strided modulation rows as on the main path: held against
+    the plain version in fp32 and bf16, timed in bf16 at each stage;
+    ``per_batch_ms`` sums 2 x depth launches per stage; ``ms`` is the last
+    stage's."""
     import torch.nn.functional as F
 
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
 
-    b2 = 2 * BATCH
-    lens, _ = _stage_lens()
-    errs = check_ln(dev, b2, lens, C)
+    b2 = 2 * batch
+    lens, _ = _stage_lens(patch_nums)
+    errs = check_ln(dev, b2, lens, c)
     g = torch.Generator(device=dev).manual_seed(11)
-    p6 = torch.randn(b2, 6, C, generator=g, device=dev) * 0.3
+    p6 = torch.randn(b2, 6, c, generator=g, device=dev) * 0.3
     scale, shift = p6[:, 2], p6[:, 4]  # strided rows, as on the main path
     stage_ms, stage_bound_ms = [], []
     for l in lens:
-        x = (torch.randn(b2, l, C, generator=g, device=dev) * 2 + 0.5).bfloat16()
+        x = (torch.randn(b2, l, c, generator=g, device=dev) * 2 + 0.5).bfloat16()
         stage_ms.append(device_ms(lambda: modulated_layernorm(x, scale, shift), 50))
-        nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
+        nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * c * 4
         stage_bound_ms.append(bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)[0])
     wall = call_ms(lambda: modulated_layernorm(x, scale, shift), 50)
     plain_ms = device_ms(lambda: modulated_layernorm_plain(x, scale, shift), 20)
     # the library yardstick (never used by the port): the nearest single call
-    library_ms = device_ms(lambda: F.layer_norm(x, (C,), eps=1e-6), 50)
-    nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * C * 4
+    library_ms = device_ms(lambda: F.layer_norm(x, (c,), eps=1e-6), 50)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * b2 * c * 4
     bound_ms, bound_by = bound(nbytes, 8.0 * x.numel(), FP32_FLOPS)
-    per_stage = 2 * DEPTH
+    per_stage = 2 * depth
     return {"name": "modulated_layernorm", "max_abs_err": errs[str(torch.bfloat16)],
             "max_abs_err_fp32": errs[str(torch.float32)],
             "tol": tolerances("modulated_layernorm"), "ms": stage_ms[-1], "call_ms": wall,
@@ -396,7 +415,7 @@ def phase_kernel_ln(dev):
             "stage_bound_ms": stage_bound_ms, "launches_per_stage": per_stage,
             "per_batch_ms": per_stage * sum(stage_ms),
             "per_batch_bound_ms": per_stage * sum(stage_bound_ms),
-            "shape": [b2, lens[-1], C], "dtype": "bfloat16"}
+            "shape": [b2, lens[-1], c], "dtype": "bfloat16"}
 
 
 def select_logits(g, rows: int, dev, v: int = V) -> torch.Tensor:
@@ -445,8 +464,8 @@ def check_select(dev, stage_rows, v: int, ks, top_p: float) -> dict:
             "checks": checks}
 
 
-def phase_kernel_select(dev):
-    """Row 3 at every stage shape of the d16 CFG decode, (B pn^2, V) rows
+def phase_kernel_select(dev, batch: int = BATCH, patch_nums=PATCH_NUMS):
+    """Row 3 at every stage shape of a CFG decode (default d16's), (B pn^2, V) rows
     with real ties: top-k bounds equal to the plain version's at k 1, 900
     and V; top-p bounds at p 0.96 within the mass-gap rule; two launches on
     the same logits bit-identical. Timed at each stage at the main path's
@@ -454,13 +473,13 @@ def phase_kernel_select(dev):
     launch per stage; ``ms`` is the last stage's."""
     from var_tpu_torch.ops.cuda.select import topk_topp_bound, topk_topp_bound_plain
 
-    lens, _ = _stage_lens()
-    checked = check_select(dev, [BATCH * l for l in lens], V, (1, TOP_K, 0), TOP_P)
+    lens, _ = _stage_lens(patch_nums)
+    checked = check_select(dev, [batch * l for l in lens], V, (1, TOP_K, 0), TOP_P)
     g = torch.Generator(device=dev).manual_seed(12)
     stage_ms, stage_bound_ms, stage_k1_ms = [], [], []
     for l in lens:
         # timed on N(0, 9) logits (ties only by chance), as the kernel table has been
-        logits = torch.randn(BATCH * l, V, generator=g, device=dev) * 3
+        logits = torch.randn(batch * l, V, generator=g, device=dev) * 3
         stage_ms.append(device_ms(lambda: topk_topp_bound(logits, TOP_K, TOP_P), 20))
         stage_k1_ms.append(device_ms(lambda: topk_topp_bound(logits, 1, TOP_P), 20))
         # the function reads each logit once and writes one int32 per row; a
@@ -483,10 +502,10 @@ def phase_kernel_select(dev):
             "bound_by": bound_by, "library_ms": library_ms,
             "library": f"torch.topk(logits, {TOP_K}): the nearest single call, not the same "
                        "function",
-            "stage_rows": [BATCH * l for l in lens], "stage_ms": stage_ms,
+            "stage_rows": [batch * l for l in lens], "stage_ms": stage_ms,
             "stage_bound_ms": stage_bound_ms, "stage_k1_ms": stage_k1_ms,
             "launches_per_stage": 1, "per_batch_ms": sum(stage_ms),
-            "per_batch_bound_ms": sum(stage_bound_ms), "shape": [BATCH * lens[-1], V],
+            "per_batch_bound_ms": sum(stage_bound_ms), "shape": [batch * lens[-1], V],
             "dtype": "float32"}
 
 
@@ -577,49 +596,60 @@ def check_decode(dev, dtypes=(torch.float32, torch.bfloat16), b2: int = 2 * BATC
     return errs
 
 
-def _sdpa_decode_ms(qn, k, v):
+def _sdpa_decode_ms(qn, k, v, heads: int = HEADS):
     """SDPA's device ms on the normalised q and the cache rows, as (B, H, L,
     d) views: the library yardstick, never used by the port."""
     import torch.nn.functional as F
 
-    b2, d = qn.shape[0], C // HEADS
-    qh, kh, vh = (t.reshape(b2, t.shape[1], HEADS, d).transpose(1, 2) for t in (qn, k, v))
+    b2, d = qn.shape[0], qn.shape[-1] // heads
+    qh, kh, vh = (t.reshape(b2, t.shape[1], heads, d).transpose(1, 2) for t in (qn, k, v))
     return device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), 20)
 
 
-def _decode_timings(run, shapes, dev, seed):
+def _decode_timings(run, shapes, dev, seed, b2: int = 2 * BATCH, c: int = C,
+                    heads: int = HEADS):
     """Device ms of ``run(qkv, k, v, lk)`` at each (Lq, Lk) of ``shapes``, on
     seeded bf16 inputs as the model feeds them (raw fused qkv, L2-normalised
-    K); the call ms of back-to-back calls at the first (smallest) shape,
-    where the host's issue time exceeds the device's; the inputs of the
-    last shape."""
+    K; b2 rows, width c, ``heads`` heads); the call ms of back-to-back calls
+    at the first (smallest) shape, where the host's issue time exceeds the
+    device's; the inputs of the last shape."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    b2, lmax = 2 * BATCH, max(lk for _, lk in shapes)
-    k = l2_heads(torch.randn(b2, lmax, C, generator=g, device=dev), HEADS).to(torch.bfloat16)
-    v = torch.randn(b2, lmax, C, generator=g, device=dev).to(torch.bfloat16)
+    lmax = max(lk for _, lk in shapes)
+    k = l2_heads(torch.randn(b2, lmax, c, generator=g, device=dev), heads).to(torch.bfloat16)
+    v = torch.randn(b2, lmax, c, generator=g, device=dev).to(torch.bfloat16)
     stage_ms, first_call_ms = [], None
     for lq, lk in shapes:
-        qkv = torch.randn(b2, lq, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+        qkv = torch.randn(b2, lq, 3 * c, generator=g, device=dev).to(torch.bfloat16)
         stage_ms.append(device_ms(lambda: run(qkv, k, v, lk), 10))
         if first_call_ms is None:  # host-bound: the host cost of one launch
             first_call_ms = call_ms(lambda: run(qkv, k, v, lk), 50)
     return stage_ms, first_call_ms, (qkv, k, v, lk)
 
 
-def _decode_row(name, errs, run, plain, shapes, dev, seed) -> dict:
-    """A decode kernel's row: its errors, stage ms and ms per batch (depth
-    16 x the stage sum), and at the last stage its device and call ms, the
-    plain version's, SDPA's and the bound."""
-    stage_ms, first_call_ms, (qkv, k, v, lk) = _decode_timings(run, shapes, dev, seed)
-    b2, l, d = qkv.shape[0], qkv.shape[1], C // HEADS
+def _decode_bound(b2: int, lq: int, lk: int, c: int, heads: int):
+    """(ms, by) of one decode attention launch: q, out, K and V in bf16
+    against 4 b2 H Lq Lk d tensor-core operations."""
+    nbytes = 2 * (2 * b2 * lq * c + 2 * b2 * lk * c)
+    return bound(nbytes, 4.0 * b2 * c * lq * lk, BF16_TENSOR_FLOPS)
+
+
+def _decode_row(name, errs, run, plain, shapes, dev, seed, b2: int = 2 * BATCH, c: int = C,
+                heads: int = HEADS, depth: int = DEPTH) -> dict:
+    """A decode kernel's row: its errors, stage ms and bounds and ms per
+    batch (depth x the stage sum), and at the last stage its device and
+    call ms, the plain version's, SDPA's and the bound."""
+    stage_ms, first_call_ms, (qkv, k, v, lk) = _decode_timings(run, shapes, dev, seed, b2, c,
+                                                               heads)
+    stage_bound_ms = [_decode_bound(b2, lq, lk_, c, heads)[0] for lq, lk_ in shapes]
+    l, d = qkv.shape[1], c // heads
     ms = device_ms(lambda: run(qkv, k, v, lk), 20)
     wall = call_ms(lambda: run(qkv, k, v, lk), 20)
     plain_ms = device_ms(lambda: plain(qkv, k, v, lk), 5)
-    qf = qkv[..., :C].float().reshape(b2, l, HEADS, d)
+    qf = qkv[..., :c].float().reshape(b2, l, heads, d)
     qn = (qf * torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24) * 4.0).to(torch.bfloat16)
-    library_ms = _sdpa_decode_ms(qn.reshape(b2, l, C), k[:, :lk], v[:, :lk])
-    nbytes = 2 * (2 * b2 * l * C + 2 * b2 * lk * C)  # q, out, K, V in bf16
-    bound_ms, bound_by = bound(nbytes, 4.0 * b2 * HEADS * l * lk * d, BF16_TENSOR_FLOPS)
+    del qf
+    library_ms = _sdpa_decode_ms(qn.reshape(b2, l, c), k[:, :lk], v[:, :lk], heads)
+    bound_ms, bound_by = _decode_bound(b2, l, lk, c, heads)
     return {"name": name, "max_abs_err": errs["bfloat16"],
             "max_err_bf16_ulps": errs["bfloat16_ulps"], "max_abs_err_fp32": errs["float32"],
             "tol": {**tolerances(name),
@@ -627,40 +657,47 @@ def _decode_row(name, errs, run, plain, shapes, dev, seed) -> dict:
                                 "want in fp32 from the same bf16 inputs"},
             "ms": ms, "call_ms": wall, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "sdpa_factor": ms / library_ms,
-            "stage_shapes": shapes, "stage_ms": stage_ms, "first_stage_call_ms": first_call_ms,
-            "ms_per_batch": DEPTH * sum(stage_ms),
-            "shape": [b2, l, lk, HEADS, d], "dtype": "bfloat16"}
+            "stage_shapes": shapes, "stage_ms": stage_ms, "stage_bound_ms": stage_bound_ms,
+            "first_stage_call_ms": first_call_ms, "ms_per_batch": depth * sum(stage_ms),
+            "bound_ms_per_batch": depth * sum(stage_bound_ms),
+            "shape": [b2, l, lk, heads, d], "dtype": "bfloat16"}
 
 
-def phase_kernel_attention(dev):
-    """Row 2 at the chunked stage shapes; timed at each stage, and in full at
-    the last (Lq 256, Lk 680), bf16, q norm in the kernel."""
+def phase_kernel_attention(dev, batch: int = BATCH, patch_nums=PATCH_NUMS, c: int = C,
+                           heads: int = HEADS, depth: int = DEPTH, check_b2: int = 2 * BATCH):
+    """Row 2 at the chunked stage shapes of a decode (default d16's; held at
+    ``check_b2`` rows); timed at each stage at 2B rows, and in full at the
+    last (d16: Lq 256, Lk 680), bf16, q norm in the kernel."""
     from var_tpu_torch.ops.cuda.flash_attention import flash_decode, flash_decode_plain
 
-    sm = torch.full((HEADS,), 4.0, device=dev)
+    shapes = chunked_shapes(patch_nums)
+    errs = check_decode(dev, b2=check_b2, c=c, heads=heads, shapes=shapes)
+    sm = torch.full((heads,), 4.0, device=dev)
     return _decode_row(
-        "flash_decode", check_decode(dev),
-        lambda qkv, k, v, lk: flash_decode(qkv, k, v, lk, HEADS, 1.0, sm),
-        lambda qkv, k, v, lk: flash_decode_plain(qkv, k, v, lk, HEADS, 1.0, sm),
-        chunked_shapes(), dev, 4)
+        "flash_decode", errs,
+        lambda qkv, k, v, lk: flash_decode(qkv, k, v, lk, heads, 1.0, sm),
+        lambda qkv, k, v, lk: flash_decode_plain(qkv, k, v, lk, heads, 1.0, sm),
+        shapes, dev, 4, 2 * batch, c, heads, depth)
 
 
-def kv_window2_shapes():
+def kv_window2_shapes(patch_nums=PATCH_NUMS):
     """(Lq, Lk) of every stage of the kv_window=2 decode: Lk = stage 0 and
     the last two stages."""
-    lens = _stage_lens()[0]
+    lens = _stage_lens(patch_nums)[0]
     return [(l, lens[0] + sum(lens[max(1, t - 1):t + 1])) for t, l in enumerate(lens)]
 
 
-def decode_paired_shapes():
+def decode_paired_shapes(patch_nums=PATCH_NUMS):
     """(Lq, Lk) of every stage of the prealloc decode (the chunked shapes)
     and of the kv_window=2 decode."""
-    return sorted(set(chunked_shapes() + kv_window2_shapes()))
+    return sorted(set(chunked_shapes(patch_nums) + kv_window2_shapes(patch_nums)))
 
 
-def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16), b2: int = 2 * BATCH,
+                        c: int = C, heads: int = HEADS, shapes=None) -> dict:
     """flash_decode_paired against its plain version at every (Lq, Lk) of
-    decode_paired_shapes, 2B = 16, C 1024, 16 heads, over rows [0, Lk) of a
+    ``shapes`` (default decode_paired_shapes), b2 rows (default 2B = 16),
+    width c (1024), ``heads`` heads (16), over rows [0, Lk) of a
     longer NaN-poisoned buffer: as an l2 model feeds it (the raw fused
     (2B, Lq, 3C) qkv with q_l2_scale_mul 4, the norm in the launch,
     L2-normalised K, scale 1), as a model without the norm feeds it (the
@@ -673,52 +710,59 @@ def check_decode_paired(dev, dtypes=(torch.float32, torch.bfloat16)) -> dict:
     from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
                                                         flash_decode_paired_plain)
 
+    shapes = shapes or decode_paired_shapes()
     g = torch.Generator(device=dev).manual_seed(6)
-    b2, lmax = 2 * BATCH, sum(_stage_lens()[0]) + POISON_ROWS
-    sm = torch.full((HEADS,), 4.0, device=dev)
+    lmax = max(lk for _, lk in shapes) + POISON_ROWS
+    sm = torch.full((heads,), 4.0, device=dev)
     errs, failures = {}, []
     for dtype in dtypes:
-        k_raw = torch.randn(b2, lmax, C, generator=g, device=dev)
-        v = torch.randn(b2, lmax, C, generator=g, device=dev).to(dtype)
-        k_l2 = l2_heads(k_raw, HEADS).to(dtype)
-        for lq, lk in decode_paired_shapes():
-            qkv = torch.randn(b2, lq, 3 * C, generator=g, device=dev).to(dtype)
-            q_raw = qkv[..., :C].float()
+        k_raw = torch.randn(b2, lmax, c, generator=g, device=dev)
+        v = torch.randn(b2, lmax, c, generator=g, device=dev).to(dtype)
+        k_l2 = l2_heads(k_raw, heads).to(dtype)
+        for lq, lk in shapes:
+            qkv = torch.randn(b2, lq, 3 * c, generator=g, device=dev).to(dtype)
+            q_raw = qkv[..., :c].float()
             cases = (("model", qkv, k_l2, 1.0, sm),
                      ("model_no_norm", qkv, k_raw.to(dtype), 0.125, None),
-                     ("prenormed", (l2_heads(q_raw, HEADS) * 4.0).to(dtype), k_l2, 1.0, None),
+                     ("prenormed", (l2_heads(q_raw, heads) * 4.0).to(dtype), k_l2, 1.0, None),
                      ("scale", q_raw.to(dtype), k_raw.to(dtype), 0.125, None))
             vp = _poisoned(v, lk)
             for case, q, k, scale, smul in cases:
-                got = flash_decode_paired(q, _poisoned(k, lk), vp, HEADS, scale, lk=lk,
+                got = flash_decode_paired(q, _poisoned(k, lk), vp, heads, scale, lk=lk,
                                           q_l2_scale_mul=smul).float()
-                want = flash_decode_paired_plain(q.float(), k.float(), v.float(), HEADS, scale,
+                want = flash_decode_paired_plain(q.float(), k.float(), v.float(), heads, scale,
                                                  lk, smul)
                 _check_errs("flash_decode_paired", dtype, got, want, errs, failures,
-                            f"{case} lq={lq} lk={lk}")
+                            f"{case} b2={b2} c={c} h={heads} lq={lq} lk={lk}")
     if failures:
         raise AssertionError("flash_decode_paired differs from its plain version: "
                              + "; ".join(failures))
     return errs
 
 
-def phase_kernel_decode_paired(dev):
-    """Row 4 at the stage shapes, the q norm in its launch, bf16: timed at
+def phase_kernel_decode_paired(dev, batch: int = BATCH, patch_nums=PATCH_NUMS, c: int = C,
+                               heads: int = HEADS, depth: int = DEPTH,
+                               check_b2: int = 2 * BATCH):
+    """Row 4 at the stage shapes of a decode (default d16's; held at
+    ``check_b2`` rows), the q norm in its launch, bf16: timed at 2B rows at
     each prealloc and each kv_window=2 stage, and in full at the last
-    prealloc stage (Lq 256, Lk 680)."""
+    prealloc stage (d16: Lq 256, Lk 680)."""
     from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
                                                         flash_decode_paired_plain)
 
-    sm = torch.full((HEADS,), 4.0, device=dev)
+    errs = check_decode_paired(dev, b2=check_b2, c=c, heads=heads,
+                               shapes=decode_paired_shapes(patch_nums))
+    sm = torch.full((heads,), 4.0, device=dev)
     run = lambda qkv, k, v, lk: flash_decode_paired(  # noqa: E731
-        qkv, k, v, HEADS, 1.0, lk=lk, q_l2_scale_mul=sm)
+        qkv, k, v, heads, 1.0, lk=lk, q_l2_scale_mul=sm)
     row = _decode_row(
-        "flash_decode_paired", check_decode_paired(dev), run,
-        lambda qkv, k, v, lk: flash_decode_paired_plain(qkv, k, v, HEADS, 1.0, lk, sm),
-        chunked_shapes(), dev, 7)
-    kvw_ms, _, _ = _decode_timings(run, kv_window2_shapes(), dev, 8)
-    row.update(stage_shapes_kv_window2=kv_window2_shapes(), stage_ms_kv_window2=kvw_ms,
-               ms_per_batch_kv_window2=DEPTH * sum(kvw_ms))
+        "flash_decode_paired", errs, run,
+        lambda qkv, k, v, lk: flash_decode_paired_plain(qkv, k, v, heads, 1.0, lk, sm),
+        chunked_shapes(patch_nums), dev, 7, 2 * batch, c, heads, depth)
+    kvw = kv_window2_shapes(patch_nums)
+    kvw_ms, _, _ = _decode_timings(run, kvw, dev, 8, 2 * batch, c, heads)
+    row.update(stage_shapes_kv_window2=kvw, stage_ms_kv_window2=kvw_ms,
+               ms_per_batch_kv_window2=depth * sum(kvw_ms))
     return row
 
 
@@ -1140,9 +1184,10 @@ def phase_kernel_gn_stats(dev):
             "dtype": "float32"}
 
 
-def check_gn_silu(dev, batches=(VAE_BATCH, 50)) -> dict:
+def check_gn_silu(dev, batches=(VAE_BATCH, 50), shapes=DECODER_GN_SHAPES) -> dict:
     """gn_silu against its plain version at every decoder GroupNorm shape
-    and each batch, bf16: the resnet blocks' norm-SiLU (with and without
+    (C, H = W) of ``shapes`` (default the 256px render's) and each batch,
+    bf16: the resnet blocks' norm-SiLU (with and without
     the bias of the convolution before) and the attention blocks' norm
     alone; three launches a call, a channels-last bf16 output, within
     GN_SILU_TOL. Raises on any violation; returns {batch: worst error}."""
@@ -1153,7 +1198,7 @@ def check_gn_silu(dev, batches=(VAE_BATCH, 50)) -> dict:
     errs, failures = {}, []
     for b in batches:
         worst = 0.0
-        for c, h in DECODER_GN_SHAPES:
+        for c, h in shapes:
             x = (torch.randn(b, c, h, h, generator=g, device=dev) * 2 + 0.5).to(
                 torch.bfloat16, memory_format=torch.channels_last)
             w = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
@@ -1179,10 +1224,11 @@ def check_gn_silu(dev, batches=(VAE_BATCH, 50)) -> dict:
     return errs
 
 
-def phase_kernel_gn_silu(dev):
-    """gn_silu at every decoder shape (check_gn_silu); timed at the
-    level-0 shape, (b, 160, 256, 256) bf16 with SiLU, at batches 8 and 50
-    (the first row of ``by_batch`` is the row's own): device ms by kernel,
+def phase_kernel_gn_silu(dev, batches=(VAE_BATCH, 50), shapes=DECODER_GN_SHAPES):
+    """gn_silu at every decoder shape of ``shapes`` (default the 256px
+    render's) at each of ``batches`` (check_gn_silu); timed at the level-0
+    shape (256px: (b, 160, 256, 256)), bf16 with SiLU, at each batch (the
+    first row of ``by_batch`` is the row's own): device ms by kernel,
     against its bound by bytes (read twice and written once, 6 bytes an
     element), its plain version and the library chain it replaced
     (``F.group_norm`` then ``F.silu`` on the same channels-last input)."""
@@ -1190,13 +1236,13 @@ def phase_kernel_gn_silu(dev):
 
     from var_tpu_torch.ops.cuda.gn_silu import gn_silu, gn_silu_plain
 
-    errs = check_gn_silu(dev)
+    errs = check_gn_silu(dev, batches, shapes)
     g = torch.Generator(device=dev).manual_seed(17)
-    c, h = DECODER_GN_SHAPES[-1]
+    c, h = shapes[-1]
     w = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
     bias = 0.3 * torch.randn(c, generator=g, device=dev)
     by_batch = {}
-    for b in (VAE_BATCH, 50):
+    for b in batches:
         x = (torch.randn(b, c, h, h, generator=g, device=dev) * 2 + 0.5).to(
             torch.bfloat16, memory_format=torch.channels_last)
         split = device_ms_by_name(lambda: gn_silu(x, w, bias, 32, 1e-6), 20)
@@ -1210,16 +1256,39 @@ def phase_kernel_gn_silu(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "split": split}
         del x
         torch.cuda.empty_cache()
-    first = by_batch[str(VAE_BATCH)]
+    first = by_batch[str(batches[0])]
     return {"name": "gn_silu", "max_abs_err": max(errs.values()), "errors": errs,
             "tol": f"{GN_SILU_TOL[0]} + {GN_SILU_TOL[1]} |want|, bf16, want from the plain "
                    "version on the same inputs",
-            "shapes": [list(s) for s in DECODER_GN_SHAPES], "batches": list(errs),
+            "shapes": [list(s) for s in shapes], "batches": list(errs),
             "ms": first["ms"], "call_ms": first["call_ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
             "library": "F.silu(F.group_norm(x, 32, w, b, 1e-6)), x channels-last",
             "shape": first["shape"], "dtype": "bfloat16", "by_batch": by_batch}
+
+
+def phase_kernel_d36_512(dev) -> list:
+    """Rows 1-4 and gn_silu at the shapes of VAR-d36-s's 512px CFG decode
+    at batch 16 (the benchmark cell d36-512-fid16), through the d16
+    phases' checks and timings at its sizes: row 1's C 2304 instantiation
+    over 2B = 32 rows of every stage; row 3 over B pn^2 rows up to 16384;
+    rows 2 and 4 at every stage of the chunked decode (Lq 1024 over Lk 2240
+    last), 36 heads, held at D36_CHECK_B2 rows and timed at 32, with each
+    stage's bound; gn_silu at every GroupNorm shape of the 512 x 512 render
+    at batch 16, timed at level 0 (160 channels, 512 x 512). The same
+    tolerances as at d16. Rows marked ``config`` "d36-512"."""
+    size = {"batch": D36_BATCH, "patch_nums": PATCH_NUMS_512}
+    width = {"c": D36_C, "heads": D36_HEADS, "depth": D36_DEPTH, "check_b2": D36_CHECK_B2}
+    rows = [phase_kernel_ln(dev, c=D36_C, depth=D36_DEPTH, **size),
+            phase_kernel_select(dev, **size)]
+    torch.cuda.empty_cache()
+    rows.append(phase_kernel_attention(dev, **size, **width))
+    torch.cuda.empty_cache()
+    rows.append(phase_kernel_decode_paired(dev, **size, **width))
+    torch.cuda.empty_cache()
+    rows.append(phase_kernel_gn_silu(dev, batches=(D36_BATCH,), shapes=DECODER_GN_SHAPES_512))
+    return [{**row, "config": "d36-512"} for row in rows]
 
 
 def _prod_models(root):
@@ -3827,6 +3896,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows.append(phase_kernel_gn_silu(dev))
     torch.cuda.empty_cache()
+    rows += phase_kernel_d36_512(dev)
+    torch.cuda.empty_cache()
     for row in rows:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
@@ -3893,11 +3964,15 @@ def main() -> None:
     }
     emit({"phase": "script", "seconds": time.perf_counter() - t_script,
           "seconds_eager_steps": EAGER_SCRIPT_S})
-    emit({"kernels": [{"name": r["name"], "route": "cuda", "source": meta[r["name"]][0],
-                       "replaces": meta[r["name"]][1], "launches": launches[r["name"]],
+    # launches: counted on the d16 paths; no path here runs a d36 decode
+    emit({"kernels": [{"name": r["name"], "config": r.get("config", "d16"), "route": "cuda",
+                       "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
+                       "launches": None if "config" in r else launches[r["name"]],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                       "stage_ms": r.get("stage_ms"),
+                       "stage_bound_ms": r.get("stage_bound_ms")}
                       for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

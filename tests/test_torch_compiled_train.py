@@ -321,32 +321,33 @@ _HOST_WRITES = ("tensor", "as_tensor", "from_numpy", "bincount")
 
 
 def _program(models, name):
-    """(program, its arguments) of one compiled body, called once so that
-    it has its entry."""
+    """(program, what holds its modules) of one compiled body, called once
+    so that it has its entry: an entry holds its modules weakly, so the
+    caller keeps them alive while it uses the entry."""
     vae_cfg, var_cfg, vae_params, params = models
     if name.startswith("var"):
         jargs = _jargs(ac=2, fp16=1, dscale=1) if name == "var_guarded_ac2" else _jargs()
         _, _, tinit, tstep = _steps(models, jargs, prog_si=1 if name == "var_prog" else -1)
         imgs, labels = _batches(var_cfg, vae_cfg, jargs, 3)[0]
-        state = tinit(_port_var(params, var_cfg))
-        tstep(state, _port_frozen_vae(vae_params, vae_cfg), torch.from_numpy(imgs),
-              torch.from_numpy(labels).long(), None, 5, 0.5)
-        return tstep.program
+        state, vae = tinit(_port_var(params, var_cfg)), _port_frozen_vae(vae_params, vae_cfg)
+        tstep(state, vae, torch.from_numpy(imgs), torch.from_numpy(labels).long(), None, 5, 0.5)
+        return tstep.program, (state, vae)
     if name == "vae":
         init, step = tvt.make_vae_train_step(_tcfg(VCFG), lr=VLR, tclip=VTCLIP, gn_impl="pallas")
         img = np.random.default_rng(2).uniform(-1, 1, (2, VRESO, VRESO, 3)).astype(np.float32)
-        step(init(_port_vae(_tiny_sd(0))), torch.from_numpy(img))
-        return step.program
+        state = init(_port_vae(_tiny_sd(0)))
+        step(state, torch.from_numpy(img))
+        return step.program, state
     if name == "eval":
         step = ttr.make_eval_step(_torch_cfg(var_cfg), _torch_cfg(vae_cfg), dtype=torch.float32)
-        step(_port_var(params, var_cfg), _port_frozen_vae(vae_params, vae_cfg),
-             torch.rand(2, 6, 6, 3) * 2 - 1, torch.tensor([1, 2]), torch.ones(2))
-        return step
+        var, vae = _port_var(params, var_cfg), _port_frozen_vae(vae_params, vae_cfg)
+        step(var, vae, torch.rand(2, 6, 6, 3) * 2 - 1, torch.tensor([1, 2]), torch.ones(2))
+        return step, (var, vae)
     imgs = np.random.default_rng(3).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
     ex = F.make_vae_extractor(vae_cfg=_tiny_vae_cfgs()[1], device="cpu") if name == "fid_vae" \
         else F.make_pixel_extractor(size=8, device="cpu")
     ex(imgs)
-    return ex.program
+    return ex.program, ex
 
 
 @pytest.mark.parametrize("name", ["var", "var_prog", "var_guarded_ac2", "vae", "eval",
@@ -356,7 +357,7 @@ def test_body_reads_nothing_back_to_the_host(models, monkeypatch, name):
     a tensor on the host patched to raise, and every way of making a tensor
     from host data (and torch.bincount, which reads its input's range
     back on a GPU) too: a capture allows none of them."""
-    program = _program(models, name)
+    program, _held = _program(models, name)
     (entry,) = program.graphs.values()
 
     def refuse(what):

@@ -7,6 +7,7 @@ machine without it (``-s`` shows the planted-fault errors):
 """
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -366,9 +367,11 @@ def test_cuda_prealloc_decode_equals_cpu(cuda, l2):
 def test_cuda_captured_sampler_with_stamps_replays_the_eager_decode(cuda):
     """A captured sampler, span stamps in its graph (``utils/profiling.py``),
     gives what the eager decode draws from the same generator state, bit for
-    bit; each replay writes 4 stamps a stage and 4 more into the device's
-    ring, and the spans rebuilt from it tile the replay on the device's
-    clock, the decode's layers one after another inside the program's own."""
+    bit; each replay writes 4 stamps a stage and 4 more, and 2 a block a
+    stage for the ``attention`` spans, into the device's ring, and the spans
+    rebuilt from it tile the replay on the device's clock, the decode's
+    layers one after another inside the program's own, each block's
+    attention inside its stage's ``transformer`` on stamps of its own."""
     from var_tpu_torch.config import VAEConfig, VARConfig
     from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
     from var_tpu_torch.models import vae as vae_mod
@@ -396,21 +399,31 @@ def test_cuda_captured_sampler_with_stamps_replays_the_eager_decode(cuda):
         got = sampler(var, vae, g_replay, labels)
         assert torch.equal(got.tokens, want.tokens) and torch.equal(got.image, want.image)
         assert torch.equal(g_replay.get_state(), g_eager.get_state())
-    stamps = 4 * len(pns) + 4
+    depth = var.cfg.depth
+    stamps = 4 * len(pns) + 4 + 2 * depth * len(pns)
     assert sampler.graphs[(3, False)].layout.n == stamps
     assert profiling._RINGS[dev.index].head % stamps == 0
     found = profiling.spans()
     c = profiling.counters()
     assert (c["compiled.replays"], c["sampler.calls"], c["compiled.captures"]) == (3, 3, 0)
-    assert len(found) == 3 * (stamps - 1) and len({s.call for s in found}) == 3
+    n_spans = 4 * len(pns) + 3 + depth * len(pns)
+    assert len(found) == 3 * n_spans and len({s.call for s in found}) == 3
     for call in {s.call for s in found}:
-        root, *layers = [s for s in found if s.call == call]
+        root, *rest = [s for s in found if s.call == call]
+        layers = [s for s in rest if s.name != "attention"]
+        attn = [s for s in rest if s.name == "attention"]
         assert root.name == "sample" and root.parent is None
         assert [s.name for s in layers] == ["start", *["transformer", "head", "filter",
                                                        "next_input"] * len(pns), "render"]
         assert layers[0].start_ns == root.start_ns and layers[-1].end_ns <= root.end_ns
         assert all(s.start_ns <= s.end_ns and s.parent == "sample" for s in layers)
         assert all(b.start_ns == a.end_ns for a, b in zip(layers, layers[1:]))
+        stages = [s for s in layers if s.name == "transformer"]
+        assert len(attn) == depth * len(pns)
+        for i, a in enumerate(attn):
+            t = stages[i // depth]
+            assert a.parent == "transformer" and t.start_ns < a.start_ns < a.end_ns < t.end_ns
+        assert all(b.start_ns > a.end_ns for a, b in zip(attn, attn[1:]))
 
 
 @pytest.mark.cuda
@@ -1197,3 +1210,146 @@ def test_cuda_programs_under_a_one_rank_nccl_mesh_replay_their_eager_bodies(cuda
         assert p["launches_replay"]["paired_train_fwd"] == ac * spec["var"]["depth"]
     if program == "decode":
         assert p["launches_replay"]["flash_decode"] == spec["var"]["depth"] * 3
+
+
+# VAR-d36-s at 512px (benchmark/configs/var-d36-512.json): the decode's
+# kernels at its shapes, its render, and a sampler whose model is dropped
+
+D36_C, D36_HEADS = 2304, 36
+
+
+@pytest.mark.cuda
+def test_cuda_d36_layernorm_at_the_last_512px_stage(cuda):
+    """Row 1's C 2304 instantiation (9 chunks a lane) at the last stage of a
+    batch-16 decode: 2B = 32 rows of 1024 tokens, bf16, the modulation as
+    strided rows of the (B, 6, C) AdaLN table; within the every-width
+    test's bf16 tolerance of the plain version."""
+    x, scale, shift = (torch.from_numpy(a).to(cuda) for a in _ln_inputs((32, 1024, D36_C), 36))
+    p6 = torch.stack([scale, scale, scale, shift, shift, shift], 1)
+    x = x.to(torch.bfloat16)
+    got = modulated_layernorm(x, p6[:, 2], p6[:, 4])
+    torch.cuda.synchronize()
+    want = modulated_layernorm_plain(x, p6[:, 2], p6[:, 4])
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("lq,lk", [(576, 1216), (1024, 2240)])
+def test_cuda_d36_decode_attention_at_the_512px_stages(cuda, paired, lq, lk):
+    """Rows 2 and 4 at the last two stages of the 512 pyramid, 36 heads of
+    64: queries from the fused (2B, Lq, 3C) qkv with the q norm in the
+    launch, over one layer's view of a (depth, 2B, 2240, C) cache whose K
+    rows are L2-normalised per head and whose rows from lk on are NaN;
+    within 3 bf16 ulps of max|want| of the plain version in fp32 (2B = 8:
+    the plain version's fp32 logits take 2.6 GB)."""
+    from var_tpu_torch.ops.cuda.flash_attention import (flash_decode_paired,
+                                                        flash_decode_paired_plain)
+
+    b, c, h, lmax = 8, D36_C, D36_HEADS, 2240
+    g = torch.Generator(device=cuda).manual_seed(lq)
+    qkv = torch.randn(b, lq, 3 * c, generator=g, device=cuda).to(torch.bfloat16)
+    kh = torch.randn(2, b, lmax, h, 64, generator=g, device=cuda)
+    k = (kh * torch.rsqrt((kh * kh).sum(-1, keepdim=True) + 1e-24)).reshape(2, b, lmax, c)
+    k, v = k.to(torch.bfloat16), torch.randn(2, b, lmax, c, generator=g, device=cuda).to(
+        torch.bfloat16)
+    k[:, :, lk:], v[:, :, lk:] = float("nan"), float("nan")
+    sm = torch.exp(torch.full((h,), math.log(4.0), device=cuda) + 0.1 * torch.randn(
+        h, generator=g, device=cuda))
+    if paired:
+        got = flash_decode_paired(qkv, k[1], v[1], h, 1.0, lk=lk, q_l2_scale_mul=sm).float()
+        torch.cuda.synchronize()
+        want = flash_decode_paired_plain(qkv.float(), k[1].float(), v[1].float(), h, 1.0, lk, sm)
+    else:
+        got = flash_decode(qkv, k[1], v[1], lk, h, 1.0, sm).float()
+        torch.cuda.synchronize()
+        want = flash_decode_plain(qkv.float(), k[1].float(), v[1].float(), lk, h, 1.0, sm)
+    assert bool(torch.isfinite(got).all())
+    m = float(want.abs().max())
+    ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(m))
+    assert float((got - want).abs().max()) <= 3 * ulp
+
+
+# every GroupNorm input shape of the ch160 decoder rendering 512 x 512
+DECODER_GN_SHAPES_512 = [(c, 2 * hw) for c, hw in DECODER_GN_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw", DECODER_GN_SHAPES_512)
+def test_cuda_gn_silu_at_the_512px_decoder_shapes(cuda, c, hw):
+    """The channels-last GroupNorm-SiLU kernels at every GroupNorm shape of a
+    512^2 render at batch 16 (level 0: C 160, 512^2, 1.3 GB in bf16), with
+    SiLU: as ``test_cuda_gn_silu_matches_plain``, within one bf16 rounding
+    of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(c + hw)
+    x = (torch.randn(16, c, hw, hw, generator=g, device=cuda) * 2 + 0.5).to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    w, bias = _gn_params(c, cuda, c)
+    got = gn_silu(x, w, bias, 32, 1e-6, True)
+    torch.cuda.synchronize()
+    want = gn_silu_plain(x, w, bias, 32, 1e-6, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_channels_last_render_at_512px_matches_the_nchw_chain(cuda, monkeypatch):
+    """The ch160 render of a 32 x 32 f_hat to 512 x 512 (the VQVAE's float32
+    spatial attention over 1024 positions), bf16 channels-last against the
+    NCHW chain, both against float32 with TF32 off, as the 256px test holds
+    them."""
+    from var_tpu_torch.device import fp32_exact
+
+    tv, vae, _ = _ch160_render_setup(cuda)
+    f_hat = torch.randn(2, 32, 32, 32, generator=torch.Generator().manual_seed(2)).to(cuda) * 0.5
+    with torch.inference_mode():
+        with fp32_exact():
+            ref = tv.fhat_to_img(vae, f_hat)
+        new = tv.fhat_to_img(vae, f_hat.bfloat16())
+        monkeypatch.setattr(tv, "_NHWC_DEVICES", ())
+        old = tv.fhat_to_img(vae, f_hat.bfloat16())
+    torch.cuda.synchronize()
+    assert new.shape == (2, 512, 512, 3) and new.is_contiguous()
+    err_new, err_old = ((t.float() - ref).abs() for t in (new, old))
+    print(f"512px render err vs fp32: nhwc max {float(err_new.max()):.5f} mean "
+          f"{float(err_new.mean()):.6f}; nchw max {float(err_old.max()):.5f} mean "
+          f"{float(err_old.mean()):.6f}")
+    assert float(err_new.mean()) <= 1.25 * float(err_old.mean())
+    assert float(err_new.max()) <= 1.25 * float(err_old.max())
+
+
+@pytest.mark.cuda
+def test_cuda_dropping_the_model_frees_the_sampler_pool(cuda):
+    """A captured sampler's entry dies with its model: once the model is
+    collected, the graph's pool (its KV cache among it, 356 MB here, seven
+    times the model's weights) returns to the device at ``empty_cache``
+    while the sampler lives on."""
+    import gc
+
+    from var_tpu_torch.config import VAEConfig, VARConfig
+    from var_tpu_torch.engine.sampler import make_sampler
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pns = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+    gen = torch.Generator().manual_seed(3)
+    vae = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(
+        vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
+    var = var_mod.init_var_params(var_mod.VAR(VARConfig(
+        num_classes=10, depth=4, embed_dim=512, num_heads=8, patch_nums=pns, vocab_size=64,
+        z_channels=8, cond_drop_rate=0.0, shared_aln=True, attn_l2_norm=True)), gen)
+    vae, var = vae.to(dev).eval(), var.to(dev).eval()
+    sampler = make_sampler(var.cfg, vae.cfg, device=dev, cfg_scale=1.5, top_k=8, top_p=0.9)
+    for seed in (0, 1):  # the capture, then a replay
+        sampler(var, vae, torch.Generator(device=dev).manual_seed(seed), [1] * 64)
+    torch.cuda.synchronize()
+    (entry,) = sampler.graphs.values()
+    assert entry.graph is not None and entry.pool_bytes > 4 * 128 * 680 * 512 * 2 * 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev)
+    del var
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert entry.dead and entry.graph is None
+    assert torch.cuda.memory_reserved(dev) <= held - entry.pool_bytes

@@ -10,6 +10,7 @@ generator state, bit for bit (the same code on the same inputs).
 """
 
 import copy
+import gc
 import os
 
 import jax
@@ -207,6 +208,26 @@ def test_other_modules_rekey_in_place_updates_do_not(tiny):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert sampler.graphs[slot] is not kept
+
+
+def test_an_entry_dies_with_its_model(tiny):
+    """A sampler's entry holds its model weakly: once the model is
+    collected the entry is dead, its static buffers (and on the card its
+    graph and pool) dropped, while the sampler lives on; a call with
+    another model makes a new entry that decodes as the eager function."""
+    sampler = tsampler.make_sampler(tiny.var.cfg, tiny.vae.cfg, device="cpu", **SAMPLED)
+    other = copy.deepcopy(tiny.var)
+    sampler(other, tiny.vae, _gen(1), tiny.label)
+    entry = sampler.graphs[(2, False)]
+    assert entry.var is other and not entry.dead and entry.out is not None
+    del other
+    gc.collect()
+    assert entry.dead and entry.var is None and entry.vae is tiny.vae
+    assert entry.out is None and entry.graph is None and entry.inputs == []
+    got = sampler(tiny.var, tiny.vae, _gen(1), tiny.label)
+    fresh = sampler.graphs[(2, False)]
+    assert fresh is not entry and fresh.var is tiny.var and not fresh.dead
+    _assert_same(got, _eager(tiny, tiny.var, tiny.label, 1, **SAMPLED)[0])
 
 
 @pytest.mark.parametrize("branch", ["chunked", "more_smooth"])

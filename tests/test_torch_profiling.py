@@ -5,7 +5,9 @@ counters, and the benchmark's readers of them. A captured program's stamps
 run only on the card (``tests/test_torch_cuda.py``)."""
 
 import collections
+import contextlib
 import copy
+import json
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from benchmark.harness.registry import Registry
 from var_tpu_torch.apps import dryrun_multigpu as dry
@@ -144,17 +147,18 @@ def test_the_decode_and_the_step_show_their_spans_under_a_profiler(models):
 
 
 def test_a_decode_and_a_step_record_one_stamp_a_boundary(models):
-    """Recorded as a capture records them: the decode's spans tile it (each
+    """Recorded as a capture records them: the decode's layers tile it (each
     starts where the one before it ended), four stamps a stage and four
-    more; the step's five layers take seven."""
+    more, and two more for each block's ``attention`` span inside
+    ``transformer``; the step's five layers take seven."""
     layout, launched = _recorded(lambda: _tiny_sample(models), "sample")
-    stages = len(SPEC["var"]["patch_nums"])
-    names = [s[0] for s in layout.spans]
-    assert names == ["sample", "start", *["transformer", "head", "filter",
-                                          "next_input"] * stages, "render"]
-    assert launched == layout.n == 4 * stages + 4
-    assert all(cur[2] == prev[3] for prev, cur in zip(layout.spans[1:], layout.spans[2:]))
-    assert all(s[1] == 0 for s in layout.spans[1:])
+    stages, depth = len(SPEC["var"]["patch_nums"]), models[1].cfg.depth
+    layers = [s for s in layout.spans if s[0] != "attention"]
+    assert [s[0] for s in layers] == ["sample", "start", *["transformer", "head", "filter",
+                                                           "next_input"] * stages, "render"]
+    assert launched == layout.n == 4 * stages + 4 + 2 * depth * stages
+    assert all(cur[2] == prev[3] for prev, cur in zip(layers[1:], layers[2:]))
+    assert all(s[1] == 0 for s in layers[1:])
     vae, _ = models
     step, state, (imgs, labels) = _tiny_step(models)
     hyper = torch.tensor([1e-4, 0.05, 1.0])
@@ -163,6 +167,91 @@ def test_a_decode_and_a_step_record_one_stamp_a_boundary(models):
         "train_step")
     assert [s[0] for s in layout.spans] == ["train_step", *TRAIN_SPANS]
     assert launched == layout.n == 7
+
+
+def test_attention_spans_stand_on_stamps_of_their_own(models):
+    """Each block of each stage puts one ``attention`` span under that
+    stage's ``transformer``, on a start and an end stamp that no other span
+    uses; ``transformer`` starts on the stamp its predecessor ended on and
+    ends on a stamp of its own after the last block."""
+    layout, _ = _recorded(lambda: _tiny_sample(models), "sample")
+    stages, depth = len(SPEC["var"]["patch_nums"]), models[1].cfg.depth
+    spans = layout.spans
+    attn = [i for i, s in enumerate(spans) if s[0] == "attention"]
+    assert len(attn) == depth * stages
+    for i in attn:
+        name, parent, a, b = spans[i]
+        assert spans[parent][0] == "transformer" and a < b
+        p_start, p_end = spans[parent][2:]
+        assert p_start < a and b < p_end
+        others = [st for j, sp in enumerate(spans) if j != i for st in sp[2:]]
+        assert a not in others and b not in others
+    per_stage = collections.Counter(spans[i][1] for i in attn)
+    assert sorted(per_stage.values()) == [depth] * stages
+
+
+class _OpLog(TorchDispatchMode):
+    """Appends each dispatched operation's name to ``log``."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.log.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _ops_by_span(models, attention_spans: bool, monkeypatch):
+    """[(name, the operations between its stamps)] of a decode recorded
+    with a fake launch that logs its stamps among the operations."""
+    from var_tpu_torch.models import var as var_mod
+
+    real = var_mod.span
+    if not attention_spans:  # the layout the decode had before the attention spans
+        monkeypatch.setattr(var_mod, "span", lambda name, *a, **k: contextlib.nullcontext()
+                            if name == "attention" else real(name, *a, **k))
+    log = []
+    with _OpLog(log), Recording(CPU, "sample", launch=lambda: log.append(None)) as layout:
+        _tiny_sample(models)
+    monkeypatch.setattr(var_mod, "span", real)
+    marks = [i for i, op in enumerate(log) if op is None]
+    assert len(marks) == layout.n
+    return [(name, [op for op in log[marks[a] + 1:marks[b]] if op is not None])
+            for name, _, a, b in layout.spans]
+
+
+def test_the_attention_spans_leave_every_layer_its_operations(models, monkeypatch):
+    """Every span the decode had before the attention spans bounds the same
+    operations, in order, with them as without them; an ``attention`` span
+    bounds the cached attention alone: its softmax, none of the QKV,
+    projection or FFN products (``linear``), the k norm's write into the
+    cache (``mul.out``), the V write (``copy_``) or the GELU."""
+    without = _ops_by_span(models, False, monkeypatch)
+    with_attn = _ops_by_span(models, True, monkeypatch)
+    assert "attention" not in {n for n, _ in without}
+    assert [(n, ops) for n, ops in with_attn if n != "attention"] == without
+    for name, ops in with_attn:
+        if name == "attention":
+            assert any("softmax" in op for op in ops), ops
+            assert not any(w in op for op in ops for w in ("linear", "mul.out", "copy_",
+                                                           "gelu")), ops
+
+
+def test_sampler_kv_bytes_counts_the_decode_cache(models):
+    """``sampler.kv_bytes``: the K and V buffers of a decode's cache, (depth,
+    2B, L, C) each, here float32; a smaller decode after it leaves it."""
+    vae, var = models
+    cfg = var.cfg
+    profiling.reset()
+    _tiny_sample(models)  # batch 2: the CFG batch is 4
+    want = 2 * cfg.depth * 4 * cfg.seq_len * cfg.embed_dim * 4
+    assert profiling.counters()["sampler.kv_bytes"] == want
+    with torch.inference_mode():
+        tsm.decode_cfg(var.eval(), vae, torch.tensor([1]), torch.Generator().manual_seed(0),
+                       top_k=1, dtype=torch.float32)
+    assert profiling.counters()["sampler.kv_bytes"] == want
+    profiling.reset()
 
 
 def test_counters_of_programs_on_the_cpu(models):
@@ -180,8 +269,9 @@ def test_counters_of_programs_on_the_cpu(models):
     for _ in range(2):
         sampler(var.eval(), vae, torch.Generator().manual_seed(0), [1, 2])
     n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.decoder.modules())
+    kv = 2 * var.cfg.depth * 4 * var.cfg.seq_len * var.cfg.embed_dim * 4  # float32, CFG batch 4
     assert profiling.counters() == {**{k: 0 for k in profiling.COUNTERS}, "compiled.calls": 5,
-                                    "vae.gn_plain": 2 * n_gn}
+                                    "vae.gn_plain": 2 * n_gn, "sampler.kv_bytes": kv}
 
 
 def test_a_call_counts_its_host_time_when_it_replayed():
@@ -201,7 +291,8 @@ def test_a_call_counts_its_host_time_when_it_replayed():
 NEW_READERS = ("transformer_ms.sample", "head_ms.sample", "filter_ms.sample",
                "next_input_ms.sample", "render_ms.sample", "host_ms.sample",
                "tokenize_ms.train", "forward_ms.train", "backward_ms.train",
-               "optimizer_ms.train", "allreduce_ms.train", "host_ms.train", "captures")
+               "optimizer_ms.train", "allreduce_ms.train", "host_ms.train", "captures",
+               "attention_ms.sample", "attention_roofline.sample", "kv_cache_gb.sample")
 
 
 def _view(batch):
@@ -246,3 +337,37 @@ def test_a_reader_of_a_synthetic_store(monkeypatch, name, batch, want):
                    "train.steps": 3, "compiled.captures": 2}.items():
         monkeypatch.setitem(profiling.COUNTERS, key, v)
     assert Registry(ROOT).reader(name)(_view(batch)) == pytest.approx(want)
+
+
+def _attention_spans(per_call: int, calls=(0, 1), ms: float = 0.1):
+    """``per_call`` attention spans of ``ms`` each in each replay of
+    ``calls``, under its stages' ``transformer``."""
+    ns = int(ms * 1e6)
+    return [Span("attention", "transformer", call, 0, i * 2 * ns, i * 2 * ns + ns)
+            for call in calls for i in range(per_call)]
+
+
+def test_the_attention_readers_of_a_synthetic_store(monkeypatch):
+    """``attention_ms.sample``: the spans' ms over the replays and the
+    batch; ``attention_roofline.sample``: row 2's bound of a call
+    (``benchmark/counts/kernels.py``, unchanged) times the replays over the
+    spans' seconds, None when a replay holds another number of spans than a
+    call launches; ``kv_cache_gb.sample``: the counter in GB."""
+    from benchmark.counts.kernels import sample_rows
+    from benchmark.reference.models import Sizes
+
+    reg = Registry(ROOT)
+    sizes = Sizes.from_config(json.loads((ROOT / "benchmark/configs/var-d36-512.json")
+                                         .read_text()))
+    view = SimpleNamespace(traffic={"batch": 16}, sizes=sizes, trace=None, capture_s=None,
+                           peak_bytes=None)
+    n, bound = sample_rows(sizes, 16)["row2"]
+    assert n == 36 * 10
+    monkeypatch.setattr(profiling, "spans", lambda: _attention_spans(n))
+    assert reg.reader("attention_ms.sample")(view) == pytest.approx(n * 0.1 / 16)
+    assert reg.reader("attention_roofline.sample")(view) == pytest.approx(
+        100 * bound * 2 / (2 * n * 1e-4))
+    monkeypatch.setattr(profiling, "spans", lambda: _attention_spans(n - 1))
+    assert reg.reader("attention_roofline.sample")(view) is None
+    monkeypatch.setitem(profiling.COUNTERS, "sampler.kv_bytes", 16 * 1_486_356_480)
+    assert reg.reader("kv_cache_gb.sample")(view) == pytest.approx(23.7817, abs=1e-4)

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -130,6 +131,15 @@ def _abandon_capture(pool_id: tuple, dev: torch.device, stream: torch.cuda.Strea
         pass
 
 
+def _hold(obj, gone: Callable) -> Callable:
+    """A call that returns ``obj``: a weak reference to a module, which
+    calls ``gone`` once the module is collected; any other object (a
+    training state) held."""
+    if isinstance(obj, torch.nn.Module):
+        return weakref.ref(obj, gone)
+    return lambda: obj
+
+
 def _leaves(res) -> list:
     return [res] if isinstance(res, torch.Tensor) else list(res)
 
@@ -155,13 +165,29 @@ class CompiledEntry:
     ``layout``: the device spans each replay writes
     (``utils/profiling.py``), recorded at the capture.
     ``pool``: the ``torch.cuda.MemPool`` the first call's eager run and
-    capture allocate in (None: the capture in a pool of its own)."""
+    capture allocate in (None: the capture in a pool of its own).
+
+    An entry holds its ``nn.Module``s weakly (training states strongly):
+    once one is collected, the graph, which reads its memory by pointer,
+    could never replay again, and :meth:`release` frees the graph, its pool
+    and the static buffers (``dead``), so that dropping the model frees
+    what the program captured (a sampler's pool holds a whole decode's KV
+    cache) even while the program lives on."""
 
     pool = None
+    dead = False
 
     def __init__(self, key: tuple, modules, inputs, fn: Callable, random: bool,
                  dev: torch.device):
-        self.key, self.modules, self._fn, self._random = key, tuple(modules), fn, random
+        me = weakref.ref(self)
+
+        def gone(_ref) -> None:
+            entry = me()
+            if entry is not None:
+                entry.release()
+
+        self._refs = tuple(_hold(m, gone) for m in modules)
+        self.key, self._fn, self._random = key, fn, random
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
@@ -175,6 +201,19 @@ class CompiledEntry:
         self.layout: Optional[profiling.Layout] = None
         self.capture_s = 0.0
         self.pool_bytes = 0
+
+    @property
+    def modules(self) -> tuple:
+        """The modules (or training states); a collected module is None."""
+        return tuple(r() for r in self._refs)
+
+    def release(self) -> None:
+        """Drop the graph, its generator and the static buffers: the pool's
+        memory returns to the device at the allocator's next
+        ``empty_cache``. A call of the same slot makes a new entry."""
+        self.dead = True
+        self.graph = self.generator = self.out = None
+        self.inputs = []
 
     def load(self, inputs) -> None:
         for buf, x in zip(self.inputs, inputs):
@@ -325,7 +364,8 @@ class Compiled:
         with self._mode():
             key, slot = modules_key(modules), self._slot(*inputs)
             entry = self.graphs.get(slot)
-            if entry is None or entry.key != key or entry.signature != signature(inputs):
+            if entry is None or entry.dead or entry.key != key \
+                    or entry.signature != signature(inputs):
                 entry = self.graphs[slot] = self._entry_cls(key, modules, inputs, self.fn,
                                                             self.random, self.device)
                 entry.pool = self.pool

@@ -51,8 +51,8 @@ from var_tpu_torch.ops.resize import resize_bilinear
 from var_tpu_torch.ops.sampling import gumbel_softmax, sample_with_top_k_top_p
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, capturable, data_rows, gather_data
+from var_tpu_torch.utils.profiling import COUNTERS, span
 from var_tpu_torch.utils.profiling import call as profiled_call
-from var_tpu_torch.utils.profiling import span
 
 CACHE_IMPLS = ("chunked", "prealloc", "concat")
 
@@ -127,6 +127,15 @@ def _next_input(var: var_mod.VAR, nxt: torch.Tensor, lvl_pos: torch.Tensor, cur:
     return (ntm + lvl_pos[:, cur:cur + nseg]).repeat(2, 1, 1)
 
 
+def _decode_cache(var_cfg, batch: int, dtype: torch.dtype, device, *args) -> var_mod.KVCache:
+    """A decode's KV cache (``var.init_prealloc_caches``); the counter
+    ``sampler.kv_bytes`` keeps the largest such K and V pair's bytes."""
+    cache = var_mod.init_prealloc_caches(var_cfg, batch, dtype, device, *args)
+    nbytes = 2 * cache.k.numel() * cache.k.element_size()
+    COUNTERS["sampler.kv_bytes"] = max(COUNTERS["sampler.kv_bytes"], nbytes)
+    return cache
+
+
 def _start(var: var_mod.VAR, label_b: torch.Tensor, dtype: torch.dtype,
            mesh: Optional[Mesh] = None):
     """(cond_bd (2B, C), per-block context, lvl_pos (1, L, C), first token
@@ -190,7 +199,7 @@ def _decode_rows(var, vae, label_b, generator, cfg_scale, top_k, top_p, more_smo
         f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
         lmax = None if kv_window is None else window_len(pns, kv_window)
         paired = cache_impl != "chunked" or kv_window is not None
-        cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device, lmax, paired, mesh)
+        cache = _decode_cache(var_cfg, 2 * b, dtype, device, lmax, paired, mesh)
     cur = 0
     token_segs = []
     for si, pn in enumerate(pns):
@@ -332,7 +341,10 @@ def make_sampler(
 
     Tracing (``utils/profiling.py``): the decode marks its layers (``start``;
     per stage ``transformer``, ``head``, ``filter``, ``next_input``; then
-    ``render``), device spans of each replay, 4 stamps a stage and 4 more; a
+    ``render``), device spans of each replay, 4 stamps a stage and 4 more,
+    and inside each ``transformer`` one ``attention`` span a block around
+    the cached-attention launch, on 2 stamps of its own (2 x depth stamps a
+    stage more: 4 x 10 + 4 + 2 x 36 x 10 = 764 a d36 decode); a
     call is the host span ``sampler.call`` (``sampler.inputs``, the
     program's load and replay, ``sampler.outputs``) and, when it replayed,
     counts in ``sampler.calls`` and ``sampler.host_s``."""
@@ -482,7 +494,7 @@ def smooth_sampling(
         _, top_n, top_n_dists = codebook_neighbor_tables(quant.embedding.weight, n)
         cond_bd, ctx, lvl_pos, ntm = _start(var, label_b, dtype)
         f_hat = torch.zeros(b, pns[-1], pns[-1], vae_cfg.z_channels, device=device)
-        cache = var_mod.init_prealloc_caches(var_cfg, 2 * b, dtype, device)
+        cache = _decode_cache(var_cfg, 2 * b, dtype, device)
         cur = 0
         sum_ll = torch.zeros((), device=device)
         sum_dll = torch.zeros((), device=device)

@@ -62,6 +62,7 @@ from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, data_rows
+from var_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +345,9 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
     both run on this rank's ``H // mp`` heads (JAX's ``decode_paired`` and
     ``decode_paired_chunks`` bridges), an odd count too: the kernels take
     one head a block, where JAX's paired kernels want head pairs and leave
-    such a mesh to XLA (``var.py:374``, ``:441``)."""
+    such a mesh to XLA (``var.py:374``, ``:441``). The span ``attention``
+    (``utils/profiling.py``, on stamps of its own) bounds the kernel's
+    launch alone."""
     b, l, _ = x.shape
     h, d = sa.local_heads(cfg.num_heads, mesh), cfg.head_dim
     c = h * d
@@ -363,12 +366,13 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
         scale = 0.25 / math.sqrt(d)
         k_dst.copy_(k)
     cache.v[layer, :, cum:cum + l] = v
-    if cache.paired:
-        out = flash_decode_paired(qkv, cache.k[layer], cache.v[layer], h, scale, lk=cum + l,
-                                  q_l2_scale_mul=ctx.scale_mul)
-    else:
-        out = flash_decode(qkv, cache.k[layer], cache.v[layer], cum + l, h, scale,
-                           q_l2_scale_mul=ctx.scale_mul)
+    k_l, v_l = cache.k[layer], cache.v[layer]
+    with span("attention", own=True):
+        if cache.paired:
+            out = flash_decode_paired(qkv, k_l, v_l, h, scale, lk=cum + l,
+                                      q_l2_scale_mul=ctx.scale_mul)
+        else:
+            out = flash_decode(qkv, k_l, v_l, cum + l, h, scale, q_l2_scale_mul=ctx.scale_mul)
     return _row_linear(attn.proj, out, mesh)
 
 

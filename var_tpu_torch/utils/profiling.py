@@ -12,7 +12,13 @@ puts a one-thread stamp kernel (``ops/cuda/csrc/span_stamp.cu``, named
 mark boundaries: a span's start is the stamp before it when another span
 entered or exited before it (work between two spans counts to the later
 one), and its end is the stamp of an exit right before it; the outermost
-span, named by the program, always starts and ends on stamps of its own. At
+span, named by the program, always starts and ends on stamps of its own.
+Such layer-boundary spans tile their parent. A span made with ``own=True``
+instead bounds exactly the work inside it, nested in a layer (the decode's
+``attention`` around each cached-attention launch): it starts and ends on
+stamps of its own, and the next span event after either of them stamps
+anew too, so its neighbours' boundaries stay where they were without it
+and the work between it and them stays theirs. At
 the capture the host records the program's :class:`Layout` (its spans'
 names, nesting and stamps); at each replay, where in the ring the replay
 starts and its call id (the replay's index, :data:`COUNTERS`'
@@ -36,7 +42,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +57,7 @@ COUNTERS: Dict[str, float] = {
     "compiled.replays": 0,
     "sampler.calls": 0,  # make_sampler's calls that replayed ...
     "sampler.host_s": 0.0,  # ... and their host seconds from entry to return
+    "sampler.kv_bytes": 0,  # bytes of the K and V buffers of the largest decode cache made
     "train.steps": 0,  # make_train_step's steps that replayed ...
     "train.host_s": 0.0,  # ... and theirs
     "vae.gn_nhwc": 0,  # VQVAE GroupNorms run channels-last through ops/cuda/gn_silu.py ...
@@ -124,17 +131,18 @@ class span:
     """``with span(name): ...`` around a layer of a program's body: its
     device span while a :class:`Recording` records the capture, else a host
     ``record_function`` range (``args``: a string shown with it) while a
-    profiler is active, else nothing."""
+    profiler is active, else nothing. ``own``: the device span starts and
+    ends on stamps of its own (see the module docstring)."""
 
-    __slots__ = ("name", "args", "_rec", "_rf")
+    __slots__ = ("name", "args", "own", "_rec", "_rf")
 
-    def __init__(self, name: str, args: Optional[str] = None):
-        self.name, self.args, self._rec, self._rf = name, args, None, None
+    def __init__(self, name: str, args: Optional[str] = None, own: bool = False):
+        self.name, self.args, self.own, self._rec, self._rf = name, args, own, None, None
 
     def __enter__(self):
         if _recording is not None:
             self._rec = _recording
-            self._rec.enter(self.name)
+            self._rec.enter(self.name, self.own)
         elif _autograd_profiler._is_profiler_enabled:
             self._rf = _autograd_profiler.record_function(self.name, self.args)
             self._rf.__enter__()
@@ -163,8 +171,8 @@ class Recording:
                 _RINGS[device.index] = _Ring(device)
             launch = _RINGS[device.index].stamp
         self.name, self._launch, self.layout = name, launch, Layout()
-        self._stack: List[int] = []
-        self._last: Optional[str] = None  # the kind of the last span event
+        self._stack: List[Tuple[int, bool]] = []  # (index in layout.spans, own)
+        self._last: Optional[str] = None  # the last span event; None: the next stamps anew
         self._root = span(name)
 
     def __enter__(self) -> Layout:
@@ -189,17 +197,18 @@ class Recording:
         self.layout.n += 1
         return self.layout.n - 1
 
-    def enter(self, name: str) -> None:
-        k = self.layout.n - 1 if self._last is not None else self._stamp()
-        self._stack.append(len(self.layout.spans))
-        self.layout.spans.append([name, self._stack[-2] if len(self._stack) > 1 else -1, k, -1])
-        self._last = "enter"
+    def enter(self, name: str, own: bool = False) -> None:
+        k = self._stamp() if own or self._last is None else self.layout.n - 1
+        parent = self._stack[-1][0] if self._stack else -1
+        self._stack.append((len(self.layout.spans), own))
+        self.layout.spans.append([name, parent, k, -1])
+        self._last = None if own else "enter"
 
     def exit(self) -> None:
-        i = self._stack.pop()
-        shared = self._last == "exit" and self._stack
+        i, own = self._stack.pop()
+        shared = not own and self._last == "exit" and self._stack
         self.layout.spans[i][3] = self.layout.n - 1 if shared else self._stamp()
-        self._last = "exit"
+        self._last = None if own else "exit"
 
 
 def replayed(layout: Optional[Layout], device: torch.device) -> None:
