@@ -158,6 +158,15 @@ level-0 shape (160 channels, 256 x 256) at both batches. Every bf16 render
 launches its three kernels once a decoder GroupNorm (RENDER_GN_LAUNCHES);
 fp32 renders, the training forward and ``gn_impl="pallas"`` none.
 
+``kv_write`` (the decode's K L2 norm and K/V cache write in one launch, no
+row in the table: the JAX package leaves both to XLA) is held against its
+plain version at the last decode stage of d16, d30 and d36 (2B 100 / 16 /
+32, Lq 256 / 256 / 1024), in fp32, bf16 and fp16, with and without the
+norm, into cache buffers whose rows outside the stage are NaN and must stay
+so (KV_WRITE_ULPS), and timed in bf16 at the d16 and d36 shapes against its
+bound by bytes and the seven PyTorch launches it replaced. Every decode
+launches it once a block a stage (``_decode_want``); training none.
+
 The same checks and timings run again at the shapes of VAR-d36-s's 512px
 decode at batch 16 (``phase_kernel_d36_512``: C 2304, 36 heads, depth 36,
 the 512px pyramid, L 2240; rows 1-4 and ``gn_silu`` at the 512 x 512
@@ -241,6 +250,14 @@ RENDER_GN_LAUNCHES = 3 * DECODER_GN  # gn_silu's statistics, finalize and apply 
 # atol + rtol |want|, rtol one bf16 rounding (the same float32 arithmetic
 # summed in another order, then rounded once)
 GN_SILU_TOL = (1e-4, 2.0 ** -7)
+# kv_write's normed K against its plain version on the same inputs, in units
+# in the last place of the cache dtype: the same float32 arithmetic, the
+# head's 64-term sum of squares in another order, then one rounding. In bf16
+# and fp16 that is at most one rounding step; a float32 cache keeps the
+# float32 differences of the two orders (4 ulps at most over the three
+# cells' last stages, 16% of elements differing: the sum's last bit, then
+# rsqrt's)
+KV_WRITE_ULPS = {torch.float32: 8, torch.bfloat16: 1, torch.float16: 1}
 # VAR-d36-s at 512px (benchmark/configs/var-d36-512.json: C 2304, 36 heads of
 # 64, depth 36, the 512px pyramid, L 2240) as the cell d36-512-fid16 decodes
 # it, batch 16, rendering 512 x 512
@@ -1268,6 +1285,128 @@ def phase_kernel_gn_silu(dev, batches=(VAE_BATCH, 50), shapes=DECODER_GN_SHAPES)
             "shape": first["shape"], "dtype": "bfloat16", "by_batch": by_batch}
 
 
+def dtype_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in units in the last place of ``want``'s dtype at
+    each |want| (float64 arithmetic; subnormals take the smallest normal's
+    spacing)."""
+    fi = torch.finfo(want.dtype)
+    w = want.double()
+    e = torch.floor(torch.log2(w.abs().clamp(min=fi.tiny)))
+    ulp = torch.exp2(e + float(np.log2(fi.eps)))  # eps: 2^-(mantissa bits)
+    return float(((got.double() - w).abs() / ulp).max())
+
+
+# the last decode stage (2B, Lq, L, C, heads) of each sampling cell
+KV_WRITE_SHAPES = {"d16": (2 * 50, 256, 680, C, HEADS), "d30": (2 * 8, 256, 680, 1920, 30),
+                   "d36": (2 * D36_BATCH, 1024, 2240, D36_C, D36_HEADS)}
+
+
+def _kv_stage(dev, dtype, b2: int, lq: int, lmax: int, c: int, seed: int):
+    """A fused qkv (b2, lq, 3c) of the last stage, and (2, b2, lmax +
+    POISON_ROWS, c) K and V caches filled with NaN, whose layer 1 takes the
+    stage at rows [lmax - lq, lmax): (qkv, k cache, v cache, cum)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (torch.randn(b2, lq, 3 * c, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    kc = torch.full((2, b2, lmax + POISON_ROWS, c), float("nan"), dtype=dtype, device=dev)
+    return qkv, kc, kc.clone(), lmax - lq
+
+
+def _kv_views(qkv, kc, vc, cum: int):
+    c, lq = qkv.shape[-1] // 3, qkv.shape[1]
+    return (qkv[..., c:2 * c], qkv[..., 2 * c:], kc[1, :, cum:cum + lq],
+            vc[1, :, cum:cum + lq])
+
+
+def check_kv_write(dev, shapes=None, dtypes=(torch.float32, torch.bfloat16, torch.float16)):
+    """kv_write against its plain version on the same inputs at each shape of
+    ``shapes`` (default ``KV_WRITE_SHAPES``), with and without the norm:
+    every written K within ``KV_WRITE_ULPS`` of the cache dtype (bit for bit
+    without the norm), V bit for bit, every other row of the NaN-filled
+    caches still NaN, and a second launch bit for bit the first. Raises on
+    any violation; returns {shape/dtype: {"ulps": worst ulps, "abs": worst
+    |got - want|}}."""
+    from var_tpu_torch.ops.cuda.kv_write import kv_write, kv_write_plain
+
+    out = {}
+    for name, (b2, lq, lmax, c, heads) in (shapes or KV_WRITE_SHAPES).items():
+        for dtype in dtypes:
+            qkv, kc, vc, cum = _kv_stage(dev, dtype, b2, lq, lmax, c, seed=b2 + c)
+            written = torch.zeros(kc.shape[:3], dtype=torch.bool, device=dev)
+            written[1, :, cum:cum + lq] = True
+            worst = {"ulps": 0.0, "abs": 0.0}
+            for norm in (True, False):
+                caches = [(kc.clone(), vc.clone()) for _ in range(3)]
+                kv_write(*_kv_views(qkv, *caches[0], cum), heads, norm)
+                kv_write(*_kv_views(qkv, *caches[1], cum), heads, norm)
+                kv_write_plain(*_kv_views(qkv, *caches[2], cum), heads, norm)
+                torch.cuda.synchronize()
+                (gk, gv), (rk, rv), (wk, wv) = caches
+                ulps = dtype_ulps(gk[written], wk[written])
+                worst = {"ulps": max(worst["ulps"], ulps), "abs": max(worst["abs"], float(
+                    (gk[written].double() - wk[written].double()).abs().max()))}
+                bad = []
+                if ulps > (KV_WRITE_ULPS[dtype] if norm else 0):
+                    bad.append(f"K {ulps} ulps")
+                if not torch.equal(gv[written], wv[written]):
+                    bad.append("V differs")
+                if not all(bool(t[~written].isnan().all()) for t in (gk, gv)):
+                    bad.append("a row outside the stage written")
+                if not (torch.equal(gk[written], rk[written])
+                        and torch.equal(gv[written], rv[written])):
+                    bad.append("a rerun differs")
+                if bad:
+                    raise AssertionError(f"kv_write differs from its plain version at {name} "
+                                         f"({b2}, {lq}, {c}), {heads} heads, {dtype}, norm "
+                                         f"{norm}: {', '.join(bad)}")
+                del caches, gk, gv, rk, rv, wk, wv
+            out[f"{name}/{str(dtype).replace('torch.', '')}"] = worst
+            del qkv, kc, vc, written
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_kv_write(dev) -> list:
+    """kv_write held at the last decode stage of every sampling cell
+    (check_kv_write: float32, bfloat16 and float16, with and without the
+    norm), then timed in bf16 with the norm at the d16 and d36 shapes:
+    device ms against its bound by bytes (K and V read once and written
+    once, 8 bytes an element of K in bf16, over 3.35 TB/s) and the seven
+    PyTorch launches it replaced (its plain version, cast, square, sum,
+    epsilon, rsqrt, broadcast product into the cache view, V copy) as both
+    ``plain_ms`` and ``library_ms``. Rows: d16, then d36 (``config``
+    "d36-512")."""
+    from var_tpu_torch.ops.cuda.kv_write import kv_write, kv_write_plain
+
+    errs = check_kv_write(dev)
+    rows = []
+    for name in ("d16", "d36"):
+        b2, lq, lmax, c, heads = KV_WRITE_SHAPES[name]
+        qkv, kc, vc, cum = _kv_stage(dev, torch.bfloat16, b2, lq, lmax, c, seed=5)
+        views = _kv_views(qkv, kc, vc, cum)
+        split = device_ms_by_name(lambda: kv_write(*views, heads, True), 20)
+        plain = device_ms(lambda: kv_write_plain(*views, heads, True), 10)
+        elems = b2 * lq * c
+        bound_ms, bound_by = bound(8.0 * elems, 3.0 * elems, FP32_FLOPS)
+        row = {"name": "kv_write", "max_abs_err": max(e["abs"] for e in errs.values()),
+               "errors": errs,
+               "tol": {str(dt).replace("torch.", ""): u for dt, u in KV_WRITE_ULPS.items()},
+               "tol_unit": "ulps of the cache dtype at |want|, against the plain version on "
+                           "the same inputs",
+               "shape": [b2, lq, c], "heads": heads, "dtype": "bfloat16",
+               "ms": sum(split.values()),
+               "call_ms": call_ms(lambda: kv_write(*views, heads, True), 20),
+               "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": plain,
+               "library": "the seven PyTorch launches attn_apply ran (kv_write_plain)",
+               "split": split}
+        if name == "d36":
+            row["config"] = "d36-512"
+        rows.append(row)
+        del qkv, kc, vc, views
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernel_d36_512(dev) -> list:
     """Rows 1-4 and gn_silu at the shapes of VAR-d36-s's 512px CFG decode
     at batch 16 (the benchmark cell d36-512-fid16), through the d16
@@ -1454,6 +1593,8 @@ def _kernel_of(event: str):
         return "topk_topp_bound"
     if "gn_silu_" in n:  # its statistics, finalize and apply kernels
         return "gn_silu"
+    if "kv_write_kernel" in n:
+        return "kv_write"
     return None
 
 
@@ -1610,11 +1751,12 @@ def _decode_want(depth: int, sn: int, render: bool = False) -> dict:
     """Launches of one CFG decode of ``sn`` scales over ``depth`` blocks with
     the attention kernels at 0: the caller sets the one its cache uses.
     ``render``: the decode renders its images in bf16 (gn_silu's kernels
-    once a decoder GroupNorm); an fp32 render launches none of them."""
+    once a decoder GroupNorm); an fp32 render launches none of them. The
+    cache write (kv_write) runs once a block a stage, in every dtype."""
     return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
             "flash_decode_paired": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
             "paired_train_fwd": 0, "paired_train_bwd": 0, "gn_channel_stats": 0,
-            "gn_silu": RENDER_GN_LAUNCHES if render else 0}
+            "gn_silu": RENDER_GN_LAUNCHES if render else 0, "kv_write": depth * sn}
 
 
 def _train_want(depth: int, impl: str = "paired") -> dict:
@@ -2016,8 +2158,8 @@ def _multigpu_spec() -> dict:
 def _multigpu_want(case: str) -> dict:
     """Launches of one case on one rank: a remat-0 step runs row 6 once
     forward and once backward a block; a decode of the ten scales runs row
-    1 twice a block a scale, its attention row once, row 3 once a scale; a
-    256px eval batch (the dense attention) none."""
+    1 twice a block a scale, its attention row and kv_write once, row 3
+    once a scale; a 256px eval batch (the dense attention) none."""
     want = dict.fromkeys(_decode_want(MULTIGPU_DEPTH, 0), 0)
     for name in ("gn_channel_stats", "gn_silu"):  # apps/dryrun_multigpu.py counts neither
         want.pop(name)
@@ -2029,7 +2171,7 @@ def _multigpu_want(case: str) -> dict:
     else:
         row = "flash_decode" if case == "decode_chunked" else "flash_decode_paired"
         want.update({"modulated_layernorm": 2 * MULTIGPU_DEPTH * sn, row: MULTIGPU_DEPTH * sn,
-                     "topk_topp_bound": sn})
+                     "topk_topp_bound": sn, "kv_write": MULTIGPU_DEPTH * sn})
     return want
 
 
@@ -2506,14 +2648,16 @@ class _LineClock:
 
 
 def _check_batch1_kernels(dev) -> dict:
-    """Rows 1, 2 and 3 against their plain versions at the shapes of the
-    CLIs' batch-1 decodes: row 1 at (2, pn^2, C) per stage, row 2 at every
-    chunked stage over 2 rows, row 3 at (pn^2, V) at k 1 (the CLIs'
-    greedy decodes), TOP_K and V."""
+    """Rows 1, 2 and 3 and kv_write against their plain versions at the
+    shapes of the CLIs' batch-1 decodes: row 1 at (2, pn^2, C) per stage,
+    row 2 at every chunked stage over 2 rows, row 3 at (pn^2, V) at k 1 (the
+    CLIs' greedy decodes), TOP_K and V, kv_write at the last stage over 2
+    rows."""
     lens, _ = _stage_lens()
     return {"modulated_layernorm": check_ln(dev, 2, lens, C),
             "flash_decode": check_decode(dev, b2=2),
-            "topk_topp_bound": check_select(dev, lens, V, (1, TOP_K, 0), TOP_P)}
+            "topk_topp_bound": check_select(dev, lens, V, (1, TOP_K, 0), TOP_P),
+            "kv_write": check_kv_write(dev, {"batch1": (2, lens[-1], sum(lens), C, HEADS)})}
 
 
 def phase_zeroshot_cli(dev):
@@ -3633,7 +3777,8 @@ def _qloop_want(args) -> dict:
     decodes = 2 * -(-args.classes * args.sample_per_class // args.bs)
     want = dict.fromkeys(_decode_want(args.depth, 0), 0)
     want.update(modulated_layernorm=decodes * 2 * args.depth * sn,
-                flash_decode=decodes * args.depth * sn, topk_topp_bound=decodes * sn,
+                flash_decode=decodes * args.depth * sn, kv_write=decodes * args.depth * sn,
+                topk_topp_bound=decodes * sn,
                 paired_train_fwd=steps * args.depth, paired_train_bwd=steps * args.depth)
     return want
 
@@ -3669,9 +3814,10 @@ def _check_qloop_kernels(dev, args) -> dict:
     """Each kernel of the quality loop against its plain version at the
     shapes and in the dtype (fp32) the loop gives it: row 1 at (2 bs, pn^2,
     width) per stage, row 2 at the loop's chunked stages over 2 bs rows and
-    ``heads`` heads, row 3 at (bs pn^2, vocab) with the loop's top_k and
-    top_p (and k 1 and k = vocab), row 6's forward and backward at (bs, L,
-    width). Raises on any violation; returns the errors."""
+    ``heads`` heads, kv_write at its last stage, row 3 at (bs pn^2, vocab)
+    with the loop's top_k and top_p (and k 1 and k = vocab), row 6's forward
+    and backward at (bs, L, width). Raises on any violation; returns the
+    errors."""
     from var_tpu_torch.apps import quality_loop as ql
     from var_tpu_torch.config import parse_patch_nums
 
@@ -3682,6 +3828,8 @@ def _check_qloop_kernels(dev, args) -> dict:
         "modulated_layernorm": check_ln(dev, 2 * args.bs, lens, args.width, f32),
         "flash_decode": check_decode(dev, f32, 2 * args.bs, args.width, args.heads,
                                      chunked_shapes(pns)),
+        "kv_write": check_kv_write(dev, {"qloop": (2 * args.bs, lens[-1], sum(lens),
+                                                   args.width, args.heads)}, f32),
         "topk_topp_bound": check_select(dev, [args.bs * l for l in lens], args.vocab,
                                         (1, ql.TOP_K, 0), ql.TOP_P),
         "paired_train": check_ptrain(dev, args.bs, args.width, args.heads, pns, f32),
@@ -3896,6 +4044,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows.append(phase_kernel_gn_silu(dev))
     torch.cuda.empty_cache()
+    rows += phase_kernel_kv_write(dev)
+    torch.cuda.empty_cache()
     rows += phase_kernel_d36_512(dev)
     torch.cuda.empty_cache()
     for row in rows:
@@ -3961,6 +4111,7 @@ def main() -> None:
         "gn_channel_stats": ("var_tpu_torch/ops/cuda/csrc/gn_stats.cu",
                              "var_tpu/ops/pallas/gn_stats.py:51"),
         "gn_silu": ("var_tpu_torch/ops/cuda/csrc/gn_silu.cu", None),  # replaces no JAX kernel
+        "kv_write": ("var_tpu_torch/ops/cuda/csrc/kv_write.cu", None),  # neither
     }
     emit({"phase": "script", "seconds": time.perf_counter() - t_script,
           "seconds_eager_steps": EAGER_SCRIPT_S})

@@ -1353,3 +1353,105 @@ def test_cuda_dropping_the_model_frees_the_sampler_pool(cuda):
     torch.cuda.empty_cache()
     assert entry.dead and entry.graph is None
     assert torch.cuda.memory_reserved(dev) <= held - entry.pool_bytes
+
+
+# kv_write: the decode's K L2 norm and K/V cache write in one launch
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("cell", ["d16", "d30", "d36"])
+def test_cuda_kv_write_matches_plain_at_the_cells_last_stages(cuda, cell, dtype):
+    """kv_write against its plain version at the last decode stage of each
+    sampling cell (d16: 2B 100, Lq 256, C 1024; d30: 2B 16, C 1920; d36: 2B
+    32, Lq 1024, C 2304), with and without the norm (chip_smoke.check_kv_write:
+    K within KV_WRITE_ULPS of the cache dtype, V and the unnormed K bit for
+    bit, the NaN rows outside the stage left NaN, a rerun bit for bit)."""
+    from var_tpu_torch.ops.cuda.kv_write import kv_write
+
+    cs = _chip_smoke()
+    before = kv_write.launches
+    errs = cs.check_kv_write(cuda, {cell: cs.KV_WRITE_SHAPES[cell]}, (dtype,))
+    print(json.dumps(errs))
+    assert kv_write.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 1, 1, 960, 15), (1, 4, 30, 192, 3), (6, 9, 40, 64, 1),
+                                   (4, 169, 680, 1024, 16)])
+def test_cuda_kv_write_takes_any_head_count_and_stage(cuda, shape, dtype):
+    """An odd head count (15, 3: a model axis's share of 30 or 6), a single
+    head, a one-token stage, batch 1 and a middle stage (2B, Lq, L, C,
+    heads)."""
+    _chip_smoke().check_kv_write(cuda, {"case": shape}, (dtype,))
+
+
+@pytest.mark.cuda
+def test_cuda_kv_write_refuses_what_it_does_not_take(cuda):
+    from var_tpu_torch.ops.cuda.kv_write import kv_write
+
+    qkv = torch.randn(2, 4, 3 * 1024, device=cuda, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 8, 1024, device=cuda, dtype=torch.bfloat16)
+    k, v, kd, vd = qkv[..., 1024:2048], qkv[..., 2048:], cache[:, :4], cache[:, 4:]
+    with pytest.raises(TypeError):
+        kv_write(k.double(), v.double(), kd.double(), vd.double(), 16, True)
+    with pytest.raises(ValueError):  # 8 bytes into a vector
+        kv_write(qkv[..., 1028:2052], qkv[..., 2052:3076], kd, vd, 16, True)
+    with pytest.raises(ValueError):
+        kv_write(k, v, kd.cpu(), vd, 16, True)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_writes_its_cache_through_the_kernel(cuda):
+    """A bf16 CFG decode of a tiny head_dim-64 model on the card writes
+    each block's K and V once a stage through the kernel: ``attn.kv_fused``
+    counts depth x stages, ``attn.kv_plain`` none; the captured sampler
+    records those launches, a replay adds them to ``kv_write.launches`` and
+    gives the eager decode's tokens from the same seed."""
+    from var_tpu_torch.config import VAEConfig, VARConfig
+    from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
+    from var_tpu_torch.models import vae as vae_mod
+    from var_tpu_torch.models import var as var_mod
+    from var_tpu_torch.ops.cuda.kv_write import kv_write
+    from var_tpu_torch.utils import profiling
+
+    pns = (1, 2, 3, 4, 5, 6)
+    gen = torch.Generator().manual_seed(3)
+    vae = vae_mod.init_vae_params(vae_mod.VQVAE(VAEConfig(
+        vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 1), v_patch_nums=pns)), gen)
+    var = var_mod.init_var_params(var_mod.VAR(VARConfig(
+        num_classes=10, depth=2, embed_dim=192, num_heads=3, patch_nums=pns, vocab_size=64,
+        z_channels=8, attn_l2_norm=True, cond_drop_rate=0.0)), gen)
+    vae, var = vae.to(cuda).eval(), var.to(cuda).eval()
+    writes = 2 * len(pns)
+    kw = dict(cfg_scale=1.5, top_k=8, top_p=0.9, dtype=torch.bfloat16)
+    seed = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
+    profiling.reset()
+    before = kv_write.launches
+    with torch.inference_mode():
+        eager = decode_cfg(var, vae, torch.tensor([1, 7], device=cuda), seed(0), **kw)
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    assert (c["attn.kv_fused"], c["attn.kv_plain"]) == (writes, 0)
+    assert kv_write.launches == before + writes
+    sampler = make_sampler(var.cfg, vae.cfg, device=cuda, **kw)
+    sampler(var, vae, seed(1), [1, 7])  # the eager warm-up, then the capture
+    (entry,) = sampler.graphs.values()
+    assert entry.launches["kv_write"] == writes
+    before = kv_write.launches
+    replay = sampler(var, vae, seed(0), [1, 7])
+    torch.cuda.synchronize()
+    assert kv_write.launches == before + writes
+    assert torch.equal(replay.tokens, eager.tokens)
+    profiling.reset()
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_the_kv_write_check(cuda, tmp_path):
+    """A copy of kv_write whose lanes skip the shuffles, each normalising by
+    its own part of the head's sum, built in tmp_path, must fail
+    chip_smoke.check_kv_write."""
+    _planted_copy(tmp_path, "kv_write.cu", "for (int o = lanes >> 1; o > 0; o >>= 1)",
+                  "for (int o = 0; o > 0; o >>= 1)", min_count=1)
+    rc, last = _run_check(tmp_path, "check_kv_write")
+    print(json.dumps({"mutant": "kv_write_no_shuffles", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "kv_write differs from its plain version" in last

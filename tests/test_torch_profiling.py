@@ -258,7 +258,8 @@ def test_counters_of_programs_on_the_cpu(models):
     """On the CPU a compiled program runs its body eagerly: its calls
     count, and no capture or replay does; a sampler call that replayed
     nothing adds no host time; each call's float32 render counts its
-    decoder's GroupNorms on the plain path."""
+    decoder's GroupNorms on the plain path, and its decode each block's
+    cache write of each stage."""
     profiling.reset()
     lin = torch.nn.Linear(2, 2)
     prog = Compiled(lambda m, x: m(x), 1, "cpu")
@@ -270,8 +271,10 @@ def test_counters_of_programs_on_the_cpu(models):
         sampler(var.eval(), vae, torch.Generator().manual_seed(0), [1, 2])
     n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.decoder.modules())
     kv = 2 * var.cfg.depth * 4 * var.cfg.seq_len * var.cfg.embed_dim * 4  # float32, CFG batch 4
+    writes = 2 * var.cfg.depth * len(var.cfg.patch_nums)
     assert profiling.counters() == {**{k: 0 for k in profiling.COUNTERS}, "compiled.calls": 5,
-                                    "vae.gn_plain": 2 * n_gn, "sampler.kv_bytes": kv}
+                                    "vae.gn_plain": 2 * n_gn, "sampler.kv_bytes": kv,
+                                    "attn.kv_plain": writes}
 
 
 def test_a_call_counts_its_host_time_when_it_replayed():

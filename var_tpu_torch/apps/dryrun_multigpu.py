@@ -139,10 +139,12 @@ def _kernels():
                                                         flash_decode_paired, paired_train_bwd,
                                                         paired_train_fwd)
     from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
+    from var_tpu_torch.ops.cuda.kv_write import kv_write
     from var_tpu_torch.ops.cuda.select import topk_topp_bound
 
     return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
-            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd)
+            flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd,
+            kv_write)
 
 
 @contextlib.contextmanager

@@ -10,7 +10,8 @@ head.
 Decode (``block_apply``, ``transformer_stage``): the fused modulated
 LayerNorm kernel, attention over a KV cache through a decode-attention
 kernel. KV cache: one preallocated (depth, 2B, L, C) K buffer and one V
-buffer, written in place each stage (:class:`KVCache`); layer ``i`` attends
+buffer, written in place each stage (:class:`KVCache`; K's per-head L2 norm
+and both writes one launch of ``ops/cuda/kv_write.py``); layer ``i`` attends
 over rows ``[0, cum + l)`` by pointer and stride. The JAX package's three
 cache representations (``"chunked"`` per-stage stacks, ``"prealloc"``
 in-place buffers, ``"concat"`` grow-by-concat arrays) differ only in how
@@ -60,9 +61,10 @@ from var_tpu_torch.ops.attention import attention, recompute_grad
 from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_paired_train, flash_decode,
                                                     flash_decode_paired)
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
+from var_tpu_torch.ops.cuda.kv_write import kv_write
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, data_rows
-from var_tpu_torch.utils.profiling import span
+from var_tpu_torch.utils.profiling import COUNTERS, span
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +338,11 @@ def _l2_heads(t: torch.Tensor, num_heads: int,
 
 def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockContext,
                cache: KVCache, layer: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time,
-    then attention of this stage's queries over cache rows [0, cum + l)
-    (``basic_var.py:90-119``): chunked through ``flash_decode``, paired
+    """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time
+    (``kv_write``: one launch writes this stage's K and V into the cache,
+    counted under ``attn.kv_fused``; the CPU's plain version under
+    ``attn.kv_plain``), then attention of this stage's queries over cache
+    rows [0, cum + l) (``basic_var.py:90-119``): chunked through ``flash_decode``, paired
     through ``flash_decode_paired`` (the scale folded into q,
     ``var.py:402-454``), both reading q from the fused qkv, with the q norm
     (where ``cfg.attn_l2_norm``) in the kernel's launch. Under a model axis
@@ -348,24 +352,17 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
     such a mesh to XLA (``var.py:374``, ``:441``). The span ``attention``
     (``utils/profiling.py``, on stamps of its own) bounds the kernel's
     launch alone."""
-    b, l, _ = x.shape
+    l = x.shape[1]
     h, d = sa.local_heads(cfg.num_heads, mesh), cfg.head_dim
     c = h * d
     dtype = x.dtype
     qkv = F.linear(sa.copy_to_model(x, mesh), attn.mat_qkv.weight.to(dtype),
                    ctx.qkv_bias)  # (B, l, 3C / mp)
-    k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
     cum = cache.cum
-    k_dst = cache.k[layer, :, cum:cum + l]
-    if cfg.attn_l2_norm:
-        scale = 1.0
-        kf = k.float().reshape(b, l, h, d)
-        inv = torch.rsqrt((kf * kf).sum(-1, keepdim=True) + 1e-24)
-        torch.mul(kf, inv, out=k_dst.view(b, l, h, d))  # rounds to the cache dtype
-    else:
-        scale = 0.25 / math.sqrt(d)
-        k_dst.copy_(k)
-    cache.v[layer, :, cum:cum + l] = v
+    kv_write(qkv[..., c:2 * c], qkv[..., 2 * c:], cache.k[layer, :, cum:cum + l],
+             cache.v[layer, :, cum:cum + l], h, cfg.attn_l2_norm)
+    COUNTERS["attn.kv_plain" if qkv.device.type == "cpu" else "attn.kv_fused"] += 1
+    scale = 1.0 if cfg.attn_l2_norm else 0.25 / math.sqrt(d)
     k_l, v_l = cache.k[layer], cache.v[layer]
     with span("attention", own=True):
         if cache.paired:
