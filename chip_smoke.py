@@ -1,34 +1,41 @@
-"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU: its gates
+and its kernels' timings.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``var_tpu_torch/ops/cuda/csrc``, holds
 each against its plain PyTorch version at the d16 main-path shapes (rows
 1-7 of the kernel table in PERF.md; row 5 also at the 1024px eval shape,
-an unmasked Lq != Lk shape and a ragged L), then drives the port's nine
-paths, each run with the launch counters set to 0 just before it and read
-just after:
+an unmasked Lq != Lk shape and a ragged L) and times it alone, then drives
+the port's nine paths, each run with the launch counters set to 0 just
+before it and read just after. It gates; it is not the benchmark. The
+cells of ``BENCHMARK.json`` (``python3 benchmark/run.py``, ``--trace 1``
+for breakdowns) measure sampling at d16, d30 and d36 and training at d16,
+so nothing here rates those paths, and nothing times an eager body
+against its replay: the programs serve replays. A path that no cell runs
+yet (the zero-shot modes and CLIs, 512px training, the eval step,
+tokenizer training, the training CLI's loop, ``fid_sample``, the quality
+loop, the analysis scores) prints one rate of its replays.
 
 * sampling: a greedy fp32 decode through the kernels against the reference
   fixture ``tests/fixtures/var_prod.npz`` (the modules loaded by name, then
   built again by ``models.from_pretrained_dict`` from a hub config and a
   bundled state dict), eagerly and through a replay of ``make_sampler``'s
-  CUDA graph, then 256px class-conditional CFG
-  sampling at d16 (depth 16, C = 1024, V = 4096, the 10-scale pyramid, the
-  ch160 VQVAE decoder) with seeded random weights, bf16, cfg 1.5, top_k 900,
-  top_p 0.96, 8 requests, through ``make_sampler`` (the first call warms up
-  and captures the decode into one CUDA graph, the timed calls replay it);
-  then ``graph_main_path``: from the same generator state a replay must
-  give an eager ``decode_cfg``'s tokens bit for bit, one decode's launches
-  must agree as the capture recorded them, as the wrappers count a replay
-  and as ``torch.profiler`` counts one, and eager and replay batches are
-  timed in turns (img/s, host ms a batch, capture s, graph pool GB, idle
-  share);
+  CUDA graph; then ``main_path``: 256px class-conditional CFG sampling at
+  d16 (depth 16, C = 1024, V = 4096, the 10-scale pyramid, the ch160 VQVAE
+  decoder) with seeded random weights, bf16, cfg 1.5, top_k 900, top_p
+  0.96, 8 requests, through ``make_sampler`` (the first call warms up and
+  captures the decode into one CUDA graph): images in [0, 1], from the same
+  generator state a replay must give an eager ``decode_cfg``'s tokens bit
+  for bit, and one decode's launches must agree as the capture recorded
+  them, as the wrappers count a replay and as ``torch.profiler`` counts one
+  (capture s, graph pool GB);
 * training: one fp32 step at the var_prod.npz geometry whose tokens must
   equal ``tests/fixtures/vae_prod.npz`` and whose loss and gradients must
   equal the same step on the CPU, then d16 teacher-forced training (batch
   32, bf16 compute with fp32 parameters, remat 2, tclip 2, seeded random
-  images and labels), one warm-up step and ten timed steps;
+  images and labels): the compiled step's first call and a replay, each
+  launching one step's kernels, finite;
 * the ImageNet training CLI's loop (``apps/train.py``): the tokenizer from
   a seeded ch160 ``.pth`` named by ``VAR_TPU_VAE_CKPT``, the d16 VAR, the
   CLI's sampler and prefetching loader over 96 train and 32 val synthetic
@@ -50,31 +57,32 @@ just after:
   ``kv_window=2`` and prealloc samplers, the smooth sampler, the
   classifier's tokenizer and scores): the first call captures, replays
   from the same generator states equal the eager function's outputs bit
-  for bit, five replays and five eager runs in turns with their launch
-  counts, img/s, capture s and graph pool GB; smooth and the classifier
-  also profiled. Then ``zeroshot_cli``: rows 1-3 against their plain
-  versions at the batch-1 decode shapes, and each zero-shot CLI's ``main``
-  (inpaint keep-through, target layer and box, smooth, classify bayesian
-  and gen) at d16, batch 1, over a folder of seeded PNGs (read with
-  Pillow, as the CLIs read them): s and launches an image of the CLI (its
-  first image captures, the rest replay) beside the eager functions it
-  compiles, whose outputs must equal the CLI's;
+  for bit, each launching one run's kernels, then five replays counted:
+  img/s, capture s and graph pool GB. Then ``zeroshot_cli``: rows 1-3
+  against their plain versions at the batch-1 decode shapes, and each
+  zero-shot CLI's ``main`` (inpaint keep-through, target layer and box,
+  smooth, classify bayesian and gen) at d16, batch 1, over a folder of
+  seeded PNGs (read with Pillow, as the CLIs read them): s and launches an
+  image of the CLI (its first image captures, the rest replay) beside the
+  launches of the eager functions it compiles, whose outputs must equal
+  the CLI's;
 * the long presets and the ``--attn`` impls: fp32 training steps at the
   512px patch numbers through ``pallas`` and ``hybrid`` on the card must
   equal the same steps on the CPU; then d16 512px training (L 2240, batch
   8, bf16, remat 2) for ``auto`` (row 6), ``pallas`` (row 5) and ``hybrid``
   (row 5's forward, the dense backward), one warm-up and five timed steps
-  each, and one 512px (batch 8) and one 1024px (L 9451, batch 2) eval batch
-  through ``pick_eval_attn`` (row 5's forward), with exact launch counts;
+  (replays) each, and one 512px (batch 8) and one 1024px (L 9451, batch
+  2) eval batch through ``pick_eval_attn`` (row 5's forward), with exact
+  launch counts;
 * tokenizer training: one fp32 step of the ch160 VQVAE with the
   ``vae_prod.npz`` weights and images and ``gn_impl="pallas"`` (row 7 in
   every GroupNorm) must give the fixture's tokens and the CPU's loss and
   gradients, and the ``"dot"`` step the same loss; then the published
   tokenizer (ch 160, ch_mult (1, 1, 2, 2, 4), V 4096, Cvae 32, the 256px
   pyramid; seeded random weights and images, fp32, batch 8, lr 3e-4, tclip
-  2) trains one counted warm-up step and five timed steps for ``"dot"`` and
-  for ``"pallas"``, and renders one bf16 batch of 8 through the decoder
-  with each;
+  2) trains one counted warm-up step and five timed steps (replays) for
+  ``"dot"`` and for ``"pallas"``, and renders one bf16 batch of 8 through
+  the decoder with each, counted;
 * the compiled training, eval and FID programs (``engine/compiled.py``
   with ``train=True``; every earlier training, eval and scoring phase runs
   through them too): the d16 training step at 256px batch 32 (``auto``,
@@ -84,12 +92,10 @@ just after:
   512px batch 8 and 1024px batch 2 (row 5): replays against the eager
   body from the same state and generator state, bit for bit (parameters,
   moments, count, metrics, EMA hits, eval sums) under deterministic
-  algorithms; then peak reserved GB of an eager step beside the compiled
-  first call and what its pool holds, a fresh capture and replays beside
-  eager steps in turns, with launches a run, capture s, pool GB and the
-  idle share of a profiled replay. The ImageNet resume must capture anew
-  after its checkpoint load and still end bit-equal, and the CLI's peak
-  reserved GB is printed beside the same run with its steps eager;
+  algorithms, each call launching one run's kernels; then a fresh capture
+  (its peak reserved GB and what its pool holds) and a replay of it, with
+  their launches; the eval step's replays timed. The ImageNet resume must
+  capture anew after its checkpoint load and still end bit-equal;
 * multi-GPU (``parallel/``), on the one card: two ranks joined by gloo
   over CUDA tensors (NCCL refuses two ranks on one device) through
   ``apps/dryrun_multigpu.py``, the d16 width (C 1024, 16 heads, V 4096) at
@@ -107,7 +113,7 @@ just after:
   each (a capture, two replays) held bit for bit against the eager body,
   a replay launching what an eager call launches, the last call within
   the dry run's tolerances of one process; captured entries, capture s,
-  pool GB beside the one-process capture's, replay and eager ms;
+  pool GB beside the one-process capture's;
 * FID (``metrics/fid.py``, ``apps/fid_sample.py``): the vae extractor (the
   ch160 tokenizer, seeded weights) and the pixel extractor on two sets of 8
   seeded 256px images on the card against the CPU (features and the
@@ -115,10 +121,9 @@ just after:
   FID recipe, 8 classes x 4, batch 8, ``--rounds 2`` (``make_scan_sampler``:
   both rounds of a chunk replays of one captured decode), packed into an
   ``arr_0`` npz and scored against itself (~0) and a second seed's set
-  (> 0) with both extractors, with the sampling img/s beside main_path's
-  and the scorer's ms an image; each compiled extractor against its eager
-  body, bit for bit, on two full batches and a ragged one, and ms an image
-  both ways;
+  (> 0) with both extractors, with the replayed chunks' img/s and the
+  scorer's ms an image; each compiled extractor against its eager body,
+  bit for bit, on two full batches and a ragged one;
 * the quality loop (``apps/quality_loop.py``) at the JAX script's default
   scale over in-memory gratings: the tokenizer's recon must fall below
   0.8x its first value and the held-out val loss must fall; the FID proxy
@@ -127,8 +132,8 @@ just after:
   card against the CPU at the var_prod.npz geometry, without and with the
   CFG ramp and ``l2_dist`` (rtol 1e-4, predictions equal), then d16 and d20
   (``--depths 16,20``) in fp32 over 8 images x 10 classes: images/s per
-  model of ``make_score_fn``'s replays beside its eager body, the same
-  scores bit for bit.
+  model of ``make_score_fn``'s replays, and its eager body's scores equal
+  to them bit for bit.
   These last phases need neither Pillow nor matplotlib.
 
 Rows 1 and 3 (modulated LayerNorm, top-k/top-p bound) are held against
@@ -1527,113 +1532,18 @@ def phase_parity(dev, root):
 
 
 def phase_main_path(dev):
-    """d16 sampling through ``make_sampler`` as a user calls it: the first
-    call (counted: the eager warm-up, whose result it returns, then the
-    capture) checked for shape and range, then 10 timed calls, each a
-    replay of the captured decode (counted: 10 decodes' launches)."""
-    from var_tpu_torch.engine.sampler import make_sampler
-    from var_tpu_torch.models import build_vae_var
-
-    t0 = time.perf_counter()
-    vae_cfg, var_cfg, vae, var = build_vae_var(seed=0, depth=DEPTH, patch_nums=PATCH_NUMS)
-    sampler = make_sampler(var_cfg, vae_cfg, cfg_scale=CFG, top_k=TOP_K, top_p=TOP_P,
-                           dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    kernels = _all_kernels()
-    _zero_counts(kernels)
-    t0 = time.perf_counter()
-    res = sampler(var, vae, torch.Generator(device=dev).manual_seed(0), DEMO_CLASSES)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = _counts(kernels)
-    sn = len(PATCH_NUMS)
-    want = {**_decode_want(DEPTH, sn, render=True), "flash_decode": DEPTH * sn}
-    if launches != want:
-        raise AssertionError(f"main path launches {launches}, want {want}")
-    img, tokens = res.image, res.tokens
-    reso = 16 * var_cfg.patch_nums[-1]
-    if tuple(img.shape) != (BATCH, reso, reso, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"bad image {tuple(img.shape)}")
-    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
-        raise AssertionError("image outside [0, 1]")
-    if tuple(tokens.shape) != (BATCH, var_cfg.seq_len) or int(tokens.min()) < 0 \
-            or int(tokens.max()) >= V:
-        raise AssertionError("tokens out of range")
-    times = []
-    _zero_counts(kernels)
-    for i in range(10):  # the counted run above was the warm-up and the capture
-        t0 = time.perf_counter()
-        sampler(var, vae, torch.Generator(device=dev).manual_seed(1 + i), DEMO_CLASSES)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    replayed = _counts(kernels)
-    if replayed != {k: 10 * v for k, v in want.items()}:
-        raise AssertionError(f"main path's 10 replays launched {replayed}, want 10 x {want}")
-    median_s = float(np.median(times))
-    emit({"phase": "main_path", "depth": DEPTH, "batch": BATCH, "dtype": "bfloat16",
-          "cfg": CFG, "top_k": TOP_K, "top_p": TOP_P, "launches": launches,
-          "captured": sampler.graphs[(BATCH, False)].graph is not None,
-          "image_shape": list(img.shape), "image_min": float(img.min()),
-          "image_max": float(img.max()), "distinct_tokens": int(tokens.unique().numel()),
-          "setup_s": setup_s, "first_decode_s": first_s, "decode_s": times,
-          "decode_s_median": median_s, "img_per_s": BATCH / median_s,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, BATCH / median_s
-
-
-def _kernel_of(event: str):
-    """The wrapper whose kernel a device event of the profiler is, or None."""
-    n = event.lower()
-    if "decode_attention" in n:  # row 4 is the kPaired instantiation of row 2's kernels
-        return "flash_decode_paired" if "<true" in n else "flash_decode"
-    if "modulated_ln" in n:
-        return "modulated_layernorm"
-    if "topk_topp_bound" in n:
-        return "topk_topp_bound"
-    if "gn_silu_" in n:  # its statistics, finalize and apply kernels
-        return "gn_silu"
-    if "kv_write_kernel" in n:
-        return "kv_write"
-    return None
-
-
-def profiled_call(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``
-    (``utils/profiling.py::device_events``): its wall ms (host clock,
-    ending in a synchronise), device-busy ms (the device events' self
-    time), idle share, device events, the decode kernels' launches by
-    wrapper name, and device ms by kind (``apps/profile_train.py``'s
-    grouping: convolutions, GEMMs, the attention rows, the rest)."""
-    from var_tpu_torch.apps.profile_train import _kind
-    from var_tpu_torch.utils.profiling import device_events
-
-    wall_ms, rows = device_events(fn)
-    busy_us, events, launches, by_kind = 0.0, 0, {}, {}
-    for key, count, us in rows:
-        busy_us += us
-        events += count
-        kind = _kind(key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
-        name = _kernel_of(key)
-        if name is not None:
-            launches[name] = launches.get(name, 0) + count
-    busy_ms = busy_us / 1e3
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "device_events": events, "launches": launches, "busy_ms_by_kind": by_kind}
-
-
-def phase_graph_main_path(dev):
     """The captured sampler (``make_sampler`` on CUDA: one graph of the
     whole decode and render) at d16, 256px, bf16, cfg 1.5, top_k 900, top_p
-    0.96, batch 8. From the same generator state a replay must give an
-    eager ``decode_cfg``'s tokens bit for bit and leave the generator where
-    the eager decode leaves it; one decode's launches, recorded at the
-    capture, counted by the wrappers over a replay and counted by
-    ``torch.profiler`` in a replay, must be the decode's. Then eager and
-    replay batches in turns, 10 each: img/s (median), host ms a batch (until
-    the call returns), the capture's seconds, the graph pool's GB and the
-    idle share of one profiled replay beside one eager decode's."""
+    0.96, batch 8. Its first call (counted: the eager warm-up, whose result
+    it returns, then the capture) must launch one decode's kernels and give
+    images in [0, 1] and tokens in range. From the same generator state a
+    replay must give an eager ``decode_cfg``'s tokens bit for bit and leave
+    the generator where the eager decode leaves it; one decode's launches,
+    recorded at the capture, counted by the wrappers over a replay and
+    counted by ``torch.profiler`` in a replay and in an eager decode, must
+    be the decode's. Prints the capture's seconds and the graph pool's GB
+    (the cells d16-fid50 and d30-demo8 measure the rate). Returns the first
+    call's launches."""
     from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
     from var_tpu_torch.models import build_vae_var
 
@@ -1652,19 +1562,32 @@ def phase_graph_main_path(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved(dev)
+    kernels = _all_kernels()
+    _zero_counts(kernels)
     g_first = gen(1)
     t0 = time.perf_counter()
     first = sampler(var, vae, g_first, DEMO_CLASSES)  # warm-up and capture
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    launches = _counts(kernels)
     torch.cuda.empty_cache()
     pool_gb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e9
     entry = sampler.graphs[(BATCH, False)]
     sn = len(PATCH_NUMS)
     want = {**_decode_want(DEPTH, sn, render=True), "flash_decode": DEPTH * sn}
     decode_kernels = {k: v for k, v in want.items() if v}
-    if entry.launches != want:
-        raise AssertionError(f"captured decode launches {entry.launches}, want {want}")
+    if launches != want or entry.launches != want:
+        raise AssertionError(f"first call launched {launches}, captured {entry.launches}, "
+                             f"want {want}")
+    img, tokens = first.image, first.tokens
+    reso = 16 * var_cfg.patch_nums[-1]
+    if tuple(img.shape) != (BATCH, reso, reso, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"bad image {tuple(img.shape)}")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError("image outside [0, 1]")
+    if tuple(tokens.shape) != (BATCH, var_cfg.seq_len) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= V:
+        raise AssertionError("tokens out of range")
     same = []
     for s in (1, 2, 3):  # seed 1: the first call, whose result is its warm-up's
         g_eager = gen(s)
@@ -1680,44 +1603,24 @@ def phase_graph_main_path(dev):
                                                          g_replay.get_state())),
                      "fhat_max_abs_err": float((r.f_hat - e.f_hat).abs().max()),
                      "image_max_abs_err": float((r.image - e.image).abs().max())})
-    kernels = _all_kernels()
     _zero_counts(kernels)
     sampler(var, vae, gen(4), DEMO_CLASSES)
     torch.cuda.synchronize()
     counted = _counts(kernels)
     prof_replay = profiled_call(lambda: sampler(var, vae, gen(5), DEMO_CLASSES))
     prof_eager = profiled_call(lambda: eager(gen(5)))
-    _zero_counts(kernels)
-    times = {"eager": [], "replay": []}
-    host = {"eager": [], "replay": []}
-    runs = {"eager": lambda g: eager(g),
-            "replay": lambda g: sampler(var, vae, g, DEMO_CLASSES)}
-    for i in range(10):  # in turns: eager, replay, replay, eager, ...
-        for name in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[name](gen(10 + i))
-            host[name].append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-    timed = _counts(kernels)
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    out = {"phase": "graph_main_path", "depth": DEPTH, "batch": BATCH, "dtype": "bfloat16",
-           "cfg": CFG, "top_k": TOP_K, "top_p": TOP_P, "same_state": same,
-           "launches_captured": {k: entry.launches[k] for k in decode_kernels},
-           "launches_replay_counted": {k: counted[k] for k in decode_kernels},
-           "launches_replay_profiled": prof_replay["launches"],
-           "launches_timed": {k: timed[k] for k in decode_kernels},
-           "first_call_s": first_s, "capture_s": entry.capture_s, "graph_pool_gb": pool_gb,
-           "eager_img_per_s": BATCH / med["eager"], "replay_img_per_s": BATCH / med["replay"],
-           "eager_batch_s": times["eager"], "replay_batch_s": times["replay"],
-           "eager_host_ms_median": float(np.median(host["eager"])),
-           "replay_host_ms_median": float(np.median(host["replay"])),
-           "profiled_replay": {k: v for k, v in prof_replay.items() if k != "launches"},
-           "profiled_eager": {k: v for k, v in prof_eager.items() if k != "launches"},
-           "eager_launches_profiled": prof_eager["launches"],
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    emit(out)
+    emit({"phase": "main_path", "depth": DEPTH, "batch": BATCH, "dtype": "bfloat16",
+          "cfg": CFG, "top_k": TOP_K, "top_p": TOP_P, "same_state": same,
+          "image_min": float(img.min()), "image_max": float(img.max()),
+          "distinct_tokens": int(tokens.unique().numel()),
+          "launches_captured": {k: entry.launches[k] for k in decode_kernels},
+          "launches_replay_counted": {k: counted[k] for k in decode_kernels},
+          "launches_replay_profiled": prof_replay["launches"],
+          "launches_eager_profiled": prof_eager["launches"],
+          "device_events": {"replay": prof_replay["device_events"],
+                            "eager": prof_eager["device_events"]},
+          "first_call_s": first_s, "capture_s": entry.capture_s, "graph_pool_gb": pool_gb,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for row in same:
         if not (row["tokens_equal"] and row["generator_equal"]):
             raise AssertionError(f"replay differs from the eager decode: {row}")
@@ -1726,9 +1629,24 @@ def phase_graph_main_path(dev):
     if prof_replay["launches"] != decode_kernels or prof_eager["launches"] != decode_kernels:
         raise AssertionError(f"profiled launches: replay {prof_replay['launches']}, eager "
                              f"{prof_eager['launches']}, want {decode_kernels}")
-    if timed != {k: 20 * v for k, v in want.items()}:
-        raise AssertionError(f"timed runs launched {timed}, want 20 x {want}")
-    return out
+    return launches
+
+
+def profiled_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``
+    (``utils/profiling.py::device_events``): its device events, and the
+    launches of the port's kernels among them by wrapper name
+    (``ops/cuda::wrapper_of``)."""
+    from var_tpu_torch.ops.cuda import wrapper_of
+    from var_tpu_torch.utils.profiling import device_events
+
+    _, rows = device_events(fn)
+    launches: dict = {}
+    for key, count, _ in rows:
+        name = wrapper_of(key)
+        if name is not None:
+            launches[name] = launches.get(name, 0) + count
+    return {"device_events": sum(count for _, count, _ in rows), "launches": launches}
 
 
 def _all_kernels():
@@ -1833,13 +1751,14 @@ def phase_train_parity(dev, root):
 
 def phase_train_main_path(dev):
     """d16 teacher-forced training, batch 32, bf16 compute, fp32 params and
-    AdamW state, remat 2, tclip 2, fp16=1 skip guard; 1 warm-up step (the
-    counted run) and 10 timed steps."""
+    AdamW state, remat 2, tclip 2, fp16=1 skip guard, seeded random images:
+    the compiled step's first call (its eager run and the capture) and one
+    replay, each launching one step's kernels, with finite loss and
+    gradient norm (the cell d16-train32 measures the rate)."""
     from var_tpu_torch.config import TrainArgs
     from var_tpu_torch.engine import trainer as tr
     from var_tpu_torch.models import build_vae_var_train
 
-    t0 = time.perf_counter()
     args = TrainArgs(depth=DEPTH, bs=TRAIN_BATCH, ac=1, ep=200, fp16=1, tclip=2.0, remat=2,
                      seed=0).finalize(world_size=1)
     vae_cfg, var_cfg, vae, var = build_vae_var_train(device=dev, seed=0, depth=DEPTH,
@@ -1851,38 +1770,25 @@ def phase_train_main_path(dev):
     reso = PATCH_NUMS[-1] * vae_cfg.downsample
     imgs = torch.rand(1, TRAIN_BATCH, reso, reso, 3, generator=g, device=dev) * 2 - 1
     labels = torch.randint(0, var_cfg.num_classes, (1, TRAIN_BATCH), generator=g, device=dev)
-    step_gen = lambda i: torch.Generator(device=dev).manual_seed(i)  # noqa: E731
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
     kernels = _all_kernels()
-    _zero_counts(kernels)
-    t0 = time.perf_counter()
-    state, m = step(state, vae, imgs, labels, step_gen(0), 0, 1.0)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = _counts(kernels)
     want = _train_want(DEPTH)
-    if launches != want:
-        raise AssertionError(f"training main path launches {launches}, want {want}")
-    losses, gnorms, times = [float(m.loss)], [float(m.grad_norm)], []
-    for i in range(10):
-        t0 = time.perf_counter()
-        state, m = step(state, vae, imgs, labels, step_gen(1 + i), 1 + i, 1.0)
+    launches, losses, gnorms = [], [], []
+    for i in range(2):  # the first call, then a replay
+        _zero_counts(kernels)
+        state, m = step(state, vae, imgs, labels, torch.Generator(device=dev).manual_seed(i), i,
+                        1.0)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        launches.append(_counts(kernels))
         losses.append(float(m.loss))
         gnorms.append(float(m.grad_norm))
-    if not all(np.isfinite(losses + gnorms)):
-        raise AssertionError(f"non-finite training step: loss {losses} grad norm {gnorms}")
-    median_s = float(np.median(times))
     emit({"phase": "train_main_path", "depth": DEPTH, "batch": TRAIN_BATCH,
           "dtype": "bfloat16", "remat": args.remat, "tclip": args.tclip, "fp16": args.fp16,
-          "launches": launches, "steps_taken": state.step, "setup_s": setup_s,
-          "first_step_s": first_s, "step_s": times, "step_s_median": median_s,
-          "img_per_s": TRAIN_BATCH / median_s, "loss": losses, "grad_norm": gnorms,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, median_s
+          "launches": launches[0], "steps_taken": state.step, "loss": losses,
+          "grad_norm": gnorms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if launches != [want, want]:
+        raise AssertionError(f"training main path launches {launches}, want {want} a step")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite training step: loss {losses} grad norm {gnorms}")
 
 
 IMAGENET_TRAIN, IMAGENET_VAL = 96, 32  # synthetic images: 3 steps an epoch, 1 eval batch
@@ -1957,7 +1863,7 @@ def _resume_var(dev, args):
     return var.train().requires_grad_(True)
 
 
-def phase_imagenet_train_main_path(dev, train_main_step_s: float):
+def phase_imagenet_train_main_path(dev):
     """The ImageNet training CLI's path on the card (``apps/train.py``):
     the tokenizer from a ``.pth`` named by ``VAR_TPU_VAE_CKPT`` (the ch160
     VQVAE, seeded weights written here), the d16 VAR, the CLI's sampler and
@@ -1970,11 +1876,9 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
     captures anew after the load), both under ``_Reproducible``
     (deterministic algorithms, as before the steps were compiled): B's
     final parameters and AdamW state must equal A''s bit for bit; the free
-    memory and pool of every capture in A' and B are printed. Memory: run
-    A's peak reserved GB beside the same run with its steps called eagerly
-    (``Compiled.eager``, the steps before they were compiled; no
-    checkpoint writes). Everything is written to a temporary directory
-    that is removed."""
+    memory and pool of every capture in A' and B are printed, and run A's
+    peak reserved GB. Everything is written to a temporary directory that
+    is removed."""
     import shutil
     import tempfile
 
@@ -1982,7 +1886,7 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
     from var_tpu_torch.config import VAEConfig, resolve_attn
     from var_tpu_torch.engine import checkpoint as ckpt
     from var_tpu_torch.engine import trainer as tr
-    from var_tpu_torch.engine.compiled import Compiled, CompiledEntry
+    from var_tpu_torch.engine.compiled import CompiledEntry
     from var_tpu_torch.models import vae as vae_mod
 
     tmp = tempfile.mkdtemp(prefix="var_imagenet_")
@@ -2024,23 +1928,6 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
         share = [d / s for d, s in zip(times["data_t"][1:], steady)]
         eval_ms = [1e3 * sec / nb for sec, nb in times["eval_s"]]
         del state, var
-
-        # the same run with its steps called eagerly: its peak reserved GB
-        args_e = _imagenet_args(os.path.join(tmp, "runE"), DEPTH)
-        os.makedirs(args_e.local_out_dir_path)  # which the first checkpoint write makes
-        var_e = _resume_var(dev, args_e)
-        _fresh_peak(dev)
-        save, static = ckpt.save_checkpoint, Compiled.static
-        ckpt.save_checkpoint = lambda *a, **k: None
-        Compiled.static = lambda program, *a, generator=None: program.eager(*a,
-                                                                           generator=generator)
-        try:
-            _imagenet_run(train_app, args_e, dev, vae, var_e)
-        finally:
-            ckpt.save_checkpoint, Compiled.static = save, static
-        torch.cuda.synchronize()
-        memory["eager_steps_peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
-        del var_e
         torch.cuda.empty_cache()
 
         # resume equality at RESUME_DEPTH, deterministic algorithms
@@ -2103,12 +1990,8 @@ def phase_imagenet_train_main_path(dev, train_main_step_s: float):
           "attn": "auto", "eval_attn": eval_attn, "train_images": IMAGENET_TRAIN,
           "val_images": IMAGENET_VAL, "steps": n_steps, "eval_batches": n_eval,
           "launches": launches, "want": want, "setup_s": setup_s, "run_s": run_s,
-          "run_s_eager_steps": EAGER_IMAGENET_RUN_S,
           "step_s": times["step_t"], "step_s_median": median_s,
-          "img_per_s": TRAIN_BATCH / median_s,
-          "train_main_path_step_s_median": train_main_step_s,
-          "train_main_path_img_per_s": TRAIN_BATCH / train_main_step_s,
-          "data_t_s": times["data_t"], "data_share_median": float(np.median(share)),
+          "img_per_s": TRAIN_BATCH / median_s, "data_t_s": times["data_t"], "data_share_median": float(np.median(share)),
           "eval_ms_per_batch": eval_ms, "ckpt_save_s": times["save_s"],
           "ckpt_gb": ckpt_gb, "ckpt_saves": len(times["save_s"]), "peak_mem_gb": peak_gb,
           "memory": memory,
@@ -2245,8 +2128,7 @@ def phase_mesh_graph_parity(dev):
     replay must launch what an eager call launches (``_multigpu_want``),
     and the last call must give the one-process programs' (run first, mesh
     None) at the dry run's tolerances. Prints the captured entries, capture
-    s, pool GB beside the one-process capture's, and replay / eager ms of
-    each."""
+    s and pool GB beside the one-process capture's."""
     import datetime
     import shutil
     import tempfile
@@ -2281,8 +2163,7 @@ def phase_mesh_graph_parity(dev):
             bad.append(f"{name}: ran eagerly under an NCCL mesh")
             continue
         rows[name] = {k: p[k] for k in ("held", "captured", "capture_s", "pool_gb",
-                                        "pool_gb_one_process", "replay_ms", "eager_ms",
-                                        "launches_replay")}
+                                        "pool_gb_one_process", "launches_replay")}
         rows[name].update({k: c[k] for k in ("loss_rel_err", "param_max_abs_err",
                                              "grad_rel_err_max", "tokens_differ",
                                              "acc_abs_err") if k in c})
@@ -2380,14 +2261,10 @@ def phase_zeroshot_parity(dev, root):
     with torch.inference_mode():
         gt = torch.cat(img_to_idxBl(vae_c, img.to(dev)), dim=1)
     _zero_counts(kernels)
-    t0 = time.perf_counter()
     card = _zeroshot_runs(var_c, vae_c, img.to(dev), gt, labels.to(dev))
     torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
     mode_launches = _counts(kernels)
-    t0 = time.perf_counter()
     cpu = _zeroshot_runs(var, vae, img, gt.cpu(), labels)
-    cpu_s = time.perf_counter() - t0
     rows, failures = {}, []
     for mode, (tok, vals) in card.items():
         tok_cpu, vals_cpu = cpu[mode]
@@ -2399,7 +2276,7 @@ def phase_zeroshot_parity(dev, root):
             failures.append(f"{mode}: {eq}/{tok.numel()} tokens equal, rel err {rel}")
     emit({"phase": "zeroshot_parity", "prealloc_tokens_equal": equal,
           "prealloc_tokens": int(tokens.numel()), "prealloc_launches": launches,
-          "modes": rows, "modes_launches": mode_launches, "card_s": card_s, "cpu_s": cpu_s,
+          "modes": rows, "modes_launches": mode_launches,
           "tol": {"tokens": "equal", "log_likelihoods_and_scores_rel": ZEROSHOT_RTOL}})
     if failures:
         raise AssertionError("zero-shot modes differ between the card and the CPU: "
@@ -2439,23 +2316,12 @@ def _capture_row(entries) -> dict:
             "launches_captured": launches}
 
 
-def _eager_vs_replay(kernels, replay, eager, n: int, seed: int) -> dict:
-    """n replays and n eager runs in turns (eager first on even turns),
-    each synchronised: their seconds and launches."""
-    times = {"replay": [], "eager": []}
-    launches = {k: dict.fromkeys(_counts(kernels), 0) for k in times}
-    runs = {"replay": replay, "eager": eager}
-    for i in range(n):
-        for name in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
-            torch.cuda.synchronize()
-            before = _counts(kernels)
-            t0 = time.perf_counter()
-            runs[name](seed + i)
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-            for k, v in _delta(kernels, before).items():
-                launches[name][k] += v
-    return {"times": times, "launches": launches}
+def _launched(kernels, fn, *args):
+    """``fn(*args)``, synchronised, and the launches it made."""
+    before = _counts(kernels)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, _delta(kernels, before)
 
 
 def phase_zeroshot_main_path(dev):
@@ -2467,10 +2333,9 @@ def phase_zeroshot_main_path(dev):
     0 just before the mode's first call (its eager warm-up and capture) and
     read just after it; then from the same generator states (seeds 1-3) a
     replay must give the eager function's outputs bit for bit (tokens,
-    f_hat and image; log-likelihood sums; scores); then 5 eager runs and 5
-    replays in turns, each counted (5 x the first call's launches each):
-    img/s of both, capture s and graph pool GB; smooth and the classifier
-    also under ``torch.profiler``, one replay and one eager run."""
+    f_hat and image; log-likelihood sums; scores), each of them launching
+    the first call's kernels; then 5 replays, counted (5 x the first
+    call's launches): img/s, capture s and graph pool GB."""
     from var_tpu_torch.apps.classify import VARClassifier
     from var_tpu_torch.apps.masks import get_edit_mask, keep_scales_mask
     from var_tpu_torch.engine.sampler import (decode_cfg, make_sampler, make_smooth_sampler,
@@ -2568,28 +2433,21 @@ def phase_zeroshot_main_path(dev):
             failures.append(f"{name}: capture {cap}")
         same = []
         for s in (1, 2, 3):
-            r, e = replay(s), eager(s)
-            torch.cuda.synchronize()
+            (r, got_r), (e, got_e) = _launched(kernels, replay, s), _launched(kernels, eager, s)
             same.append(_same(r, e))
+            if got_r != want or got_e != want:
+                failures.append(f"{name}: replay launched {got_r}, eager {got_e}, want {want}")
         if not all(same):
             failures.append(f"{name}: a replay differs from the eager run: {same}")
-        timed = _eager_vs_replay(kernels, replay, eager, 5, 10)
-        for kind, got in timed["launches"].items():
-            if got != {k: 5 * v for k, v in want.items()}:
-                failures.append(f"{name}: 5 {kind} runs launched {got}, want 5 x {want}")
-        med = {k: float(np.median(v)) for k, v in timed["times"].items()}
-        row = {"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
-               "dtype": "bfloat16", "launches": launches, **cap, **check,
-               "replay_equals_eager": same, "setup_s": setup_s, "first_s": first_s,
-               "replay_batch_s": timed["times"]["replay"],
-               "eager_batch_s": timed["times"]["eager"],
-               "replay_img_per_s": n_img / med["replay"], "eager_img_per_s": n_img / med["eager"],
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        if name in ("smooth", "classify"):
-            for kind, fn in (("replay", replay), ("eager", eager)):
-                prof = profiled_call(lambda: fn(20))
-                row[f"profiled_{kind}"] = {k: v for k, v in prof.items() if k != "launches"}
-        emit(row)
+        _zero_counts(kernels)
+        times = _timed(lambda i: replay(10 + i), 5)
+        if _counts(kernels) != {k: 5 * v for k, v in want.items()}:
+            failures.append(f"{name}: 5 replays launched {_counts(kernels)}, want 5 x {want}")
+        emit({"phase": "zeroshot_main_path", "mode": name, "depth": DEPTH, "batch": n_img,
+              "dtype": "bfloat16", "launches": launches, **cap, **check,
+              "replay_equals_eager": same, "setup_s": setup_s, "first_s": first_s,
+              "replay_batch_s": times, "replay_img_per_s": n_img / float(np.median(times)),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if failures:
         raise AssertionError("zero-shot main path: " + "; ".join(failures))
     return total
@@ -2672,7 +2530,7 @@ def phase_zeroshot_cli(dev):
     replay). s an image is the median gap between successive images'
     reports (replays; the first image's is ``first_image_s``). Beside it,
     the eager functions the CLI compiles, on the same models and images at
-    batch 1: s and launches an image, and their outputs (the PNGs, the
+    batch 1: launches an image, and their outputs (the PNGs, the
     predictions) equal to the CLI's. Pillow reads the PNGs, as in the
     CLIs."""
     import contextlib
@@ -2764,12 +2622,10 @@ def phase_zeroshot_cli(dev):
             vae, var = models[key]
             clf = VARClassifier(var, vae, mode="bayesian") if app == "classify" else None
             img_rng = np.random.default_rng(0)
-            times, same = [], []
+            same = []
             _zero_counts(kernels)
             for idx, (path, label) in enumerate(samples[:limit]):
                 x = torch.from_numpy(tf(path, img_rng))[None].to(dev)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 with torch.inference_mode():
                     idx_bl = img_to_idxBl(vae, x)
                     gt = torch.cat(idx_bl, dim=1)
@@ -2811,8 +2667,6 @@ def phase_zeroshot_cli(dev):
                             feat = img_to_fhat(vae, res.image * 2.0 - 1.0)[-1].reshape(-1)
                             scores.append(-float((feat_in - feat).abs().mean()))
                         out = int(np.argmax(scores))
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
                 if app in ("inpaint", "smooth"):  # both write PNGs with save_grid
                     want_png = os.path.join(root, f"{name}_{idx}.png")
                     save_grid(out if app == "inpaint" else out[0], want_png, per_row=1)
@@ -2833,7 +2687,6 @@ def phase_zeroshot_cli(dev):
                 "first_image_s": clock.stamps[0] - t_main,
                 "replay_s_per_image": float(np.median(gaps)) if len(gaps) else None,
                 "replay_gaps_s": gaps.tolist(),
-                "eager_s_per_image": float(np.median(times[1:])), "eager_s": times,
                 "launches_per_image": {k: v // limit for k, v in launches.items() if v},
                 "eager_launches_per_image": {k: v // limit for k, v in eager_launches.items()
                                              if v},
@@ -2929,8 +2782,9 @@ def phase_long_main_path(dev):
     choice (``auto``, resolved to paired on the card; ``pallas``; ``hybrid``):
     counters set to 0 before a warm-up step and read after it, then 5 timed
     steps. Then one 512px eval batch of 8 and one 1024px eval batch of 2
-    (L 9451) through ``pick_eval_attn`` of the auto choice, each counted on
-    its first batch and timed over 3 more. Returns {run: launches}."""
+    (L 9451) through ``pick_eval_attn`` of the auto choice, counted, its
+    sums finite and its count the batch (``compiled_eval_main_path`` times
+    the eval's replays). Returns {run: launches}."""
     from var_tpu_torch.config import PATCH_NUM_PRESETS, TrainArgs, resolve_attn
     from var_tpu_torch.engine import trainer as tr
     from var_tpu_torch.models import build_vae_var_train
@@ -3007,14 +2861,10 @@ def phase_long_main_path(dev):
         s = sums[0].cpu()
         if not bool(torch.isfinite(s).all()) or float(s[4]) != batch:
             raise AssertionError(f"{preset}px eval sums {s.tolist()}")
-        times = _timed(lambda i: eval_step(var, vae, img, label, valid), 3)
-        median_s = float(np.median(times))
         emit({"phase": "long_main_path", "run": f"eval_{preset}px", "attn": eval_attn,
               "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
               "launches": launches, "L_mean": float(s[0] / s[4]), "acc_mean": float(s[2] / s[4]),
-              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
-              "img_per_s": batch / median_s,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+              "first_s": first_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         out[f"eval_{preset}px"] = launches
     return out
 
@@ -3022,13 +2872,11 @@ def phase_long_main_path(dev):
 # ---------------------------------------------------------------------------
 # the compiled training, eval and FID programs (engine/compiled.py, train=True)
 
-# the same runs with eager training, eval and FID steps (H100 80GB HBM3, 700.00 W)
-EAGER_SCRIPT_S, EAGER_IMAGENET_RUN_S, EAGER_QLOOP_WALL_S = 303.2, 28.113, 25.924
 HOLD_STEPS = 4  # steps held bit for bit: the capture's eager run, then 3 replays
-COMPILED_TRAIN_CELLS = (("256", TRAIN_BATCH, "auto", 10), ("512", LONG_BATCH, "auto", 5),
-                        ("512", LONG_BATCH, "pallas", 5))  # (preset, batch, --attn, timed n)
+COMPILED_TRAIN_CELLS = (("256", TRAIN_BATCH, "auto"), ("512", LONG_BATCH, "auto"),
+                        ("512", LONG_BATCH, "pallas"))  # (preset, batch, --attn)
 COMPILED_EVAL_CELLS = (("256", TRAIN_BATCH, 5), ("512", LONG_BATCH, 5),
-                       ("1024", EVAL_1024_BATCH, 3))
+                       ("1024", EVAL_1024_BATCH, 3))  # (preset, batch, timed replays)
 
 
 def _tensor_fields(metrics) -> list:
@@ -3080,33 +2928,6 @@ def _held(rows) -> bool:
     return all(r["metrics_equal"] and r["state_equal"] and r["generator_equal"] for r in rows)
 
 
-def _step_turns(dev, kernels, step, sa, sb, args_of, n: int, seed: int) -> dict:
-    """n replays of ``step`` on ``sa`` and n eager steps on ``sb`` in turns
-    (``_eager_vs_replay``), then one profiled replay and one profiled eager
-    step: ms a step both ways, launches, wall / busy ms and idle share."""
-    st = {"replay": sa, "eager": sb}
-
-    def run(name):
-        fn = step if name == "replay" else step.eager
-
-        def go(s):
-            st[name] = fn(st[name], *args_of(s, torch.Generator(device=dev).manual_seed(s)))[0]
-        return go
-
-    turns = _eager_vs_replay(kernels, run("replay"), run("eager"), n, seed)
-    prof = {k: profiled_call(lambda: run(k)(seed + 2 * n)) for k in ("replay", "eager")}
-    return {"ms": {k: 1e3 * float(np.median(v)) for k, v in turns["times"].items()},
-            "step_s": turns["times"], "launches": turns["launches"],
-            "profiled": {k: {f: v[f] for f in ("wall_ms", "busy_ms", "idle_share",
-                                                "device_events", "busy_ms_by_kind")}
-                         for k, v in prof.items()}}
-
-
-def _per_run(launches: dict, n: int) -> dict:
-    return {k: v // n for k, v in launches.items()} if all(v % n == 0 for v in
-                                                           launches.values()) else launches
-
-
 def _fresh_peak(dev) -> float:
     """Empty the allocator's cache and restart its peak: the GB reserved
     now, from which the next peak is read."""
@@ -3138,10 +2959,11 @@ def phase_compiled_train_main_path(dev):
     prog_wp differ (the first captures, the rest replay) must equal the
     eager step's bit for bit: parameters, Adam's moments and count, the
     metrics and the generator, under ``_Reproducible`` (the graph is then
-    dropped). Then a fresh capture without them (its launches
-    recorded as one step's) and replays beside eager steps in turns (n 10
-    at 256px, 5 at 512px), each launching one step's kernels; one profiled
-    replay and one profiled eager step; capture s and pool GB."""
+    dropped), each call launching one step's kernels. Then a fresh capture
+    without them (its launches recorded as one step's) and one replay of
+    it, launching one step's kernels; capture s, pool GB and the first
+    call's peak reserved GB (the cell d16-train32 and ``long_main_path``
+    time the step)."""
     import copy
 
     from var_tpu_torch.config import PATCH_NUM_PRESETS, TrainArgs, resolve_attn
@@ -3150,7 +2972,7 @@ def phase_compiled_train_main_path(dev):
 
     kernels = _all_kernels()
     out, built = {}, None
-    for preset, batch, choice, n in COMPILED_TRAIN_CELLS:
+    for preset, batch, choice in COMPILED_TRAIN_CELLS:
         t_cell = time.perf_counter()
         if built is None or built[0] != preset:
             built = None
@@ -3174,18 +2996,16 @@ def phase_compiled_train_main_path(dev):
             return vae, imgs, labels, g, 10 * i, 0.25 + 0.25 * (i % 4)
 
         sa, sb = init_state(copy.deepcopy(var0)), init_state(copy.deepcopy(var0))
+        _zero_counts(kernels)
         with _Reproducible():
             sa, sb, held = _hold_steps(dev, step, sa, sb, args_of, HOLD_STEPS)
+        held_counts = _counts(kernels)  # HOLD_STEPS compiled steps + as many eager ones
         held_launches = dict(next(iter(step.program.graphs.values())).launches)
         step.program.graphs.clear()  # that graph holds the deterministic kernels
-        # peak reserved GB of one eager step, then of the compiled step's
-        # first call (its eager run and its capture), each from an emptied cache
-        reserved0 = _fresh_peak(dev)
-        sb, _ = step.eager(sb, *args_of(HOLD_STEPS, torch.Generator(device=dev).manual_seed(7)))
-        torch.cuda.synchronize()
-        mem = {"resident_gb": reserved0,
-               "eager_step_peak_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
-        _fresh_peak(dev)
+        del sb
+        # peak reserved GB of the compiled step's first call (its eager run
+        # and its capture), from an emptied cache
+        mem = {"resident_gb": _fresh_peak(dev)}
         _zero_counts(kernels)
         t0 = time.perf_counter()
         sa, _ = step(sa, *args_of(HOLD_STEPS, torch.Generator(device=dev).manual_seed(7)))
@@ -3196,20 +3016,16 @@ def phase_compiled_train_main_path(dev):
         first = _counts(kernels)
         (entry,) = step.program.graphs.values()
         mem["pool"] = _pool_held(entry)
-        turns = _step_turns(dev, kernels, step, sa, sb, args_of, n, 100)
+        (sa, _), replayed = _launched(kernels, step, sa, *args_of(
+            HOLD_STEPS + 1, torch.Generator(device=dev).manual_seed(8)))
         row = {"phase": "compiled_train_main_path", "run": f"{preset}px_{choice}", "attn": impl,
                "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
                "remat": 2, "fp16": 1, "held_steps": held, "held_reproducible": True,
                "launches_captured": {k: v for k, v in entry.launches.items() if v},
                "launches_first_call": {k: v for k, v in first.items() if v},
-               "launches_replay": _per_run(turns["launches"]["replay"], n),
-               "launches_eager": _per_run(turns["launches"]["eager"], n),
+               "launches_replay": {k: v for k, v in replayed.items() if v},
                "first_call_s": first_s, "capture_s": entry.capture_s,
                "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
-               "replay_ms": turns["ms"]["replay"], "eager_ms": turns["ms"]["eager"],
-               "replay_img_per_s": 1e3 * batch / turns["ms"]["replay"],
-               "eager_img_per_s": 1e3 * batch / turns["ms"]["eager"],
-               "step_s": turns["step_s"], "profiled": turns["profiled"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "seconds": time.perf_counter() - t_cell}
         emit(row)
@@ -3217,15 +3033,14 @@ def phase_compiled_train_main_path(dev):
         failures = []
         if not _held(held):
             failures.append(f"replay differs from the eager step: {held}")
-        if held_launches != want or entry.launches != want or first != want:
+        if held_launches != want or entry.launches != want or first != want \
+                or replayed != want \
+                or held_counts != {k: 2 * HOLD_STEPS * v for k, v in want.items()}:
             failures.append(f"captured {held_launches} / {entry.launches}, first call {first}, "
-                            f"want {want}")
-        if turns["launches"]["replay"] != {k: n * v for k, v in want.items()} \
-                or turns["launches"]["eager"] != {k: n * v for k, v in want.items()}:
-            failures.append(f"timed launches {turns['launches']}, want {n} x {want}")
+                            f"replay {replayed}, held {held_counts}, want {want}")
         if failures:
             raise AssertionError(f"compiled {preset}px {choice} step: " + "; ".join(failures))
-        del sa, sb, step, init_state, entry
+        del sa, step, init_state, entry
         torch.cuda.empty_cache()
     return out
 
@@ -3238,8 +3053,9 @@ def phase_compiled_vae_train_main_path(dev):
     at 98, replays at 99, 100 and 101: the EMA decay switches to 0.99
     inside the replays) must equal the eager step's bit for bit
     (parameters, moments, count, ema_hits, record_hit, metrics), under
-    ``_Reproducible`` (the graph is then dropped); then a fresh capture,
-    and replays and eager steps in turns, n 5, with row 7's launches."""
+    ``_Reproducible`` (the graph is then dropped); then a fresh capture and
+    one replay of it, each with row 7's launches (``vae_train_main_path``
+    times the step)."""
     import copy
 
     from var_tpu_torch.config import VAEConfig
@@ -3269,48 +3085,37 @@ def phase_compiled_vae_train_main_path(dev):
         held_launches = dict(next(iter(step.program.graphs.values())).launches)
         record_hit = int(sa.record_hit)
         step.program.graphs.clear()  # that graph holds the deterministic kernels
-        # peak reserved GB of one eager step, then of a fresh capture without
-        # them (the first call: its eager run and the capture)
+        del sb
+        # peak reserved GB of a fresh capture without them (the first call:
+        # its eager run and the capture)
         mem = {"resident_gb": _fresh_peak(dev)}
-        sb, _ = step.eager(sb, img)
-        torch.cuda.synchronize()
-        mem["eager_step_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
-        _fresh_peak(dev)
-        sa, _ = step(sa, img)
-        torch.cuda.synchronize()
+        (sa, _), first = _launched(kernels, step, sa, img)
         mem["compiled_first_call_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
         mem["compiled_held_gb"] = _fresh_peak(dev)  # the state and the graph's pool
         (entry,) = step.program.graphs.values()
         mem["pool"] = _pool_held(entry)
-        turns = _step_turns(dev, kernels, step, sa, sb, lambda i, g: (img,), 5, 200)
+        (sa, _), replayed = _launched(kernels, step, sa, img)
         row = {"phase": "compiled_vae_train_main_path", "run": f"train_{impl}",
                "gn_impl": impl, "ch": cfg.ch, "batch": VAE_BATCH, "dtype": "float32",
                "held_steps": held, "record_hit_from_to": [98, record_hit],
                "held_reproducible": True, "group_norms": n_gn,
                "launches_captured": {k: v for k, v in entry.launches.items() if v},
-               "launches_replay": _per_run(turns["launches"]["replay"], 5),
-               "launches_eager": _per_run(turns["launches"]["eager"], 5),
+               "launches_replay": {k: v for k, v in replayed.items() if v},
                "capture_s": entry.capture_s, "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
-               "replay_ms": turns["ms"]["replay"], "eager_ms": turns["ms"]["eager"],
-               "replay_img_per_s": 1e3 * VAE_BATCH / turns["ms"]["replay"],
-               "eager_img_per_s": 1e3 * VAE_BATCH / turns["ms"]["eager"],
-               "step_s": turns["step_s"], "profiled": turns["profiled"],
                "seconds": time.perf_counter() - t_cell}
         emit(row)
         out[row["run"]] = row
         failures = []
         if not _held(held) or record_hit != 98 + HOLD_STEPS:
             failures.append(f"replay differs from the eager step: {held}, record_hit {record_hit}")
-        if entry.launches != want or held_launches != want \
+        if entry.launches != want or held_launches != want or first != want \
+                or replayed != want \
                 or held_counts != {k: 2 * HOLD_STEPS * v for k, v in want.items()}:
-            failures.append(f"captured {held_launches} / {entry.launches}, held {held_counts}, "
-                            f"want {want}")
-        if turns["launches"]["replay"] != {k: 5 * v for k, v in want.items()} \
-                or turns["launches"]["eager"] != {k: 5 * v for k, v in want.items()}:
-            failures.append(f"timed launches {turns['launches']}, want 5 x {want}")
+            failures.append(f"captured {held_launches} / {entry.launches}, first call {first}, "
+                            f"replay {replayed}, held {held_counts}, want {want}")
         if failures:
             raise AssertionError(f"compiled tokenizer step ({impl}): " + "; ".join(failures))
-        del sa, sb, step, init_state, entry, vae0
+        del sa, step, init_state, entry, vae0
         torch.cuda.empty_cache()
     return out
 
@@ -3321,8 +3126,8 @@ def phase_compiled_eval_main_path(dev):
     picks for ``auto``), 512px batch 8 and 1024px batch 2 (row 5's
     forward). Three batches (the last padded: valid 0 on its last row) on
     one entry must give the eager body's sums bit for bit under
-    ``_Reproducible``; then a fresh capture, and replays and eager batches
-    in turns (n 5, 5, 3) with their launches."""
+    ``_Reproducible``; then a fresh capture and n timed replays (n 5, 5,
+    3) with their launches: img/s of the replays (no cell runs the eval)."""
     from var_tpu_torch.config import PATCH_NUM_PRESETS, resolve_attn
     from var_tpu_torch.engine import trainer as tr
     from var_tpu_torch.models import build_vae_var_train
@@ -3357,42 +3162,34 @@ def phase_compiled_eval_main_path(dev):
         torch.cuda.synchronize()
         held_counts = _counts(kernels)
         ev.graphs.clear()  # that graph holds the deterministic kernels
-        # peak reserved GB of an eager batch, then of a fresh capture without
-        # them (the first call: its eager run and the capture)
+        # peak reserved GB of a fresh capture without them (the first call:
+        # its eager run and the capture)
         mem = {"resident_gb": _fresh_peak(dev)}
-        ev.eager(var, vae, *batches[0])
-        torch.cuda.synchronize()
-        mem["eager_batch_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
-        _fresh_peak(dev)
         ev(var, vae, *batches[0])
         torch.cuda.synchronize()
         mem["compiled_first_call_peak_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
         mem["compiled_held_gb"] = _fresh_peak(dev)  # the model and the graph's pool
         (entry,) = ev.graphs.values()
         mem["pool"] = _pool_held(entry)
-        turns = _eager_vs_replay(kernels, lambda s: ev(var, vae, *batches[s % 3]),
-                                 lambda s: ev.eager(var, vae, *batches[s % 3]), n, 0)
-        ms = {k: 1e3 * float(np.median(v)) for k, v in turns["times"].items()}
+        _zero_counts(kernels)
+        times = _timed(lambda i: ev(var, vae, *batches[i % 3]), n)
+        replayed = _counts(kernels)
+        ms = 1e3 * float(np.median(times))
         row = {"phase": "compiled_eval_main_path", "run": f"eval_{preset}px", "attn": eval_attn,
                "depth": DEPTH, "batch": batch, "seq_len": var_cfg.seq_len, "dtype": "bfloat16",
                "held_batches": held, "launches_captured": {k: v for k, v in
                                                             entry.launches.items() if v},
-               "launches_replay": _per_run(turns["launches"]["replay"], n),
-               "launches_eager": _per_run(turns["launches"]["eager"], n),
                "capture_s": entry.capture_s, "pool_gb": entry.pool_bytes / 1e9, "memory": mem,
-               "replay_ms": ms["replay"], "eager_ms": ms["eager"],
-               "replay_img_per_s": 1e3 * batch / ms["replay"],
-               "eager_img_per_s": 1e3 * batch / ms["eager"], "batch_s": turns["times"],
+               "replay_ms": ms, "replay_img_per_s": 1e3 * batch / ms, "batch_s": times,
                "seconds": time.perf_counter() - t_cell}
         emit(row)
         out[row["run"]] = row
         if not all(held) or entry.launches != want \
                 or held_counts != {k: 6 * v for k, v in want.items()} \
-                or turns["launches"]["replay"] != {k: n * v for k, v in want.items()} \
-                or turns["launches"]["eager"] != {k: n * v for k, v in want.items()}:
+                or replayed != {k: n * v for k, v in want.items()}:
             raise AssertionError(f"compiled {preset}px eval: held {held}, captured "
-                                 f"{entry.launches}, counted {held_counts}, timed "
-                                 f"{turns['launches']}, want {want} a batch")
+                                 f"{entry.launches}, counted {held_counts}, {n} replays "
+                                 f"{replayed}, want {want} a batch")
         del ev, entry, vae, var, batches
         torch.cuda.empty_cache()
     return out
@@ -3442,18 +3239,14 @@ def phase_vae_train_parity(dev, root):
         return float(loss.detach()), out, grads
 
     _zero_counts(kernels)
-    t0 = time.perf_counter()
     loss_card, out, grads_card = step(vae_card, img.to(dev), "pallas")
     torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
     launches = _counts(kernels)
     idx = [i.cpu().numpy() for i in out.idx_bl]
     equal = sum(int((i == vdata[f"idx_{si}"][:VAE_PARITY_BATCH]).sum()) for si, i in enumerate(idx))
     total = sum(i.size for i in idx)
     loss_dot, _, _ = step(vae_card, img.to(dev), "dot")
-    t0 = time.perf_counter()
     loss_cpu, _, grads_cpu = step(vae_cpu, img, "pallas")
-    cpu_s = time.perf_counter() - t0
     worst, worst_name = 0.0, ""
     for n, g in grads_cpu.items():
         rel = float((grads_card[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
@@ -3467,7 +3260,6 @@ def phase_vae_train_parity(dev, root):
           "loss_rel_err": loss_rel, "loss_card_dot": loss_dot, "dot_vs_pallas_rel": dot_rel,
           "grad_rel_err_max": worst, "grad_rel_err_param": worst_name,
           "params": len(grads_cpu), "group_norms": n_gn, "launches": launches,
-          "card_s": card_s, "cpu_s": cpu_s,
           "tol": {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel_of_max": TRAIN_GRAD_RTOL}})
     if equal != total:
         raise AssertionError(f"card tokens differ from vae_prod.npz: {equal}/{total} equal")
@@ -3485,9 +3277,10 @@ def phase_vae_train_main_path(dev):
     random images, lr 3e-4, tclip 2, seeded random weights: for each
     gn_impl, counters set to 0 before one warm-up step and read after it
     (row 7 once per GroupNorm with "pallas", never with "dot", no other
-    kernel), then 5 timed steps; then one bf16 decoder render of a batch
-    through each impl (row 7 once per decoder GroupNorm with "pallas",
-    gn_silu's three kernels once per decoder GroupNorm with "dot").
+    kernel), then 5 timed steps (replays: no cell trains the tokenizer);
+    then one bf16 decoder render of a batch through each impl (row 7 once
+    per decoder GroupNorm with "pallas", gn_silu's three kernels once per
+    decoder GroupNorm with "dot").
     Returns {run: launches}."""
     from var_tpu_torch.config import VAEConfig
     from var_tpu_torch.engine.vae_trainer import make_vae_train_step, vocab_usage_percent
@@ -3549,24 +3342,18 @@ def phase_vae_train_main_path(dev):
     for impl in ("dot", "pallas"):
         with torch.inference_mode():
             _zero_counts(kernels)
-            t0 = time.perf_counter()
             renders[impl] = fhat_to_img(vae, f_hat, impl)
             torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
             launches = _counts(kernels)
-            want = {**zero, "gn_channel_stats": n_dec if impl == "pallas" else 0,
-                    "gn_silu": 3 * n_dec if impl == "dot" else 0}
-            if launches != want:
-                raise AssertionError(f"render {impl} launches {launches}, want {want}")
-            times = _timed(lambda i: fhat_to_img(vae, f_hat, impl), 5)
+        want = {**zero, "gn_channel_stats": n_dec if impl == "pallas" else 0,
+                "gn_silu": 3 * n_dec if impl == "dot" else 0}
+        if launches != want:
+            raise AssertionError(f"render {impl} launches {launches}, want {want}")
         r = renders[impl]
         if tuple(r.shape) != (VAE_BATCH, reso, reso, 3) or not bool(torch.isfinite(r).all()):
             raise AssertionError(f"render {impl}: bad image {tuple(r.shape)}")
-        median_s = float(np.median(times))
         emit({"phase": "vae_train_main_path", "run": f"render_{impl}", "gn_impl": impl,
-              "batch": VAE_BATCH, "dtype": "bfloat16", "launches": launches,
-              "first_s": first_s, "batch_s": times, "batch_s_median": median_s,
-              "img_per_s": VAE_BATCH / median_s})
+              "batch": VAE_BATCH, "dtype": "bfloat16", "launches": launches})
         out[f"render_{impl}"] = launches
     diff = float((renders["dot"].float() - renders["pallas"].float()).abs().max())
     emit({"phase": "vae_train_main_path", "run": "render_dot_vs_pallas", "max_abs_diff": diff,
@@ -3644,15 +3431,14 @@ def phase_fid_parity(dev):
         raise AssertionError("fid parity failed: " + "; ".join(failures))
 
 
-def phase_fid_main_path(dev, main_path_img_per_s: float):
+def phase_fid_main_path(dev):
     """``apps/fid_sample.py``'s decode loop at d16, bf16, the FID recipe
     (cfg 1.5, top_k 900, top_p 0.96): FID_CLASSES x FID_PER_CLASS images in
     batches of FID_BATCH, ``--rounds`` FID_ROUNDS (counted), packed into
     an ``arr_0`` npz with numpy; a second seed's set likewise (not
-    counted; its time, and that of its chunks after the first, which
-    replay without capturing, are the img/s printed beside main_path's). Each
-    extractor scores the first set against itself (~0) and against the
-    second (> 0)."""
+    counted; its chunks after the first replay without capturing: their
+    img/s is printed). Each extractor scores the first set against itself
+    (~0) and against the second (> 0), ms an image."""
     import shutil
     import tempfile
 
@@ -3690,13 +3476,11 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
     # the second seed's set: the same work, warm, not counted; a new
     # decode_chunks call makes a new sampler, whose first chunk captures
     # again, so its later chunks (replays only) are timed apart
-    t0 = time.perf_counter()
     second, stamps = [], []
     for _, imgs in decode_chunks(var, vae, labels, seed=1, **kw):  # yields after a host copy
         second.append(imgs)
         stamps.append(time.perf_counter())
     second = np.concatenate(second)
-    second_s = stamps[-1] - t0
     replay_img_per_s = (len(labels) - FID_ROUNDS * FID_BATCH) / (stamps[-1] - stamps[0])
     tmp = tempfile.mkdtemp(prefix="var_fid_")
     try:
@@ -3721,10 +3505,7 @@ def phase_fid_main_path(dev, main_path_img_per_s: float):
     emit({"phase": "fid_main_path", "depth": DEPTH, "dtype": "bfloat16", "cfg": CFG,
           "top_k": TOP_K, "top_p": TOP_P, "images": len(labels), "batch": FID_BATCH,
           "rounds": FID_ROUNDS, "chunks": len(chunks), "launches": launches,
-          "first_sample_s": sample_s, "sample_s": second_s,
-          "sample_img_per_s": len(labels) / second_s,
-          "replayed_chunks_img_per_s": replay_img_per_s,
-          "main_path_img_per_s": main_path_img_per_s,
+          "first_sample_s": sample_s, "replayed_chunks_img_per_s": replay_img_per_s,
           "distinct_pixels_first": int(np.unique(first.reshape(-1, 3), axis=0).shape[0]),
           "scores": scores, "fid_self_atol": FID_SELF_ATOL, "compiled_extractors": compiled,
           "seconds": time.perf_counter() - t_phase})
@@ -3740,25 +3521,19 @@ def _extractor_replays(ex, imgs: np.ndarray) -> dict:
     """A compiled FID extractor (``metrics/fid.py``, the JAX extractors'
     jit) against its eager body on two full batches of FID_BATCH and a
     ragged one of 3 (its own entry; its first call and a replay), features
-    bit for bit under ``_Reproducible``; then, captured afresh, 5 replays
-    and 5 eager batches in turns: ms an image both ways."""
+    bit for bit under ``_Reproducible``: the entries, their capture s and
+    pool GB."""
     chunks = [imgs[:FID_BATCH], imgs[FID_BATCH:2 * FID_BATCH], imgs[:3]]
     ex.program.graphs.clear()
     with _Reproducible():
         equal = [bool(np.array_equal(ex(c), ex.eager(c))) for c in chunks]
         equal.append(bool(np.array_equal(ex(chunks[2]), ex.eager(chunks[2]))))  # a replay
-    entries = len(ex.program.graphs)
-    ex.program.graphs.clear()  # those graphs hold the deterministic kernels
-    torch.cuda.empty_cache()
-    ex(chunks[0])  # a fresh capture
-    turns = _eager_vs_replay(_all_kernels(), lambda s: ex(chunks[s % 2]),
-                             lambda s: ex.eager(chunks[s % 2]), 5, 0)
     captured = list(ex.program.graphs.values())
-    return {"features_equal": equal, "entries": entries,
-            "capture_s": sum(e.capture_s for e in captured),
-            "pool_gb": sum(e.pool_bytes for e in captured) / 1e9,
-            **{f"{k}_ms_per_image": 1e3 * float(np.median(v)) / FID_BATCH
-               for k, v in turns["times"].items()}}
+    out = {"features_equal": equal, "entries": len(captured),
+           "capture_s": sum(e.capture_s for e in captured),
+           "pool_gb": sum(e.pool_bytes for e in captured) / 1e9}
+    ex.program.graphs.clear()  # those graphs hold the deterministic kernels
+    return out
 
 
 # JAX's recorded CPU run at the script's defaults (scripts/quality_loop.py:30-34)
@@ -3868,7 +3643,7 @@ def phase_quality_loop(dev):
         + [result["fid_init"], result["fid_trained"]]
     emit({"phase": "quality_loop", **result, "jax_cpu_recorded": QLOOP_JAX_CPU,
           "launches": launches, "kernel_checks": checks, "kernel_checks_s": checks_s,
-          "log": lines, "wall_s": seconds, "wall_s_eager_steps": EAGER_QLOOP_WALL_S})
+          "log": lines, "wall_s": seconds})
     r0, r1 = result["vae_recon_first_last"]
     failures = []
     if launches != want:
@@ -3949,10 +3724,10 @@ def phase_analysis_main_path(dev):
     each model's score-batch shape held against its plain version in fp32,
     then ANALYSIS_IMAGES seeded 256px images over ANALYSIS_CLASSES classes
     in one score batch each, one warm-up image (the capture) not timed,
-    then replays of the compiled score and the eager body in turns, twice:
-    images/s of both per model (the second of each), the same scores bit
-    for bit, row 6's forward launched once a block a batch (twice with the
-    CFG ramp, one image at d16) and no backward."""
+    then replays of the compiled score (images/s per model; no cell runs
+    the analysis) and the eager body: the same scores bit for bit, row 6's
+    forward launched once a block a batch (twice with the CFG ramp, one
+    image at d16) and no backward."""
     from var_tpu_torch.apps.analysis import aggregate, make_score_fn
     from var_tpu_torch.models import build_vae_var
 
@@ -3976,14 +3751,14 @@ def phase_analysis_main_path(dev):
         _analysis_records(models, imgs[:1], labels[:1])  # warm-up and capture
         torch.cuda.synchronize()
         entry = next(iter(score_fn.program.graphs.values()))
-        launches, seconds, recs = {}, {}, {}
-        for kind in ("replay", "eager", "replay", "eager"):  # in turns, the last of each kept
+        launches, recs = {}, {}
+        for kind, ms in (("replay", models), ("eager", eager_models)):
             _zero_counts(kernels)
             t0 = time.perf_counter()
-            recs[kind] = _analysis_records(models if kind == "replay" else eager_models, imgs,
-                                           labels)
+            recs[kind] = _analysis_records(ms, imgs, labels)
             torch.cuda.synchronize()
-            seconds[kind] = time.perf_counter() - t0
+            if kind == "replay":
+                seconds = time.perf_counter() - t0
             launches[kind] = _counts(kernels)
         same = [a[name] == b[name] for a, b in zip(recs["replay"], recs["eager"])]
         if not all(same):
@@ -3998,11 +3773,8 @@ def phase_analysis_main_path(dev):
             rec[name] = r[name]
         if not np.isfinite([r[name]["per_scale"] for r in recs["replay"]]).all():
             raise AssertionError(f"analysis {name}: non-finite scores")
-        row = {"launches": launches["replay"], "seconds": seconds["replay"],
-               "img_per_s": ANALYSIS_IMAGES / seconds["replay"],
-               "eager_seconds": seconds["eager"],
-               "eager_img_per_s": ANALYSIS_IMAGES / seconds["eager"],
-               "replay_equals_eager": all(same), "capture_s": entry.capture_s,
+        row = {"launches": launches["replay"], "seconds": seconds,
+               "img_per_s": ANALYSIS_IMAGES / seconds, "replay_equals_eager": all(same), "capture_s": entry.capture_s,
                "pool_gb": entry.pool_bytes / 1e9, "heads": var.cfg.num_heads,
                "kernel_check": checks}
         if depth == DEPTH:
@@ -4051,12 +3823,11 @@ def main() -> None:
     for row in rows:
         emit({"phase": "kernel", **row})
     phase_parity(dev, root)
-    launches, main_path_img_per_s = phase_main_path(dev)
-    phase_graph_main_path(dev)
+    launches = phase_main_path(dev)
     phase_train_parity(dev, root)
-    _, train_step_s = phase_train_main_path(dev)
+    phase_train_main_path(dev)
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_imagenet_train_main_path(dev, train_step_s).items()
+    launches.update({k: v for k, v in phase_imagenet_train_main_path(dev).items()
                      if k.startswith("paired_train")})
     phase_zeroshot_parity(dev, root)
     zeroshot = phase_zeroshot_main_path(dev)
@@ -4084,8 +3855,7 @@ def main() -> None:
     phase_mesh_graph_parity(dev)
     torch.cuda.empty_cache()
     phase_fid_parity(dev)
-    phase_fid_main_path(dev, main_path_img_per_s)
-    torch.cuda.empty_cache()
+    phase_fid_main_path(dev)
     torch.cuda.empty_cache()
     phase_quality_loop(dev)
     torch.cuda.empty_cache()
@@ -4113,8 +3883,7 @@ def main() -> None:
         "gn_silu": ("var_tpu_torch/ops/cuda/csrc/gn_silu.cu", None),  # replaces no JAX kernel
         "kv_write": ("var_tpu_torch/ops/cuda/csrc/kv_write.cu", None),  # neither
     }
-    emit({"phase": "script", "seconds": time.perf_counter() - t_script,
-          "seconds_eager_steps": EAGER_SCRIPT_S})
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     # launches: counted on the d16 paths; no path here runs a d36 decode
     emit({"kernels": [{"name": r["name"], "config": r.get("config", "d16"), "route": "cuda",
                        "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],

@@ -914,27 +914,44 @@ def _ch160_render_setup(dev, b=2):
     return tv, vae, f_hat
 
 
+def _spy(monkeypatch, mod, name: str, calls: dict) -> None:
+    """Count the calls of ``mod.name`` under ``calls[name]``."""
+    real = getattr(mod, name)
+    calls[name] = 0
+
+    def call(*args, **kwargs):
+        calls[name] += 1
+        return real(*args, **kwargs)
+    monkeypatch.setattr(mod, name, call)
+
+
 @pytest.mark.cuda
 def test_cuda_channels_last_render_matches_the_nchw_chain(cuda, monkeypatch):
     """A bf16 ``fhat_to_img`` of the ch160 decoder on the card, channels-last
-    through the kernels (39 GroupNorms counted under ``vae.gn_nhwc``),
-    against the same render through the NCHW ``F.group_norm`` chain
-    (``vae.gn_plain``), both against the float32 render with TF32 off: no
-    less precise, and within a few bf16 steps of the chain."""
+    through the kernels (39 GroupNorms, each gn_silu's three launches, no
+    ``group_norm`` call), against the same render through the NCHW
+    ``F.group_norm`` chain (39 ``group_norm`` calls, no gn_silu launch),
+    both against the float32 render with TF32 off: no less precise, and
+    within a few bf16 steps of the chain."""
     from var_tpu_torch.device import fp32_exact
-    from var_tpu_torch.utils import profiling
 
     tv, vae, f_hat = _ch160_render_setup(cuda)
+    calls: dict = {}
+    _spy(monkeypatch, tv, "group_norm", calls)
+
+    def render(dtype):
+        launches, norms = gn_silu.launches, calls["group_norm"]
+        img = tv.fhat_to_img(vae, f_hat.to(dtype))
+        return img, (gn_silu.launches - launches, calls["group_norm"] - norms)
+
     with torch.inference_mode():
         with fp32_exact():
-            ref = tv.fhat_to_img(vae, f_hat)
-        profiling.reset()
-        new = tv.fhat_to_img(vae, f_hat.bfloat16())
-        assert profiling.counters()["vae.gn_nhwc"] == 39
+            ref, _ = render(torch.float32)
+        new, routes = render(torch.bfloat16)
+        assert routes == (3 * 39, 0)
         monkeypatch.setattr(tv, "_NHWC_DEVICES", ())
-        old = tv.fhat_to_img(vae, f_hat.bfloat16())
-        c = profiling.counters()
-        assert (c["vae.gn_nhwc"], c["vae.gn_plain"]) == (39, 39)
+        old, routes = render(torch.bfloat16)
+        assert routes == (0, 39)
     torch.cuda.synchronize()
     assert new.is_contiguous()
     err_new, err_old = ((t.float() - ref).abs() for t in (new, old))
@@ -947,30 +964,34 @@ def test_cuda_channels_last_render_matches_the_nchw_chain(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_render_body_counts_39_channels_last_norms_a_run(cuda):
+def test_cuda_render_body_counts_39_channels_last_norms_a_run(cuda, monkeypatch):
     """The sampler's render (``render_fhat``) as a compiled program: its
     first call runs the body eagerly and again for the capture, 39
-    GroupNorms channels-last each time and none plain; the capture records
-    the 117 kernel launches of those norms (three a norm); a replay runs no
-    Python and counts no norm, adds the recorded launches to
-    ``gn_silu.launches``, and gives the first call's image bit for bit."""
+    GroupNorms channels-last each time (``gn_nhwc``) and none plain
+    (``group_norm``), the eager run's 117 kernel launches (three a norm)
+    counted and the capture's recorded; a replay runs no Python (no norm
+    called), adds the recorded launches to ``gn_silu.launches``, and gives
+    the first call's image bit for bit."""
     from var_tpu_torch.engine.compiled import Compiled
     from var_tpu_torch.engine.sampler import render_fhat
     from var_tpu_torch.utils import profiling
 
-    _, vae, f_hat = _ch160_render_setup(cuda, b=8)
+    tv, vae, f_hat = _ch160_render_setup(cuda, b=8)
+    calls: dict = {}
+    for name in ("gn_nhwc", "group_norm"):
+        _spy(monkeypatch, tv, name, calls)
     prog = Compiled(lambda v, f: render_fhat(v, f, torch.bfloat16), 1, cuda)
     profiling.reset()
+    before = gn_silu.launches
     first = prog(vae, f_hat).clone()
-    c = profiling.counters()
-    assert (c["vae.gn_nhwc"], c["vae.gn_plain"], c["compiled.captures"]) == (78, 0, 1)
+    assert (calls["gn_nhwc"], calls["group_norm"], profiling.counters()["compiled.captures"],
+            gn_silu.launches - before) == (78, 0, 1, 3 * 39)
     (entry,) = prog.graphs.values()
     assert entry.launches["gn_silu"] == 3 * 39
     before = gn_silu.launches
     again = prog(vae, f_hat)
     torch.cuda.synchronize()
-    c = profiling.counters()
-    assert (c["vae.gn_nhwc"], c["compiled.replays"]) == (78, 1)
+    assert (calls["gn_nhwc"], profiling.counters()["compiled.replays"]) == (78, 1)
     assert gn_silu.launches == before + 3 * 39
     assert torch.equal(first, again)
 
@@ -1401,18 +1422,19 @@ def test_cuda_kv_write_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_decode_writes_its_cache_through_the_kernel(cuda):
+def test_cuda_decode_writes_its_cache_through_the_kernel(cuda, monkeypatch):
     """A bf16 CFG decode of a tiny head_dim-64 model on the card writes
-    each block's K and V once a stage through the kernel: ``attn.kv_fused``
-    counts depth x stages, ``attn.kv_plain`` none; the captured sampler
-    records those launches, a replay adds them to ``kv_write.launches`` and
-    gives the eager decode's tokens from the same seed."""
+    each block's K and V once a stage through the kernel:
+    ``kv_write.launches`` counts depth x stages, the plain version runs
+    none; the captured sampler records those launches, a replay adds them
+    to ``kv_write.launches`` and gives the eager decode's tokens from the
+    same seed."""
     from var_tpu_torch.config import VAEConfig, VARConfig
     from var_tpu_torch.engine.sampler import decode_cfg, make_sampler
     from var_tpu_torch.models import vae as vae_mod
     from var_tpu_torch.models import var as var_mod
+    from var_tpu_torch.ops.cuda import kv_write as kv_mod
     from var_tpu_torch.ops.cuda.kv_write import kv_write
-    from var_tpu_torch.utils import profiling
 
     pns = (1, 2, 3, 4, 5, 6)
     gen = torch.Generator().manual_seed(3)
@@ -1425,14 +1447,13 @@ def test_cuda_decode_writes_its_cache_through_the_kernel(cuda):
     writes = 2 * len(pns)
     kw = dict(cfg_scale=1.5, top_k=8, top_p=0.9, dtype=torch.bfloat16)
     seed = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
-    profiling.reset()
+    calls: dict = {}
+    _spy(monkeypatch, kv_mod, "kv_write_plain", calls)
     before = kv_write.launches
     with torch.inference_mode():
         eager = decode_cfg(var, vae, torch.tensor([1, 7], device=cuda), seed(0), **kw)
     torch.cuda.synchronize()
-    c = profiling.counters()
-    assert (c["attn.kv_fused"], c["attn.kv_plain"]) == (writes, 0)
-    assert kv_write.launches == before + writes
+    assert (kv_write.launches - before, calls["kv_write_plain"]) == (writes, 0)
     sampler = make_sampler(var.cfg, vae.cfg, device=cuda, **kw)
     sampler(var, vae, seed(1), [1, 7])  # the eager warm-up, then the capture
     (entry,) = sampler.graphs.values()
@@ -1442,7 +1463,6 @@ def test_cuda_decode_writes_its_cache_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert kv_write.launches == before + writes
     assert torch.equal(replay.tokens, eager.tokens)
-    profiling.reset()
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The channels-last GroupNorm-SiLU of the VQVAE decoder on the CPU: the
 plain version (``ops/cuda/gn_silu.py``, the kernel's oracle) against
 ``F.group_norm`` and ``F.silu``, the launch tiling, which decodes take the
-channels-last path (``models/vae.py::channels_last_decode``) and the counters
+channels-last path (``models/vae.py::channels_last_decode``) and the calls
 that show it, and that path's layout plumbing run here through the plain
 version. The kernel itself runs on the card (``tests/test_torch_cuda.py``)."""
 
@@ -12,7 +12,6 @@ import torch.nn.functional as F
 from var_tpu_torch.config import VAEConfig
 from var_tpu_torch.models import vae as tv
 from var_tpu_torch.ops.cuda import gn_silu as gs
-from var_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -89,11 +88,29 @@ def _f_hat(dtype=torch.float32, seed=5):
     return torch.randn(2, 4, 4, TINY.z_channels, generator=g).to(dtype)
 
 
-def _counted(fn):
-    profiling.reset()
-    out = fn()
-    c = profiling.counters()
-    return out, c["vae.gn_nhwc"], c["vae.gn_plain"]
+@pytest.fixture
+def counted(monkeypatch):
+    """``counted(fn)``: fn's result, and the GroupNorms it ran channels-last
+    (calls of ``gn_silu`` from ``models/vae.py``) and NCHW (calls of
+    ``models/vae.py::group_norm``)."""
+    calls = {}
+
+    def spy(name):
+        real = getattr(tv, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(tv, name, call)
+
+    spy("gn_silu")
+    spy("group_norm")
+
+    def run(fn):
+        calls.update(gn_silu=0, group_norm=0)
+        out = fn()
+        return out, calls["gn_silu"], calls["group_norm"]
+    return run
 
 
 @pytest.fixture
@@ -115,34 +132,34 @@ def test_the_decoder_has_39_group_norms():
     (torch.bfloat16, "pallas", False, "plain"),
     (torch.bfloat16, "dot", True, "plain"),
 ])
-def test_which_decodes_run_channels_last(cpu_as_cuda, dtype, impl, grad, path):
-    """bf16 decodes without gradients under "dot" or "xla" count their 39
-    GroupNorms under ``vae.gn_nhwc``; float32, ``gn_impl="pallas"`` and a
-    decode under autograd (trainable decoder) count them under
-    ``vae.gn_plain`` and none under ``vae.gn_nhwc``."""
+def test_which_decodes_run_channels_last(cpu_as_cuda, counted, dtype, impl, grad, path):
+    """bf16 decodes without gradients under "dot" or "xla" run their 39
+    GroupNorms through ``gn_silu``; float32, ``gn_impl="pallas"`` and a
+    decode under autograd (trainable decoder) run them through
+    ``group_norm`` and none through ``gn_silu``."""
     vae = _tiny_vae()
     if grad:
         vae.requires_grad_(True)
     with torch.set_grad_enabled(grad):
-        img, nhwc, plain = _counted(lambda: tv.fhat_to_img(vae, _f_hat(dtype), impl))
+        img, nhwc, plain = counted(lambda: tv.fhat_to_img(vae, _f_hat(dtype), impl))
     assert img.shape == (2, 64, 64, 3) and img.dtype == dtype
     assert (nhwc, plain) == ((39, 0) if path == "nhwc" else (0, 39))
 
 
-def test_the_cpu_decodes_plain_without_the_patch():
+def test_the_cpu_decodes_plain_without_the_patch(counted):
     """On the CPU itself no decode runs channels-last: no kernel there."""
     with torch.inference_mode():
-        _, nhwc, plain = _counted(lambda: tv.fhat_to_img(_tiny_vae(), _f_hat(torch.bfloat16)))
+        _, nhwc, plain = counted(lambda: tv.fhat_to_img(_tiny_vae(), _f_hat(torch.bfloat16)))
     assert (nhwc, plain) == (0, 39)
 
 
-def test_vae_training_forward_decodes_plain(cpu_as_cuda):
+def test_vae_training_forward_decodes_plain(cpu_as_cuda, counted):
     """The tokenizer-training forward runs under autograd, in bf16 too:
     the encoder's and the decoder's GroupNorms all take the plain path."""
     vae = _tiny_vae().requires_grad_(True).to(torch.bfloat16)
     img = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
     n_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in vae.modules())
-    out, nhwc, plain = _counted(lambda: tv.vae_train_forward(vae, img.bfloat16()))
+    out, nhwc, plain = counted(lambda: tv.vae_train_forward(vae, img.bfloat16()))
     out.recon.float().sum().backward()
     assert (nhwc, plain) == (0, n_gn)
 

@@ -114,105 +114,12 @@ def test_build_vae_var_train_default_device_raises_without_gpu():
         build_vae_var_train(depth=2, patch_nums=(1, 2))
 
 
-def test_profile_train_raises_without_gpu():
-    _no_gpu()
-    from var_tpu_torch.apps.profile_train import main
-
-    with pytest.raises(RuntimeError, match="cuda"):
-        main(["--depth", "2"])
-
-
-# the training-attention kernels of rows 5 and 6 as the profiler
-# (demangled) and cuobjdump (mangled) name them, with the kind profile_train
-# groups them under; the fp32 path's delta kernel serves both rows
-KERNEL_KINDS = [
-    ("void ptrain_dq_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float*, "
-     "__nv_bfloat16*, int, int, int, Ends)", "paired_train_bwd"),
-    ("void ptrain_dkv_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, Ends)",
-     "paired_train_bwd"),
-    ("void ptrain_dq_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float*, "
-     "__nv_bfloat16*, int, int, int, Ends)", "flash_attention_bwd"),
-    ("void ptrain_dkv_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, Ends)",
-     "flash_attention_bwd"),
-    ("void ptrain_dq_f32_kernel<5>(float const*, float const*, float const*, float const*, "
-     "float const*, float const*, float*, int, int, int, Ends)", "flash_attention_bwd"),
-    ("_Z22ptrain_dq_wgmma_kernelILi6EEv14CUtensorMap_stS0_S0_S0_PK13__nv_bfloat16S3_PKfPfPS1_iii4Ends",
-     "paired_train_bwd"),
-    ("_Z23ptrain_dkv_wgmma_kernelILi5EEv14CUtensorMap_stS0_S0_S0_PKfP13__nv_bfloat16S4_iii4Ends",
-     "flash_attention_bwd"),
-    ("void train_delta_f32_kernel(float const*, float const*, float*, int, int)", "other"),
-    ("void ptrain_fwd_wgmma_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "__nv_bfloat16*, float*, int, int, int, Ends)", "flash_attention_fwd"),
-    ("void ptrain_fwd_wgmma_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "__nv_bfloat16*, float*, int, int, int, Ends)", "paired_train_fwd"),
-    ("_Z23ptrain_fwd_wgmma_kernelILi5EEv14CUtensorMap_stS0_S0_P13__nv_bfloat16Pfiii4Ends",
-     "flash_attention_fwd"),
-]
-
-
-@pytest.mark.parametrize("name,kind", KERNEL_KINDS)
-def test_profile_train_kind_groups_the_training_attention_kernels(name, kind):
-    """profile_train's ``_kind`` puts each backward kernel of rows 5 and 6
-    (and their forwards) under its row, by the kRow template argument; the
-    fp32 delta kernel, of neither row, under 'other'."""
-    from var_tpu_torch.apps.profile_train import _kind
-
-    assert _kind(name) == kind
-
-
-DECODE_KERNEL_KINDS = [
-    ("void (anonymous namespace)::topk_topp_bound_kernel<1024>(float const*, int*, int, int, "
-     "float)", "topk_topp_bound"),
-    ("void (anonymous namespace)::topk_topp_bound_kernel<256>(float const*, int*, int, int, "
-     "float)", "topk_topp_bound"),
-    ("_ZN41_GLOBAL__N__1190a843_9_select_cu_3d17efc422topk_topp_bound_kernelILi512EEEvPKfPiiif",
-     "topk_topp_bound"),
-    ("void (anonymous namespace)::modulated_ln_kernel<__nv_bfloat16, 4>(__nv_bfloat16 const*, "
-     "float const*, float const*, __nv_bfloat16*, long long, int, int, long long, long long, "
-     "float, bool)", "modulated_ln"),
-    ("void (anonymous namespace)::modulated_ln_kernel<float, 18>(float const*, float const*, "
-     "float const*, float*, long long, int, int, long long, long long, float, bool)",
-     "modulated_ln"),
-    ("_ZN44_GLOBAL__N__bf3534bb_11_fused_ln_cu_87a5bffb19modulated_ln_kernel"
-     "I13__nv_bfloat16Li4EEEvPKT_PKfS6_PS2_xiixxfb", "modulated_ln"),
-]
-
-
-@pytest.mark.parametrize("name,kind", DECODE_KERNEL_KINDS)
-def test_profile_decode_kind_groups_rows_1_and_3(name, kind):
-    """profile_decode's ``_kind`` puts every instantiation of the row 1 and
-    row 3 kernels under its row, by demangled and by mangled name."""
-    from var_tpu_torch.apps.profile_decode import _kind
-
-    assert _kind(name) == kind
-
-
-def test_stage_kernels_raises_without_gpu():
-    _no_gpu()
-    from var_tpu_torch.apps.stage_kernels import main
-
-    with pytest.raises(RuntimeError, match="cuda"):
-        main(["--iters", "1"])
-
-
 def test_build_vae_train_default_device_raises_without_gpu():
     _no_gpu()
     from var_tpu_torch.models import build_vae_train
 
     with pytest.raises(RuntimeError, match="cuda"):
         build_vae_train(cfg=VAEConfig(ch=32, ch_mult=(1, 1), v_patch_nums=(1, 2)))
-
-
-def test_profile_vae_train_raises_without_gpu():
-    _no_gpu()
-    from var_tpu_torch.apps.profile_vae_train import main
-
-    with pytest.raises(RuntimeError, match="cuda"):
-        main(["--batch", "1"])
 
 
 def test_build_vae_train_keeps_fp32_trainable_params():
@@ -284,8 +191,6 @@ def test_parallel_modules_import_no_jax_and_no_process_group():
     ("quality_loop", ["--vae_steps", "1"]),
     ("analysis", ["--depths", "2", "--pn", "1_2", "--data_path", "imgs"]),
     ("dryrun_multigpu", ["--n", "2"]),
-    ("profile_train_ranks", []),
-    ("probe_nccl_capture", []),
 ])
 def test_new_app_default_device_raises_without_gpu(app, argv, tmp_path, monkeypatch):
     """The FID, quality-loop, analysis and multi-GPU dry-run CLIs default to

@@ -51,8 +51,8 @@ ranks paired:
   collectives once, as a replay does, and the capture runs none;
 * the capture keeps torch's default error mode (``"global"``): NCCL's
   watchdog thread, which queries the events of earlier collectives while
-  a capture runs, spoiled none of 144 captures in that mode
-  (``apps/probe_nccl_capture.py``; torch 2.11, NCCL 2.28, one H100).
+  a capture runs, spoiled none of 144 captures in that mode (torch 2.11,
+  NCCL 2.28, one H100).
 
 Tracing (``utils/profiling.py``): every call, capture and replay counts in
 its counters; a capture records the device spans that the body marks with

@@ -36,7 +36,6 @@ from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
 from var_tpu_torch.ops.cuda.gn_silu import gn_silu
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
-from var_tpu_torch.utils.profiling import COUNTERS
 
 
 class Conv2d(nn.Conv2d):
@@ -69,7 +68,6 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor, impl: str = "dot") -> torch.
     mean^2`` unclamped, the affine folded into one per-(batch, channel)
     scale and shift in float32, cast to x's dtype, applied as
     ``x * scale + shift``."""
-    COUNTERS["vae.gn_plain"] += 1
     if impl in ("dot", "xla"):
         return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
                             norm.eps)
@@ -115,7 +113,6 @@ def gn_nhwc(norm: nn.GroupNorm, x: torch.Tensor, silu: bool = True,
     over channels-last ``x`` through the kernels of
     ``ops/cuda/gn_silu.py``; ``bias_in``: the bias of the convolution that
     made ``x``, left out of it (``Conv2d.channels_last(bias=False)``)."""
-    COUNTERS["vae.gn_nhwc"] += 1
     return gn_silu(x, norm.weight.float(), norm.bias.float(), norm.num_groups, norm.eps, silu,
                    None if bias_in is None else bias_in.float())
 

@@ -64,7 +64,7 @@ from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm
 from var_tpu_torch.ops.cuda.kv_write import kv_write
 from var_tpu_torch.parallel import shard_attn as sa
 from var_tpu_torch.parallel.mesh import Mesh, data_rows
-from var_tpu_torch.utils.profiling import COUNTERS, span
+from var_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -339,19 +339,18 @@ def _l2_heads(t: torch.Tensor, num_heads: int,
 def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockContext,
                cache: KVCache, layer: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Fused QKV with a zero k bias, per-head k L2 norm at cache-write time
-    (``kv_write``: one launch writes this stage's K and V into the cache,
-    counted under ``attn.kv_fused``; the CPU's plain version under
-    ``attn.kv_plain``), then attention of this stage's queries over cache
-    rows [0, cum + l) (``basic_var.py:90-119``): chunked through ``flash_decode``, paired
-    through ``flash_decode_paired`` (the scale folded into q,
-    ``var.py:402-454``), both reading q from the fused qkv, with the q norm
-    (where ``cfg.attn_l2_norm``) in the kernel's launch. Under a model axis
-    both run on this rank's ``H // mp`` heads (JAX's ``decode_paired`` and
-    ``decode_paired_chunks`` bridges), an odd count too: the kernels take
+    (``kv_write``: one launch writes this stage's K and V into the cache; the
+    CPU takes its plain version), then attention of this stage's queries over
+    cache rows [0, cum + l) (``basic_var.py:90-119``): chunked through
+    ``flash_decode``, paired through ``flash_decode_paired`` (the scale folded
+    into q, ``var.py:402-454``), both reading q from the fused qkv, with the q
+    norm (where ``cfg.attn_l2_norm``) in the kernel's launch. Under a model
+    axis both run on this rank's ``H // mp`` heads (JAX's ``decode_paired``
+    and ``decode_paired_chunks`` bridges), an odd count too: the kernels take
     one head a block, where JAX's paired kernels want head pairs and leave
     such a mesh to XLA (``var.py:374``, ``:441``). The span ``attention``
-    (``utils/profiling.py``, on stamps of its own) bounds the kernel's
-    launch alone."""
+    (``utils/profiling.py``, on stamps of its own) bounds the kernel's launch
+    alone."""
     l = x.shape[1]
     h, d = sa.local_heads(cfg.num_heads, mesh), cfg.head_dim
     c = h * d
@@ -361,7 +360,6 @@ def attn_apply(attn: SelfAttention, cfg: VARConfig, x: torch.Tensor, ctx: BlockC
     cum = cache.cum
     kv_write(qkv[..., c:2 * c], qkv[..., 2 * c:], cache.k[layer, :, cum:cum + l],
              cache.v[layer, :, cum:cum + l], h, cfg.attn_l2_norm)
-    COUNTERS["attn.kv_plain" if qkv.device.type == "cpu" else "attn.kv_fused"] += 1
     scale = 1.0 if cfg.attn_l2_norm else 0.25 / math.sqrt(d)
     k_l, v_l = cache.k[layer], cache.v[layer]
     with span("attention", own=True):

@@ -60,10 +60,6 @@ COUNTERS: Dict[str, float] = {
     "sampler.kv_bytes": 0,  # bytes of the K and V buffers of the largest decode cache made
     "train.steps": 0,  # make_train_step's steps that replayed ...
     "train.host_s": 0.0,  # ... and theirs
-    "vae.gn_nhwc": 0,  # VQVAE GroupNorms run channels-last through ops/cuda/gn_silu.py ...
-    "vae.gn_plain": 0,  # ... and through models/vae.py::group_norm, as a body runs
-    "attn.kv_fused": 0,  # decode block-stages whose K and V ops/cuda/kv_write.py's kernel ...
-    "attn.kv_plain": 0,  # ... and its plain version wrote into the cache, as a body runs
 }
 
 
