@@ -172,6 +172,19 @@ so (KV_WRITE_ULPS), and timed in bf16 at the d16 and d36 shapes against its
 bound by bytes and the seven PyTorch launches it replaced. Every decode
 launches it once a block a stage (``_decode_want``); training none.
 
+``conv3xtf32`` (the frozen encoder's float32 convolutions on the tensor
+cores, three TF32 products a term; no row in the table: the JAX package
+leaves convolutions to XLA) is held at every convolution of the ch160
+encoder and quant_conv at batches 8 and 32 against float64: its error at most
+CONV3XTF32_VS_FP32 times cuDNN's float32 (TF32 off) on the same inputs, a
+rerun bit for bit; then timed at batch 32 at level 0 (160 channels, 256 x
+256) and at the 16 x 16 640-wide 3x3 against its bound by operations
+(495 / 3 TFLOP/s), its plain version and cuDNN's float32 NCHW convolution
+it replaced. Every float32 encode of that tokenizer on the card launches
+it once a convolution and gn_silu three times a GroupNorm
+(ENCODE_LAUNCHES: a training step, an eval batch, a tokenized image);
+tokenizer training and the tests' 8- or 16-channel tokenizers neither.
+
 The same checks and timings run again at the shapes of VAR-d36-s's 512px
 decode at batch 16 (``phase_kernel_d36_512``: C 2304, 36 heads, depth 36,
 the 512px pyramid, L 2240; rows 1-4 and ``gn_silu`` at the 512 x 512
@@ -198,6 +211,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+TF32_TENSOR_FLOPS = 495e12  # dense TF32 tensor-core peak
 PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 DEMO_CLASSES = [980, 980, 437, 437, 22, 22, 562, 562]  # demo_sample.py:64
 BATCH = len(DEMO_CLASSES)
@@ -251,6 +265,16 @@ DECODER_GN_SHAPES = ((640, 16), (640, 32), (320, 32), (320, 64), (320, 128), (16
                      (160, 256))
 DECODER_GN = 39
 RENDER_GN_LAUNCHES = 3 * DECODER_GN  # gn_silu's statistics, finalize and apply kernels a norm
+# a float32 encode of the ch160 tokenizer on the card
+# (models/vae.py::channels_last_encode): conv3xtf32 once for each of its 38
+# convolutions and quant_conv, gn_silu's three kernels for each of its 28
+# GroupNorms
+ENCODE_LAUNCHES = {"conv3xtf32": 39, "gn_silu": 3 * 28}
+
+
+def _encodes(want: dict, n: int = 1) -> dict:
+    """``want`` with ``n`` float32 encodes' launches (ENCODE_LAUNCHES) added."""
+    return {**want, **{k: want.get(k, 0) + n * v for k, v in ENCODE_LAUNCHES.items()}}
 # gn_silu against its plain version on the same bf16 inputs: |got - want| <=
 # atol + rtol |want|, rtol one bf16 rounding (the same float32 arithmetic
 # summed in another order, then rounded once)
@@ -1412,6 +1436,134 @@ def phase_kernel_kv_write(dev) -> list:
     return rows
 
 
+# (name, Cin, Cout, H = W of the input, k, stride, residual): every distinct
+# convolution of the ch160 encoder and quant_conv at 256px
+ENCODER_CONVS = (
+    ("conv_in", 3, 160, 256, 3, 1, False), ("l0_3x3", 160, 160, 256, 3, 1, True),
+    ("down0", 160, 160, 256, 3, 2, False), ("l1_3x3", 160, 160, 128, 3, 1, True),
+    ("down1", 160, 160, 128, 3, 2, False), ("l2_conv1", 160, 320, 64, 3, 1, False),
+    ("l2_nin", 160, 320, 64, 1, 1, False), ("l2_3x3", 320, 320, 64, 3, 1, True),
+    ("down2", 320, 320, 64, 3, 2, False), ("l3_3x3", 320, 320, 32, 3, 1, True),
+    ("down3", 320, 320, 32, 3, 2, False), ("l4_conv1", 320, 640, 16, 3, 1, False),
+    ("l4_nin", 320, 640, 16, 1, 1, False), ("l4_3x3", 640, 640, 16, 3, 1, True),
+    ("qkv", 640, 1920, 16, 1, 1, False), ("proj_out", 640, 640, 16, 1, 1, True),
+    ("conv_out", 640, 32, 16, 3, 1, False), ("quant_conv", 32, 32, 16, 3, 1, False))
+# conv3xtf32 against the same convolution in float64: its max |error| over the
+# float64 result's RMS at most this many times cuDNN's float32 (TF32 off) on
+# the same inputs
+CONV3XTF32_VS_FP32 = 2.0
+
+
+def _conv_case(dev, cin, cout, hw, k, stride, residual, b, seed=0):
+    """Seeded inputs of one encoder convolution, drawn as the modules' are
+    (uniform +-1/sqrt(fan_in)), with the pad the encoder gives it."""
+    g = torch.Generator(device=dev).manual_seed(seed + cin + cout + hw + k)
+    x = torch.randn(b, cin, hw, hw, generator=g, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    lim = (cin * k * k) ** -0.5
+    w = (torch.rand(cout, cin, k, k, generator=g, device=dev) * 2 - 1) * lim
+    bias = (torch.rand(cout, generator=g, device=dev) * 2 - 1) * lim
+    pad = (0, 1, 0, 1) if stride == 2 else (k // 2,) * 4
+    ho = (hw + pad[2] + pad[3] - k) // stride + 1
+    res = (torch.randn(b, cout, ho, ho, generator=g, device=dev).contiguous(
+        memory_format=torch.channels_last) if residual else None)
+    return x, w, bias, stride, pad, res
+
+
+def _conv_float64(x, w, bias, stride, pad, res):
+    """The same convolution (and residual) in float64."""
+    import torch.nn.functional as F
+
+    y = F.conv2d(F.pad(x.double(), pad), w.double(), bias.double(), stride)
+    return y if res is None else res.double() + y
+
+
+def check_conv3xtf32(dev, batch: int = VAE_BATCH) -> dict:
+    """conv3xtf32 at every encoder convolution (ENCODER_CONVS) at ``batch``,
+    against the same convolution in float64: its error (max |error| over
+    the result's RMS) at most CONV3XTF32_VS_FP32 times that of cuDNN's
+    float32 convolution with TF32 off (the plain version) on the same
+    inputs, one launch, and a second launch bit for bit the first. Raises on
+    any violation; returns {name: {"kernel", "cudnn_fp32"}} errors."""
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.ops.cuda.conv3xtf32 import conv3xtf32, conv3xtf32_plain
+
+    out, failures = {}, []
+    for name, cin, cout, hw, k, stride, residual in ENCODER_CONVS:
+        x, w, bias, stride, pad, res = _conv_case(dev, cin, cout, hw, k, stride, residual, batch)
+        before = conv3xtf32.launches
+        got = conv3xtf32(x, w, bias, stride, pad, res)
+        again = conv3xtf32(x, w, bias, stride, pad, res)
+        torch.cuda.synchronize()
+        ref = _conv_float64(x, w, bias, stride, pad, res)
+        rms = ref.pow(2).mean().sqrt()
+        with fp32_exact():
+            plain = conv3xtf32_plain(x, w, bias, stride, pad, res)
+        errs = {"kernel": float((got.double() - ref).abs().max() / rms),
+                "cudnn_fp32": float((plain.double() - ref).abs().max() / rms)}
+        out[name] = errs
+        if not errs["kernel"] <= CONV3XTF32_VS_FP32 * errs["cudnn_fp32"]:
+            failures.append(f"{name}: error {errs}")
+        if conv3xtf32.launches != before + 2 or not torch.equal(got, again):
+            failures.append(f"{name}: {conv3xtf32.launches - before} launches, rerun equal "
+                            f"{torch.equal(got, again)}")
+        del x, w, bias, res, got, again, ref, plain
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("conv3xtf32 against float64: " + "; ".join(failures))
+    return out
+
+
+def phase_kernel_conv3xtf32(dev) -> list:
+    """conv3xtf32 held at every encoder convolution (check_conv3xtf32) at
+    batch 8 (the zero-shot CLIs' tokenizer) and at batch 32 (the training
+    step's and the 256px eval's), then timed at batch 32 at level 0 (256 x 256,
+    160 -> 160, 3x3) and at the 16 x 16 640-wide 3x3: the kernel's device
+    ms against its bound by operations (three TF32 products a term, 495 / 3
+    TFLOP/s; ``bound_simt_ms``: float32 outside the tensor cores, 67
+    TFLOP/s), its plain version (cuDNN float32 over channels-last, TF32
+    off) and cuDNN's float32 convolution over NCHW, the path it replaced,
+    as ``library_ms``. Two rows, each with its own shape's errors at batch
+    32 as ``max_abs_err`` and the whole check at both batches as
+    ``errors``."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.ops.cuda.conv3xtf32 import conv3xtf32, conv3xtf32_plain
+
+    errs = {batch: check_conv3xtf32(dev, batch) for batch in (VAE_BATCH, TRAIN_BATCH)}
+    rows = []
+    for name in ("l0_3x3", "l4_3x3"):
+        _, cin, cout, hw, k, stride, _ = next(c for c in ENCODER_CONVS if c[0] == name)
+        x, w, bias, stride, pad, _ = _conv_case(dev, cin, cout, hw, k, stride, False,
+                                                TRAIN_BATCH)
+        xn = x.contiguous()
+        split = device_ms_by_name(lambda: conv3xtf32(x, w, bias, stride, pad), 10)
+        flops = 2.0 * x.shape[0] * hw * hw * cout * cin * k * k
+        bound_ms, bound_by = bound(4.0 * (x.numel() + x.shape[0] * cout * hw * hw),
+                                   flops, TF32_TENSOR_FLOPS / 3)
+        with fp32_exact():
+            plain_ms = device_ms(lambda: conv3xtf32_plain(x, w, bias, stride, pad), 5)
+            library_ms = device_ms(lambda: F.conv2d(xn, w, bias, stride, k // 2), 5)
+        rows.append({
+            "name": "conv3xtf32", "shape": [x.shape[0], cin, hw, hw], "cout": cout, "k": k,
+            "max_abs_err": errs[TRAIN_BATCH][name]["kernel"],
+            "cudnn_fp32_err": errs[TRAIN_BATCH][name]["cudnn_fp32"],
+            "errors": {f"batch {batch}": e for batch, e in errs.items()},
+            "tol": f"max|err| / rms <= {CONV3XTF32_VS_FP32} x cuDNN float32's, both against "
+                   f"float64, at every encoder convolution at batches {VAE_BATCH} and "
+                   f"{TRAIN_BATCH}",
+            "ms": sum(v for n, v in split.items() if "conv3xtf32" in n),
+            "call_ms": call_ms(lambda: conv3xtf32(x, w, bias, stride, pad), 10),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_simt_ms": flops / FP32_FLOPS * 1e3, "library_ms": library_ms,
+            "library": "F.conv2d(x, w, b) in float32 over NCHW, TF32 off (cuDNN)",
+            "dtype": "float32", "split": split})
+        del x, xn, w, bias
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernel_d36_512(dev) -> list:
     """Rows 1-4 and gn_silu at the shapes of VAR-d36-s's 512px CFG decode
     at batch 16 (the benchmark cell d36-512-fid16), through the d16
@@ -1674,14 +1826,18 @@ def _decode_want(depth: int, sn: int, render: bool = False) -> dict:
     return {"modulated_layernorm": 2 * depth * sn, "flash_decode": 0, "topk_topp_bound": sn,
             "flash_decode_paired": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
             "paired_train_fwd": 0, "paired_train_bwd": 0, "gn_channel_stats": 0,
-            "gn_silu": RENDER_GN_LAUNCHES if render else 0, "kv_write": depth * sn}
+            "gn_silu": RENDER_GN_LAUNCHES if render else 0, "kv_write": depth * sn,
+            "conv3xtf32": 0}
 
 
-def _train_want(depth: int, impl: str = "paired") -> dict:
+def _train_want(depth: int, impl: str = "paired", tokenize: bool = True) -> dict:
     """Launches of one remat-2 training step over ``depth`` blocks: the
     core runs once forward and once recomputed in backward; ``hybrid``
-    takes the dense backward."""
+    takes the dense backward. ``tokenize``: the step's frozen ch160
+    tokenizer encodes its batch in float32 on the card (ENCODE_LAUNCHES)."""
     want = dict.fromkeys(_decode_want(depth, 0), 0)
+    if tokenize:
+        want = _encodes(want)
     if impl == "paired":
         want.update(paired_train_fwd=2 * depth, paired_train_bwd=depth)
     elif impl == "pallas":
@@ -1789,6 +1945,7 @@ def phase_train_main_path(dev):
         raise AssertionError(f"training main path launches {launches}, want {want} a step")
     if not all(np.isfinite(losses + gnorms)):
         raise AssertionError(f"non-finite training step: loss {losses} grad norm {gnorms}")
+    return launches[0]
 
 
 IMAGENET_TRAIN, IMAGENET_VAL = 96, 32  # synthetic images: 3 steps an epoch, 1 eval batch
@@ -1915,6 +2072,7 @@ def phase_imagenet_train_main_path(dev):
         n_eval = sum(nb for _, nb in times["eval_s"])
         eval_attn = tr.pick_eval_attn(resolve_attn(args.attn, dev), var.cfg.seq_len)
         want = {k: n_steps * v for k, v in _train_want(DEPTH).items()}
+        want = _encodes(want, n_eval)  # each eval batch is tokenized too
         if eval_attn == "pallas":  # the 256px eval keeps the dense path (L 680)
             want["flash_attention_fwd"] += DEPTH * n_eval
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2044,7 +2202,9 @@ def _multigpu_want(case: str) -> dict:
     1 twice a block a scale, its attention row and kv_write once, row 3
     once a scale; a 256px eval batch (the dense attention) none."""
     want = dict.fromkeys(_decode_want(MULTIGPU_DEPTH, 0), 0)
-    for name in ("gn_channel_stats", "gn_silu"):  # apps/dryrun_multigpu.py counts neither
+    # apps/dryrun_multigpu.py counts none of these (and its 8-channel
+    # tokenizer runs no conv3xtf32)
+    for name in ("gn_channel_stats", "gn_silu", "conv3xtf32"):
         want.pop(name)
     sn = len(PATCH_NUMS)
     if case == "eval":
@@ -2554,11 +2714,15 @@ def phase_zeroshot_cli(dev):
     sn = len(PATCH_NUMS)
     decode = {**_decode_want(DEPTH, sn), "flash_decode": DEPTH * sn}
     # the inpainting CLI renders in bf16; smooth (its float32 render) and the
-    # classifier (float32) launch no gn_silu
-    wants = {"inpaint": {**decode, "gn_silu": RENDER_GN_LAUNCHES},
-             "smooth": {**decode, "topk_topp_bound": 0},
-             "classify_bayesian": {**dict.fromkeys(decode, 0), "paired_train_fwd": DEPTH},
-             "classify_gen": {k: CLF_CLASSES * v for k, v in decode.items()}}
+    # classifier (float32) launch no gn_silu. Each image is tokenized in
+    # float32 once; the gen classifier also encodes it and each class's
+    # decode for its features (img_to_fhat)
+    wants = {"inpaint": _encodes({**decode, "gn_silu": RENDER_GN_LAUNCHES}),
+             "smooth": _encodes({**decode, "topk_topp_bound": 0}),
+             "classify_bayesian": _encodes({**dict.fromkeys(decode, 0),
+                                            "paired_train_fwd": DEPTH}),
+             "classify_gen": _encodes({k: CLF_CLASSES * v for k, v in decode.items()},
+                                      CLF_CLASSES + 2)}
     rows, failures = {}, []
     try:
         data = os.path.join(root, "data")
@@ -2750,7 +2914,7 @@ def phase_long_parity(dev):
             if not rel <= worst:  # NaN counts as worst
                 worst, worst_name = rel, n
         loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
-        want = _train_want(2, impl)
+        want = _train_want(2, impl, tokenize=False)  # the CPU tokenized
         rows[impl] = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
                       "loss_rel_err": loss_rel, "grad_rel_err_max": worst,
                       "grad_rel_err_param": worst_name, "launches": launches}
@@ -3703,7 +3867,7 @@ def phase_analysis_parity(dev, root):
         preds_equal = all(card[k] == cpu[k] for k in ("pred_per_scale", "pred_cumulative",
                                                        "pred"))
         fwd = var.cfg.depth * (2 if cfg_scale > 0 else 1)
-        want_launches = {**dict.fromkeys(launches, 0), "paired_train_fwd": fwd}
+        want_launches = _encodes({**dict.fromkeys(launches, 0), "paired_train_fwd": fwd})
         rows[name] = {"max_rel_err": rel, "preds_equal": preds_equal, "pred": card["pred"],
                       "launches": launches}
         if not (rel <= ZEROSHOT_RTOL and preds_equal) or launches != want_launches:
@@ -3763,8 +3927,8 @@ def phase_analysis_main_path(dev):
         same = [a[name] == b[name] for a, b in zip(recs["replay"], recs["eager"])]
         if not all(same):
             raise AssertionError(f"analysis {name}: replayed scores differ from eager: {same}")
-        want = {**dict.fromkeys(launches["replay"], 0),
-                "paired_train_fwd": depth * ANALYSIS_IMAGES}
+        want = _encodes({**dict.fromkeys(launches["replay"], 0),
+                         "paired_train_fwd": depth * ANALYSIS_IMAGES}, ANALYSIS_IMAGES)
         for kind in launches:
             if launches[kind] != want:
                 raise AssertionError(f"analysis {name} {kind} launches {launches[kind]}, "
@@ -3784,7 +3948,8 @@ def phase_analysis_main_path(dev):
             torch.cuda.synchronize()
             row["cfg_launches"] = _counts(kernels)
             del cfg_models
-            if row["cfg_launches"] != {**want, "paired_train_fwd": 2 * depth}:
+            if row["cfg_launches"] != _encodes({**dict.fromkeys(want, 0),
+                                                "paired_train_fwd": 2 * depth}):
                 raise AssertionError(f"analysis {name} with cfg launches {row['cfg_launches']}")
         out[name] = row
         del models, eager_models, score_fn, entry, var, vae
@@ -3818,6 +3983,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += phase_kernel_kv_write(dev)
     torch.cuda.empty_cache()
+    rows += phase_kernel_conv3xtf32(dev)
+    torch.cuda.empty_cache()
     rows += phase_kernel_d36_512(dev)
     torch.cuda.empty_cache()
     for row in rows:
@@ -3825,7 +3992,7 @@ def main() -> None:
     phase_parity(dev, root)
     launches = phase_main_path(dev)
     phase_train_parity(dev, root)
-    phase_train_main_path(dev)
+    launches["conv3xtf32"] = phase_train_main_path(dev)["conv3xtf32"]
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in phase_imagenet_train_main_path(dev).items()
                      if k.startswith("paired_train")})
@@ -3882,6 +4049,7 @@ def main() -> None:
                              "var_tpu/ops/pallas/gn_stats.py:51"),
         "gn_silu": ("var_tpu_torch/ops/cuda/csrc/gn_silu.cu", None),  # replaces no JAX kernel
         "kv_write": ("var_tpu_torch/ops/cuda/csrc/kv_write.cu", None),  # neither
+        "conv3xtf32": ("var_tpu_torch/ops/cuda/csrc/conv3xtf32.cu", None),  # nor this
     }
     emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     # launches: counted on the d16 paths; no path here runs a d36 decode

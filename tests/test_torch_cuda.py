@@ -26,6 +26,7 @@ from var_tpu_torch.ops.cuda.flash_attention import (flash_attention, flash_atten
                                                     paired_train_fwd)
 
 ROOT = Path(__file__).resolve().parent.parent
+from var_tpu_torch.ops.cuda.conv3xtf32 import conv3xtf32, conv3xtf32_plain, split_weight
 from var_tpu_torch.ops.cuda.fused_ln import modulated_layernorm, modulated_layernorm_plain
 from var_tpu_torch.ops.cuda.gn_silu import gn_silu, gn_silu_plain
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats, gn_channel_stats_plain
@@ -878,7 +879,7 @@ def test_cuda_gn_silu_large_mean_beside_a_small_spread(cuda, dtype, mean, std, c
 
 @pytest.mark.cuda
 def test_cuda_gn_silu_reruns_bit_identical_and_refuses_other_inputs(cuda):
-    """No atomics: two launches give the same bits. No quiet copy: float32,
+    """No atomics: two launches give the same bits. No quiet copy: float64,
     dense NCHW, a width the vectors do not divide or bf16 weights are
     refused."""
     x = torch.randn(8, 160, 64, 64, device=cuda).to(torch.bfloat16,
@@ -886,7 +887,7 @@ def test_cuda_gn_silu_reruns_bit_identical_and_refuses_other_inputs(cuda):
     w, bias = _gn_params(160, cuda, 1)
     assert torch.equal(gn_silu(x, w, bias, 32, 1e-6), gn_silu(x, w, bias, 32, 1e-6))
     with pytest.raises(TypeError):
-        gn_silu(x.float(), w, bias, 32, 1e-6)
+        gn_silu(x.double(), w, bias, 32, 1e-6)
     with pytest.raises(ValueError, match="channels-last"):
         gn_silu(x.contiguous(), w, bias, 32, 1e-6)
     with pytest.raises(ValueError, match="36 channels"):
@@ -894,6 +895,177 @@ def test_cuda_gn_silu_reruns_bit_identical_and_refuses_other_inputs(cuda):
         gn_silu(x36, w[:36].contiguous(), bias[:36].contiguous(), 4, 1e-6)
     with pytest.raises(ValueError, match="weight"):
         gn_silu(x, w.bfloat16(), bias, 32, 1e-6)
+
+
+# (C, H = W) of every GroupNorm input of the ch160 encoder at 256px
+ENCODER_GN_SHAPES = [(160, 256), (160, 128), (160, 64), (320, 64), (320, 32), (320, 16),
+                     (640, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("c,hw", ENCODER_GN_SHAPES)
+def test_cuda_gn_silu_float32_matches_plain(cuda, c, hw, silu):
+    """The float32 instantiation at every GroupNorm shape of the encoder at
+    batch 32: one launch of each kernel, a channels-last float32 output
+    within float32 rounding of the plain version's (the same arithmetic,
+    the statistics summed in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(c + hw)
+    x = (torch.randn(32, c, hw, hw, generator=g, device=cuda) * 2 + 0.5).contiguous(
+        memory_format=torch.channels_last)
+    w, bias = _gn_params(c, cuda, c)
+    before = gn_silu.launches
+    got = gn_silu(x, w, bias, 32, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert gn_silu.launches == before + 3
+    assert got.dtype == torch.float32 and got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, gn_silu_plain(x, w, bias, 32, 1e-6, silu), rtol=1e-5,
+                               atol=1e-5)
+
+
+# every distinct convolution of the ch160 encoder and quant_conv at 256px
+# (chip_smoke.ENCODER_CONVS holds their shapes)
+ENCODER_CONVS = ("conv_in", "l0_3x3", "down0", "l1_3x3", "down1", "l2_conv1", "l2_nin", "l2_3x3",
+                 "down2", "l3_3x3", "down3", "l4_conv1", "l4_nin", "l4_3x3", "qkv", "proj_out",
+                 "conv_out", "quant_conv")
+
+
+def _conv_case(dev, name, b):
+    """chip_smoke's seeded inputs of the encoder convolution ``name`` at
+    batch ``b``: (x, weight, bias, stride, pad, residual)."""
+    cs = _chip_smoke()
+    _, cin, cout, hw, k, stride, residual = next(c for c in cs.ENCODER_CONVS if c[0] == name)
+    return cs._conv_case(dev, cin, cout, hw, k, stride, residual, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENCODER_CONVS)
+def test_cuda_conv3xtf32_is_as_accurate_as_float32(cuda, name):
+    """At every encoder convolution at batch 32, against the same
+    convolution in float64: the kernel's error (max |error| over the
+    result's RMS) is at most twice that of cuDNN's float32 convolution with
+    TF32 off on the same inputs, and a one-pass TF32 control (both operands
+    rounded to TF32, then summed in float32) reads at least 30 times worse,
+    which shows the test tells the two apart. One launch, a channels-last
+    float32 output."""
+    from var_tpu_torch.device import fp32_exact
+    from var_tpu_torch.ops.cuda.conv3xtf32 import _tf32
+
+    x, w, bias, stride, pad, res = _conv_case(cuda, name, 32)
+    before = conv3xtf32.launches
+    got = conv3xtf32(x, w, bias, stride, pad, res)
+    torch.cuda.synchronize()
+    assert conv3xtf32.launches == before + 1
+    assert got.dtype == torch.float32 and got.is_contiguous(memory_format=torch.channels_last)
+    ref = _chip_smoke()._conv_float64(x, w, bias, stride, pad, res)
+    rms = ref.pow(2).mean().sqrt()
+
+    def err(t):  # max |t - ref| over the float64 result's RMS
+        return float((t.double() - ref).abs().max() / rms)
+
+    with fp32_exact():
+        errs = {"kernel": err(got),
+                "cudnn_fp32": err(conv3xtf32_plain(x, w, bias, stride, pad, res)),
+                "tf32_one_pass": err(conv3xtf32_plain(_tf32(x), _tf32(w), bias, stride, pad,
+                                                      res))}
+    print(json.dumps({"conv3xtf32_accuracy": name, **errs}))
+    assert errs["kernel"] <= 2 * errs["cudnn_fp32"], errs
+    assert errs["tf32_one_pass"] >= 30 * errs["kernel"], errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv_in", "l0_3x3", "down0", "qkv", "conv_out"])
+def test_cuda_conv3xtf32_launches_and_replays_bit_equal(cuda, name):
+    """No split-K, no atomics: two launches and a CUDA-graph replay of the
+    captured launch give the same bits."""
+    x, w, bias, stride, pad, res = _conv_case(cuda, name, 8)
+    first = conv3xtf32(x, w, bias, stride, pad, res)
+    second = conv3xtf32(x, w, bias, stride, pad, res)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        captured = conv3xtf32(x, w, bias, stride, pad, res)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, captured)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3xtf32_refuses_what_it_does_not_take(cuda):
+    """No quiet copy and no fallback: bf16, dense NCHW, a Cout no tile
+    divides or a residual of another shape are refused."""
+    x, w, bias, stride, pad, res = _conv_case(cuda, "l1_3x3", 2)
+    with pytest.raises(TypeError):
+        conv3xtf32(x.bfloat16(), w, bias)
+    with pytest.raises(ValueError, match="channels-last"):
+        conv3xtf32(x.contiguous(), w, bias)
+    with pytest.raises(ValueError, match="Cout"):
+        conv3xtf32(x, w[:48], bias[:48])
+    with pytest.raises(ValueError, match="residual"):
+        conv3xtf32(x, w, bias, 2, (0, 1, 0, 1), res)
+
+
+@pytest.mark.cuda
+def test_cuda_split_weight_is_exact_to_tf32_twice(cuda):
+    """The wrapper's split on the card: hi + lo within 2^-21 of w, the same
+    bits as on the CPU."""
+    w = torch.randn(160, 160, 3, 3, device=cuda)
+    hi, lo = split_weight(w)
+    chi, clo = split_weight(w.cpu())
+    assert torch.equal(hi.cpu(), chi) and torch.equal(lo.cpu(), clo)
+    wk = w.permute(0, 2, 3, 1).reshape(160, -1)
+    assert bool(((wk - hi - lo).abs() <= wk.abs() * 2.0 ** -21).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant,old,new", [
+    ("one_small_term", "Mma<BN>::run(part, ahi[kk], dl + 2 * kk, 1);", ""),
+    ("tap_shifted", "xi0 + dx, yi0 + dy", "xi0 + dx + 1, yi0 + dy")])
+def test_planted_fault_fails_the_conv3xtf32_check(cuda, tmp_path, mutant, old, new):
+    """A copy of conv3xtf32 that drops the A_hi B_lo products (2xTF32: the
+    weights' lo part lost) or reads every tap one pixel to the right, built
+    in tmp_path, must fail chip_smoke.check_conv3xtf32."""
+    _planted_copy(tmp_path, "conv3xtf32.cu", old, new, min_count=1)
+    rc, last = _run_check(tmp_path, "check_conv3xtf32")
+    print(json.dumps({"mutant": f"conv3xtf32_{mutant}", "rc": rc, "error": last[:3000]}))
+    assert rc != 0 and "conv3xtf32" in last
+
+
+@pytest.mark.cuda
+def test_cuda_channels_last_encoder_tokens_are_as_close_to_float64(cuda, monkeypatch):
+    """96 seeded 256px images through the ch160 tokenizer: the share of
+    tokens that differ from a float64 encode's (NCHW, the quantizer in
+    float64 too) is no higher on the channels-last encoder (39 conv3xtf32
+    launches a batch of 32) than on the NCHW float32 encoder through cuDNN
+    with TF32 off (no launch)."""
+    import copy
+
+    tv, vae, _ = _ch160_render_setup(cuda)
+    vae64 = copy.deepcopy(vae).double()
+    g = torch.Generator(device=cuda).manual_seed(96)
+    imgs = torch.rand(3, 32, 256, 256, 3, generator=g, device=cuda) * 2 - 1
+
+    def tokens(model, img):
+        return torch.cat([t.flatten() for t in tv.img_to_idxBl(model, img)])
+
+    differ = {"channels_last": 0, "nchw_cudnn": 0}
+    total = 0
+    with torch.no_grad():
+        for img in imgs:
+            want = tokens(vae64, img.double())
+            before = conv3xtf32.launches
+            new = tokens(vae, img)
+            assert conv3xtf32.launches == before + 39
+            with monkeypatch.context() as m:
+                m.setattr(tv, "_NHWC_DEVICES", ())
+                old = tokens(vae, img)
+            assert conv3xtf32.launches == before + 39
+            differ["channels_last"] += int((new != want).sum())
+            differ["nchw_cudnn"] += int((old != want).sum())
+            total += want.numel()
+    print(json.dumps({"tokens": total, **differ}))
+    assert differ["channels_last"] <= differ["nchw_cudnn"], differ
 
 
 def _ch160_render_setup(dev, b=2):

@@ -23,23 +23,29 @@ def _norm_params(c, seed):
     return 1 + 0.3 * torch.randn(c, generator=g), 0.3 * torch.randn(c, generator=g)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("silu,with_bias_in", [(True, False), (True, True), (False, False)])
 @pytest.mark.parametrize("c", [160, 320, 640])
-def test_gn_silu_plain_equals_group_norm_then_silu(c, silu, with_bias_in):
-    """The decoder's three widths (5, 10 and 20 channels a group), float32
-    channels-last input: the plain version's folded scale and shift equal
-    ``F.group_norm`` (then ``F.silu``) of ``x + bias_in`` within float32
-    rounding, and the output is channels-last."""
+def test_gn_silu_plain_equals_group_norm_then_silu(c, silu, with_bias_in, dtype):
+    """The three widths of the decoder and of the encoder (5, 10 and 20
+    channels a group), channels-last input in float32 (the encoder's
+    instantiation) and bf16 (the decoder's): the plain version's folded
+    scale and shift equal ``F.group_norm`` (then ``F.silu``) of ``x +
+    bias_in`` in float32 within float32 rounding, then one rounding to x's
+    dtype, and the output is channels-last in that dtype."""
     g = torch.Generator().manual_seed(c)
-    x = (torch.randn(2, c, 8, 8, generator=g) * 2 + 0.5).to(memory_format=torch.channels_last)
+    x = (torch.randn(2, c, 8, 8, generator=g) * 2 + 0.5).to(dtype,
+                                                             memory_format=torch.channels_last)
     w, b = _norm_params(c, c + 1)
     bias_in = torch.randn(c, generator=g) if with_bias_in else None
-    want = F.group_norm(x if bias_in is None else x + bias_in[:, None, None], 32, w, b, 1e-6)
+    xf = x.float()
+    want = F.group_norm(xf if bias_in is None else xf + bias_in[:, None, None], 32, w, b, 1e-6)
     if silu:
         want = F.silu(want)
     got = gs.gn_silu_plain(x, w, b, 32, 1e-6, silu, bias_in)
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
 
 
 def test_gn_silu_takes_the_plain_version_for_a_cpu_tensor():

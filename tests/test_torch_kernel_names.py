@@ -5,6 +5,7 @@ other kernel belongs to none."""
 
 import pytest
 
+from benchmark.harness.trace import kind
 from var_tpu_torch.ops.cuda import counted_wrappers, wrapper_of
 
 # the training-attention kernels of rows 5 and 6, by the kRow template
@@ -101,12 +102,32 @@ OTHERS = [
      "{lambda(float, float)#1}>, unsigned int, float, 4, 4>)", None),
 ]
 
-KERNEL_NAMES = TRAIN_ATTENTION + ROWS_1_AND_3 + OTHERS
+# the frozen encoder's float32 convolution, both instantiations: its wrapper,
+# and the benchmark files its time under convolutions (tokenizer_ms.train)
+CONV3XTF32 = [
+    ("void (anonymous namespace)::conv3xtf32_wgmma_kernel<160>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float*, (anonymous namespace)::Geometry)",
+     "conv3xtf32"),
+    ("void (anonymous namespace)::conv3xtf32_wgmma_kernel<32>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float*, (anonymous namespace)::Geometry)",
+     "conv3xtf32"),
+    ("_ZN46_GLOBAL__N__8dd27be3_13_conv3xtf32_cu_1f60781c23conv3xtf32_wgmma_kernelILi160EEEv"
+     "14CUtensorMap_stS1_S1_PKfS3_PfNS_8GeometryE", "conv3xtf32"),
+    ("_ZN46_GLOBAL__N__8dd27be3_13_conv3xtf32_cu_1f60781c23conv3xtf32_wgmma_kernelILi32EEEv"
+     "14CUtensorMap_stS1_S1_PKfS3_PfNS_8GeometryE", "conv3xtf32"),
+]
+
+KERNEL_NAMES = TRAIN_ATTENTION + ROWS_1_AND_3 + OTHERS + CONV3XTF32
 
 
 @pytest.mark.parametrize("name,wrapper", KERNEL_NAMES)
 def test_wrapper_of_names_the_kernels_wrapper(name, wrapper):
     assert wrapper_of(name) == wrapper
+
+
+@pytest.mark.parametrize("name", [name for name, _ in CONV3XTF32])
+def test_the_benchmark_files_conv3xtf32_under_conv(name):
+    assert kind(name) == "conv"
 
 
 def test_every_counted_wrapper_has_a_listed_kernel():

@@ -2,7 +2,9 @@
 ``var_tpu/models/vae.py``).
 
 NCHW inside (a bf16 or fp16 decode without gradients on CUDA keeps
-channels-last memory throughout: :func:`channels_last_decode`), with the
+channels-last memory throughout: :func:`channels_last_decode`; so does a
+float32 encode without gradients on CUDA, its convolutions through
+``ops/cuda/conv3xtf32.py``: :func:`channels_last_encode`), with the
 reference module names (``models/basic_vae.py``, ``models/vqvae.py``) so a
 whole reference state dict loads with ``load_state_dict``: ``encoder.*``,
 ``quant_conv.*``, ``quantize.*``, ``post_quant_conv.*``, ``decoder.*``.
@@ -34,6 +36,7 @@ from var_tpu_torch.device import fp32_exact
 from var_tpu_torch.engine.compiled import Compiled
 from var_tpu_torch.models import quantizer as q
 from var_tpu_torch.models.quantizer import VectorQuantizer2
+from var_tpu_torch.ops.cuda.conv3xtf32 import conv3xtf32, takes
 from var_tpu_torch.ops.cuda.gn_silu import gn_silu
 from var_tpu_torch.ops.cuda.gn_stats import gn_channel_stats
 
@@ -85,7 +88,7 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor, impl: str = "dot") -> torch.
             + g_shift.reshape(b, c, 1, 1).to(x.dtype))
 
 
-_NHWC_DEVICES = ("cuda",)  # where gn_silu has a kernel
+_NHWC_DEVICES = ("cuda",)  # where gn_silu and conv3xtf32 have kernels
 
 
 def channels_last_decode(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str) -> bool:
@@ -98,13 +101,35 @@ def channels_last_decode(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str) -> bool:
     (autograd off, or neither ``f_hat`` nor a parameter of
     ``post_quant_conv`` or the decoder requiring one) and ``gn_impl`` "dot"
     or "xla". Every other decode (float32, under autograd,
-    ``gn_impl="pallas"``, the CPU), the training forward and the encoder run
-    :func:`group_norm` over NCHW as before."""
+    ``gn_impl="pallas"``, the CPU) and the training forward run
+    :func:`group_norm` over NCHW as before; the encoder has its own test
+    (:func:`channels_last_encode`)."""
     trainable = (p.requires_grad for m in (vae.post_quant_conv, vae.decoder)
                  for p in m.parameters())
     return (f_hat.device.type in _NHWC_DEVICES
             and f_hat.dtype in (torch.bfloat16, torch.float16) and gn_impl in ("dot", "xla")
             and not (torch.is_grad_enabled() and (f_hat.requires_grad or any(trainable))))
+
+
+def channels_last_encode(vae: VQVAE, img: torch.Tensor, gn_impl: str) -> bool:
+    """Whether :func:`img_to_f` of ``img`` runs the encoder and
+    ``quant_conv`` channels-last (:func:`encoder_apply`'s ``nhwc``): every
+    convolution one launch of ``ops/cuda/conv3xtf32.py``'s kernel (float32
+    accuracy from three TF32 products a term), every GroupNorm through
+    ``ops/cuda/gn_silu.py``'s float32 kernels. Taken from the input alone:
+    ``img`` on CUDA, float32, no gradient wanted (autograd off, or neither
+    ``img`` nor a parameter of the encoder or ``quant_conv`` requiring one)
+    and ``gn_impl`` "dot" or "xla"; and widths the kernel takes in every one
+    of those convolutions (``conv3xtf32.takes``: the published tokenizer's
+    do; a test's 8-channel latent does not). A bf16 encode (``vae_bf16``),
+    tokenizer training, ``gn_impl="pallas"`` and the CPU run the NCHW
+    encoder; no decoder and no quantizer convolution takes the kernel."""
+    trainable = (p.requires_grad for m in (vae.encoder, vae.quant_conv) for p in m.parameters())
+    convs = [m for m in (*vae.encoder.modules(), vae.quant_conv) if isinstance(m, nn.Conv2d)]
+    return (img.device.type in _NHWC_DEVICES and img.dtype == torch.float32
+            and gn_impl in ("dot", "xla")
+            and not (torch.is_grad_enabled() and (img.requires_grad or any(trainable)))
+            and all(takes(c.in_channels, c.out_channels, *c.kernel_size) for c in convs))
 
 
 def gn_nhwc(norm: nn.GroupNorm, x: torch.Tensor, silu: bool = True,
@@ -117,8 +142,23 @@ def gn_nhwc(norm: nn.GroupNorm, x: torch.Tensor, silu: bool = True,
                    None if bias_in is None else bias_in.float())
 
 
-def _conv(conv: Conv2d, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
-    return conv.channels_last(x) if nhwc else conv(x)
+def _conv(conv: Conv2d, x: torch.Tensor, nhwc: bool, residual: Optional[torch.Tensor] = None,
+          pad: Optional[tuple] = None, bias: bool = True) -> torch.Tensor:
+    """``residual + conv(x)`` (``residual`` None: the convolution alone);
+    ``pad`` (left, right, top, bottom, as ``F.pad``) in place of the conv's
+    own padding. ``nhwc``: over channels-last memory, a float32 ``x``
+    through one conv3xtf32 launch (:func:`channels_last_encode`; its bias
+    and the residual added in the launch), any other dtype through
+    :meth:`Conv2d.channels_last` (``bias=False``: the bias left to the
+    caller)."""
+    if nhwc and x.dtype == torch.float32:
+        p = conv.padding[0]
+        return conv3xtf32(x, conv.weight.float(), conv.bias.float(), conv.stride[0],
+                          pad or (p, p, p, p), residual)
+    if pad is not None:
+        x = F.pad(x, pad)
+    y = conv.channels_last(x, bias) if nhwc else conv(x)
+    return y if residual is None else residual + y
 
 
 def _norm(c: int) -> nn.GroupNorm:
@@ -272,17 +312,19 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 def resnet_block(blk: ResnetBlock, x: torch.Tensor, gn_impl: str = "dot",
                  nhwc: bool = False) -> torch.Tensor:
     """norm-swish-conv x2 with a (1x1-projected) residual (``basic_vae.py:40-60``).
-    ``nhwc`` (:func:`channels_last_decode`): channels-last, conv1's bias
-    added inside norm2's kernel."""
+    ``nhwc`` (:func:`channels_last_decode`, :func:`channels_last_encode`):
+    channels-last; conv1's bias added inside norm2's kernel, and in float32
+    inside conv1's launch and the residual inside conv2's (:func:`_conv`)."""
     if nhwc:
-        h = blk.conv1.channels_last(gn_nhwc(blk.norm1, x), bias=False)
-        h = blk.conv2.channels_last(gn_nhwc(blk.norm2, h, bias_in=blk.conv1.bias))
+        fold = x.dtype != torch.float32
+        h = _conv(blk.conv1, gn_nhwc(blk.norm1, x), nhwc, bias=not fold)
+        h = gn_nhwc(blk.norm2, h, bias_in=blk.conv1.bias if fold else None)
     else:
         h = blk.conv1(swish(group_norm(blk.norm1, x, gn_impl)))
-        h = blk.conv2(swish(group_norm(blk.norm2, h, gn_impl)))
+        h = swish(group_norm(blk.norm2, h, gn_impl))
     if blk.nin_shortcut is not None:
         x = _conv(blk.nin_shortcut, x, nhwc)
-    return x + h
+    return _conv(blk.conv2, h, nhwc, residual=x)
 
 
 def attn_block(blk: AttnBlock, x: torch.Tensor, gn_impl: str = "dot",
@@ -292,21 +334,21 @@ def attn_block(blk: AttnBlock, x: torch.Tensor, gn_impl: str = "dot",
     the same products over channels-last memory, (B, HW, C) a row a pixel."""
     b, c, h, w = x.shape
     if nhwc:
-        qkv = blk.qkv.channels_last(gn_nhwc(blk.norm, x, silu=False))
+        qkv = _conv(blk.qkv, gn_nhwc(blk.norm, x, silu=False), nhwc)
         q, k, v = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3, c).float().unbind(2)
         attn = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (c ** -0.5), dim=-1)
         out = torch.bmm(attn, v).to(x.dtype).reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return x + blk.proj_out.channels_last(out)
-    qkv = blk.qkv(group_norm(blk.norm, x, gn_impl)).reshape(b, 3, c, h * w).float()
-    q, k, v = qkv.unbind(1)  # (B, C, HW) each
-    attn = torch.softmax(torch.bmm(q.transpose(1, 2), k) * (c ** -0.5), dim=-1)
-    out = torch.bmm(v, attn.transpose(1, 2)).reshape(b, c, h, w).to(x.dtype)
-    return x + blk.proj_out(out)
+    else:
+        qkv = blk.qkv(group_norm(blk.norm, x, gn_impl)).reshape(b, 3, c, h * w).float()
+        q, k, v = qkv.unbind(1)  # (B, C, HW) each
+        attn = torch.softmax(torch.bmm(q.transpose(1, 2), k) * (c ** -0.5), dim=-1)
+        out = torch.bmm(v, attn.transpose(1, 2)).reshape(b, c, h, w).to(x.dtype)
+    return _conv(blk.proj_out, out, nhwc, residual=x)
 
 
-def downsample2x(ds: Downsample2x, x: torch.Tensor) -> torch.Tensor:
+def downsample2x(ds: Downsample2x, x: torch.Tensor, nhwc: bool = False) -> torch.Tensor:
     """Asymmetric pad (0, 1, 0, 1) then a stride-2 3x3 conv (``basic_vae.py:31-37``)."""
-    return ds.conv(F.pad(x, (0, 1, 0, 1)))
+    return _conv(ds.conv, x, nhwc, pad=(0, 1, 0, 1))
 
 
 def upsample2x(up: Upsample2x, x: torch.Tensor, nhwc: bool = False) -> torch.Tensor:
@@ -314,21 +356,26 @@ def upsample2x(up: Upsample2x, x: torch.Tensor, nhwc: bool = False) -> torch.Ten
     return _conv(up.conv, F.interpolate(x, scale_factor=2.0, mode="nearest"), nhwc)
 
 
-def encoder_apply(enc: Encoder, x: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
-    """(B, 3, H, W) in [-1, 1] -> (B, Cvae, H/16, W/16), NCHW (``basic_vae.py:144-160``)."""
-    h = enc.conv_in(x)
+def encoder_apply(enc: Encoder, x: torch.Tensor, gn_impl: str = "dot",
+                  nhwc: bool = False) -> torch.Tensor:
+    """(B, 3, H, W) in [-1, 1] -> (B, Cvae, H/16, W/16), NCHW (``basic_vae.py:144-160``).
+    ``nhwc`` (:func:`channels_last_encode`): channels-last float32 ``x`` in,
+    each convolution one conv3xtf32 launch, each GroupNorm (and SiLU)
+    gn_silu's kernels, the result channels-last."""
+    h = _conv(enc.conv_in, x, nhwc)
     for level in enc.down:
         for j, blk in enumerate(level.block):
-            h = resnet_block(blk, h, gn_impl)
+            h = resnet_block(blk, h, gn_impl, nhwc)
             if len(level.attn):
-                h = attn_block(level.attn[j], h, gn_impl)
+                h = attn_block(level.attn[j], h, gn_impl, nhwc)
         if level.downsample is not None:
-            h = downsample2x(level.downsample, h)
-    h = resnet_block(enc.mid.block_1, h, gn_impl)
+            h = downsample2x(level.downsample, h, nhwc)
+    h = resnet_block(enc.mid.block_1, h, gn_impl, nhwc)
     if enc.mid.attn_1 is not None:
-        h = attn_block(enc.mid.attn_1, h, gn_impl)
-    h = resnet_block(enc.mid.block_2, h, gn_impl)
-    return enc.conv_out(swish(group_norm(enc.norm_out, h, gn_impl)))
+        h = attn_block(enc.mid.attn_1, h, gn_impl, nhwc)
+    h = resnet_block(enc.mid.block_2, h, gn_impl, nhwc)
+    h = gn_nhwc(enc.norm_out, h) if nhwc else swish(group_norm(enc.norm_out, h, gn_impl))
+    return _conv(enc.conv_out, h, nhwc)
 
 
 def decoder_apply(dec: Decoder, z: torch.Tensor, gn_impl: str = "dot",
@@ -376,8 +423,13 @@ def fhat_to_img(vae: VQVAE, f_hat: torch.Tensor, gn_impl: str = "dot") -> torch.
 
 def img_to_f(vae: VQVAE, img: torch.Tensor, gn_impl: str = "dot") -> torch.Tensor:
     """Encoder + quant_conv (``vqvae.py:66``): image (B, H, W, 3) -> features
-    (B, H/16, W/16, Cvae), in the image's dtype."""
-    f = vae.quant_conv(encoder_apply(vae.encoder, _nchw(img, gn_impl), gn_impl))
+    (B, H/16, W/16, Cvae), in the image's dtype; channels-last through
+    conv3xtf32 where :func:`channels_last_encode` says so."""
+    nhwc = channels_last_encode(vae, img, gn_impl)
+    x = _nchw(img, gn_impl)
+    if nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+    f = _conv(vae.quant_conv, encoder_apply(vae.encoder, x, gn_impl, nhwc), nhwc)
     return f.permute(0, 2, 3, 1)
 
 

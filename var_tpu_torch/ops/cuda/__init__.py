@@ -16,13 +16,15 @@ _KERNEL_WRAPPERS = (("modulated_ln_kernel", "modulated_layernorm"),
                     ("topk_topp_bound_kernel", "topk_topp_bound"),
                     ("gn_silu_", "gn_silu"),
                     ("gn_stats_kernel", "gn_channel_stats"),
-                    ("kv_write_kernel", "kv_write"))
+                    ("kv_write_kernel", "kv_write"),
+                    ("conv3xtf32_wgmma_kernel", "conv3xtf32"))
 
 
 def counted_wrappers() -> tuple:
     """Every kernel wrapper with a ``launches`` counter, in kernel-table order,
-    then ``gn_silu`` and ``kv_write``, which have no row there (imported
-    here, not at import of the package)."""
+    then ``gn_silu``, ``kv_write`` and ``conv3xtf32``, which have no row
+    there (imported here, not at import of the package)."""
+    from var_tpu_torch.ops.cuda.conv3xtf32 import conv3xtf32
     from var_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
                                                         flash_attention_fwd, flash_decode,
                                                         flash_decode_paired, paired_train_bwd,
@@ -35,7 +37,7 @@ def counted_wrappers() -> tuple:
 
     return (modulated_layernorm, flash_decode, topk_topp_bound, flash_decode_paired,
             flash_attention_fwd, flash_attention_bwd, paired_train_fwd, paired_train_bwd,
-            gn_channel_stats, gn_silu, kv_write)
+            gn_channel_stats, gn_silu, kv_write, conv3xtf32)
 
 
 def wrapper_of(event_name: str) -> Optional[str]:

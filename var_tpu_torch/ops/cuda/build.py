@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_ln.cu", "select.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "gn_stats.cu", "span_stamp.cu", "gn_silu.cu", "kv_write.cu")
+           "gn_stats.cu", "span_stamp.cu", "gn_silu.cu", "kv_write.cu", "conv3xtf32.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,11 +114,12 @@ def lib() -> ctypes.CDLL:
         cdll.var_span_stamp.argtypes = [P, P, LL, I, P]
         cdll.var_gn_silu.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P]
         cdll.var_kv_write.argtypes = [P, P, P, P, LL, I, I, I, I, I, LL, LL, LL, LL, I, I, P]
+        cdll.var_conv3xtf32.argtypes = [P] * 6 + [I] * 15 + [P]
         for fn in (cdll.var_modulated_layernorm, cdll.var_topk_topp_bound,
                    cdll.var_decode_attention, cdll.var_decode_attention_paired,
                    cdll.var_ptrain_fwd, cdll.var_ptrain_bwd, cdll.var_flash_fwd,
                    cdll.var_flash_bwd, cdll.var_gn_channel_stats, cdll.var_span_stamp,
-                   cdll.var_gn_silu, cdll.var_kv_write):
+                   cdll.var_gn_silu, cdll.var_kv_write, cdll.var_conv3xtf32):
             fn.restype = I
         cdll.var_cuda_error_string.argtypes = [I]
         cdll.var_cuda_error_string.restype = ctypes.c_char_p

@@ -1,5 +1,8 @@
 // GroupNorm, then SiLU or nothing, over channels-last (NHWC) bfloat16 or
-// float16 activations: every GroupNorm of the VQVAE decoder in inference.
+// float16 activations: every GroupNorm of the VQVAE decoder in inference;
+// and over float32 ones: every GroupNorm of the frozen encoder in float32
+// inference (models/vae.py::channels_last_encode), whose convolutions are
+// conv3xtf32.cu's.
 //
 //   y[b, p, c] = silu((x[b, p, c] + bias_in[c]) * scale[b, c] + shift[b, c])   (p: pixel)
 //   scale[b, c] = weight[c] * rstd[b, g(c)]
@@ -19,14 +22,15 @@
 //
 // Bound on the H100: memory. The statistics read x once (2 bytes an element),
 // the apply reads it again and writes y (4 bytes), against ~10 flops an
-// element: the floor is 6 bytes an element over 3.35 TB/s.
+// element: the floor is 6 bytes an element over 3.35 TB/s (12 in float32).
 //
-// Design. A pixel's C channels are contiguous, so a thread owns one 16-byte
-// vector of 8 channels (a fixed column of the pixel) and a block of
-// rows x C/8 threads walks a tile of the image's pixels rows at a time, four
-// 16-byte loads in flight a thread. Groups of the decoder are 5, 10 and 20
-// channels (C 160, 320, 640 over 32 groups), so a vector straddles groups and
-// the reduction is per channel first.
+// Design. A pixel's C channels are contiguous, so a thread owns one vector
+// of 8 channels (16 bytes; 32 in float32, two 16-byte loads) at a fixed
+// column of the pixel and a block of rows x C/8 threads walks a tile of the
+// image's pixels rows at a time, four vectors in flight a thread. Groups of
+// the decoder and the encoder are 5, 10 and 20 channels (C 160, 320, 640 over
+// 32 groups), so a vector straddles groups and the reduction is per channel
+// first.
 //
 // Statistics kernel (grid: tiles x batch). Each thread keeps a Welford mean
 // and M2 for its 8 channels over its pixels, a block merges its rows per
@@ -57,8 +61,13 @@ using namespace vtt;
 
 namespace {
 
-constexpr int kVec = 8;  // channels in one 16-byte vector (2-byte types)
-constexpr int kUnroll = 4;  // 16-byte loads in flight a thread
+constexpr int kVec = 8;  // channels in one vector
+constexpr int kUnroll = 4;  // vectors in flight a thread
+
+// kVec channels as 16-byte words: one of a 2-byte type, two of float
+template <typename T> struct Vec {
+  uint4 w[kVec * sizeof(T) / 16];
+};
 
 // Fold the partial (nb, mb, m2b) into (n, mean, m2) (Chan et al.).
 __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mb,
@@ -81,7 +90,7 @@ gn_silu_stats_kernel(const T* __restrict__ x, const float* __restrict__ bias_in,
   const int cv = threadIdx.x % nv, r = threadIdx.x / nv;
   const int b = blockIdx.y, t = blockIdx.x, tiles = gridDim.x;
   const int p0 = t * tile, p1 = min(p0 + tile, hw);
-  const uint4* xb = reinterpret_cast<const uint4*>(x) + (long long)b * hw * nv + cv;
+  const Vec<T>* xb = reinterpret_cast<const Vec<T>*>(x) + (long long)b * hw * nv + cv;
 
   float mean[kVec], m2[kVec], add[kVec], n = 0.f;
 #pragma unroll
@@ -90,11 +99,11 @@ gn_silu_stats_kernel(const T* __restrict__ x, const float* __restrict__ bias_in,
     add[k] = bias_in ? bias_in[cv * kVec + k] : 0.f;
   }
   for (int p = p0 + r; p < p1; p += rows * kUnroll) {
-    uint4 raw[kUnroll];
+    Vec<T> raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int q = p + u * rows;
-      raw[u] = q < p1 ? xb[(long long)q * nv] : make_uint4(0u, 0u, 0u, 0u);
+      raw[u] = q < p1 ? xb[(long long)q * nv] : Vec<T>{};
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -192,21 +201,21 @@ gn_silu_apply_kernel(const T* __restrict__ x, const float2* __restrict__ ss,
   }
   const int p0 = t * tile, p1 = min(p0 + tile, hw);
   const long long base = (long long)b * hw * nv + cv;
-  const uint4* xb = reinterpret_cast<const uint4*>(x) + base;
-  uint4* yb = reinterpret_cast<uint4*>(y) + base;
+  const Vec<T>* xb = reinterpret_cast<const Vec<T>*>(x) + base;
+  Vec<T>* yb = reinterpret_cast<Vec<T>*>(y) + base;
   for (int p = p0 + r; p < p1; p += rows * kUnroll) {
-    uint4 raw[kUnroll];
+    Vec<T> raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int q = p + u * rows;
-      raw[u] = q < p1 ? xb[(long long)q * nv] : make_uint4(0u, 0u, 0u, 0u);
+      raw[u] = q < p1 ? xb[(long long)q * nv] : Vec<T>{};
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int q = p + u * rows;
       if (q >= p1) break;
       const T* e = reinterpret_cast<const T*>(&raw[u]);
-      uint4 out;
+      Vec<T> out;
       T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
@@ -254,6 +263,10 @@ extern "C" int var_gn_silu(const void* x, const void* weight, const void* bias,
   if (err != cudaSuccess) return (int)err;
   if (c % kVec || c % groups || c / kVec > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32) {
+    return launch<float>(x, weight, bias, bias_in, part, ss, y, b, hw, c, groups, tile, tiles,
+                         eps, silu != 0, st);
+  }
   if (dtype == kBF16) {
     return launch<__nv_bfloat16>(x, weight, bias, bias_in, part, ss, y, b, hw, c, groups, tile,
                                  tiles, eps, silu != 0, st);

@@ -1,5 +1,7 @@
 """GroupNorm, then SiLU or nothing, over channels-last activations
-(``csrc/gn_silu.cu``): the VQVAE decoder's norms in bf16 or fp16 inference.
+(``csrc/gn_silu.cu``): the VQVAE decoder's norms in bf16 or fp16 inference,
+and the frozen encoder's in float32 inference (``models/vae.py::
+channels_last_encode``).
 
 Replaces no JAX kernel (the JAX package leaves GroupNorm to XLA, which fuses
 it with the SiLU and keeps the layout) and has no row in the kernel table.
@@ -22,8 +24,8 @@ import torch.nn.functional as F
 
 from var_tpu_torch.ops.cuda import build
 
-_CODES = {torch.bfloat16: 1, torch.float16: 2}  # the kernels' dtype codes (common.cuh)
-_VEC = 8  # channels in one 16-byte vector
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the kernels' (common.cuh)
+_VEC = 8  # channels in one vector of a thread
 _THREADS = 256  # most threads a block
 _BLOCKS_PER_SM = 4  # blocks a launch should hand every SM, at least
 _TILE_ELEMS = 1 << 17  # most elements of one tile (256 KB): more tiles are cheap to merge
@@ -71,8 +73,8 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
             eps: float, silu: bool = True,
             bias_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``silu(group_norm(x + bias_in))`` (``silu=False``: the norm alone;
-    ``bias_in`` None: nothing added). x: (B, C, H, W) bfloat16 or float16 in
-    channels-last memory; weight, bias, bias_in: float32 (C,). A CPU tensor
+    ``bias_in`` None: nothing added). x: (B, C, H, W) float32, bfloat16 or
+    float16 in channels-last memory; weight, bias, bias_in: float32 (C,). A CPU tensor
     takes the plain version; a CUDA tensor launches the three kernels
     (statistics, finalize, apply) and returns a channels-last tensor, or
     raises on what they do not take."""
@@ -83,7 +85,7 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
         vecs["bias_in"] = bias_in
     build.require_cuda("gn_silu", x, *vecs.values())
     if x.dtype not in _CODES:
-        raise TypeError(f"gn_silu takes bfloat16 or float16, got {x.dtype}")
+        raise TypeError(f"gn_silu takes float32, bfloat16 or float16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("gn_silu: x must be a channels-last (B, C, H, W) tensor, got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
